@@ -1,0 +1,106 @@
+"""Checkpoints: the JAX package's native ``.npz`` format, and the bridge
+between its numpy parameter trees and the port's model.
+
+The ``.npz`` holds the (params, state) trees flattened to
+``params/flow_blocks/0/actnorm/logs``-style keys, as
+`puflow_tpu.checkpoint` writes them; the flatten/unflatten code is a copy
+of that module's, so the port reads and writes the same files without
+importing jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from puflow_torch.models.discrete import DiscreteModel
+from puflow_torch.utils.device import resolve_device
+
+
+def _flatten(prefix: str, tree, out: dict):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(f"{prefix}/{k}" if prefix else str(k), v, out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(f"{prefix}/{i}", v, out)
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def _unflatten(flat: dict):
+    root: dict = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def save_checkpoint(path: str, params, state) -> None:
+    """Write numpy (params, state) trees as one ``.npz``."""
+    flat = {}
+    _flatten("params", params, flat)
+    _flatten("state", state, flat)
+    np.savez(path, **flat)
+
+
+def load_npz_checkpoint(path: str):
+    """``.npz`` -> numpy (params, state) trees."""
+    with np.load(path) as data:
+        tree = _unflatten({k: data[k] for k in data.files})
+    return tree["params"], tree["state"]
+
+
+def from_numpy_tree(params, state, device="cpu") -> DiscreteModel:
+    """The port's model from numpy (params, state) trees, e.g. the JAX
+    package's parameters after ``jax.tree.map(np.asarray, ...)``."""
+    device = resolve_device(device)
+
+    def to_tensor(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    return DiscreteModel(_map_tree(to_tensor, params),
+                         _map_tree(to_tensor, state))
+
+
+def to_numpy_tree(model: DiscreteModel):
+    """Inverse of `from_numpy_tree`: numpy (params, state) trees."""
+    params, state = model.trees()
+
+    def to_numpy(t):
+        return t.detach().cpu().numpy()
+
+    return _map_tree(to_numpy, params), _map_tree(to_numpy, state)
+
+
+def load_checkpoint(path: str, device="cpu") -> DiscreteModel:
+    """Load a native ``.npz`` checkpoint onto ``device``."""
+    if path.endswith((".pt", ".ckpt")):
+        raise NotImplementedError(
+            "reference .pt checkpoints are not read by the port yet "
+            "(ROADMAP.md, Queue 1: the .pt converter); convert one with "
+            "puflow_tpu and save it as .npz")
+    if not path.endswith(".npz"):
+        raise ValueError(f"unrecognised checkpoint format: {path}")
+    return from_numpy_tree(*load_npz_checkpoint(path), device=device)

@@ -1,0 +1,115 @@
+"""Upsample .xyz point clouds with a PU-Flow checkpoint on a CUDA card.
+
+The port's counterpart of `puflow_tpu.cli.upsample`, with the same flags
+plus ``--device``:
+
+    python -m puflow_torch.cli.upsample --source <dir> --target <dir> \
+        --checkpoint <ckpt.npz> --up_ratio 4 [--num_patch 256] \
+        [--num_out N] [--seed 2021] [--device cuda]
+
+Reads the native ``.npz`` checkpoint format. Clouds are grouped by point
+count and batched ``--batch`` at a time, the tail batch padded so every
+batch has the same shape. Outputs are written with '%.6f'.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--source", type=str, required=True)
+    parser.add_argument("--target", type=str, required=True)
+    parser.add_argument("--seed", type=int, default=2021)
+    parser.add_argument("--checkpoint", type=str, required=True)
+    parser.add_argument("--up_ratio", type=int, default=4)
+    parser.add_argument("--num_patch", type=int, default=256,
+                        help="points per patch")
+    parser.add_argument("--num_out", type=int, default=None,
+                        help="output points per cloud (default N*ratio)")
+    parser.add_argument("--num_outlier", type=int, default=24)
+    parser.add_argument("--model", choices=["discrete", "cnf"],
+                        default="discrete")
+    parser.add_argument("--exact", action="store_true",
+                        help="unfolded BatchNorm. The port runs unfolded "
+                             "BatchNorm with or without this flag until BN "
+                             "folding is ported (ROADMAP.md, next slice)")
+    parser.add_argument("--batch", type=int, default=1,
+                        help="clouds per device batch")
+    parser.add_argument("--seeded_merge", action="store_true",
+                        help="opt-in seeded merge (not ported yet)")
+    parser.add_argument("--merge_groups", type=int, default=0,
+                        help="grouped union merge for values > 1 (not "
+                             "ported yet)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (default cuda)")
+    args = parser.parse_args(argv)
+
+    if args.model == "cnf":
+        raise NotImplementedError(
+            "--model cnf: the CNF family is not ported yet (ROADMAP.md, "
+            "Queue 1 item 7)")
+    if args.seeded_merge or args.merge_groups > 1:
+        raise NotImplementedError(
+            "--seeded_merge / --merge_groups > 1: the opt-in merges are not "
+            "ported yet (ROADMAP.md, Queue 1 item 9)")
+
+    import torch
+
+    from puflow_torch.checkpoint import load_checkpoint
+    from puflow_torch.inference.patch import remove_outliers, upsample_cloud
+    from puflow_torch.utils.device import resolve_device
+    from puflow_torch.utils.io import load_xyz, save_xyz
+
+    device = resolve_device(args.device)
+    rng = np.random.RandomState(args.seed)
+    model = load_checkpoint(args.checkpoint, device)
+
+    os.makedirs(args.target, exist_ok=True)
+    paths = []
+    for root, _dirs, files in os.walk(args.source):
+        paths.extend(os.path.join(root, f) for f in files if ".xyz" in f)
+    paths.sort()
+    if not paths:
+        raise SystemExit(f"no .xyz files under {args.source}")
+
+    by_n = defaultdict(list)
+    for p in paths:
+        pts = load_xyz(p)[:, :3]
+        by_n[pts.shape[0]].append((p, pts))
+
+    t_start = time.time()
+    n_done = 0
+    for n, items in sorted(by_n.items()):
+        npoint = (args.num_out or n * args.up_ratio) + args.num_outlier
+        bsz = max(1, args.batch)
+        for start in range(0, len(items), bsz):
+            chunk = items[start:start + bsz]
+            clouds = np.stack([pts[rng.permutation(n)] for _, pts in chunk])
+            pad = bsz - len(chunk)
+            if pad:
+                clouds = np.concatenate(
+                    [clouds, np.repeat(clouds[-1:], pad, axis=0)])
+            clouds = torch.from_numpy(clouds).to(device)
+            with torch.no_grad():
+                pred = upsample_cloud(model, clouds, npoint, args.up_ratio,
+                                      args.num_patch, 4.0)
+                if args.num_outlier > 0:
+                    pred = remove_outliers(pred, clouds, args.num_outlier)
+            for (path, _), out in zip(chunk, pred.cpu().numpy()):
+                save_xyz(Path(args.target) / os.path.basename(path), out)
+                n_done += 1
+    dt = time.time() - t_start
+    print(f"upsampled {n_done} clouds in {dt:.1f}s "
+          f"({n_done / dt:.2f} clouds/s)")
+
+
+if __name__ == "__main__":
+    main()

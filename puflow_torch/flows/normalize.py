@@ -1,0 +1,28 @@
+"""ActNorm: per-channel scale/bias with exact log-determinant.
+
+Counterpart of `puflow_tpu.flows.normalize` (channel-last):
+
+  forward:  z = x * exp(logs) + bias,        logdet = sum(logs) * N
+  inverse:  x = (z - bias) * exp(-logs),     logdet = -sum(logs) * N
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def actnorm_init(channel: int, device=None) -> dict:
+    """Identity-initialised ActNorm parameters ``[1, 1, C]``."""
+    return {"logs": torch.zeros((1, 1, channel), device=device),
+            "bias": torch.zeros((1, 1, channel), device=device)}
+
+
+def actnorm_forward(params: dict, x: torch.Tensor):
+    """x: [B, N, C] -> (z, scalar logdet). logdet scales with N (points)."""
+    z = x * torch.exp(params["logs"]) + params["bias"]
+    return z, torch.sum(params["logs"]) * x.shape[1]
+
+
+def actnorm_inverse(params: dict, z: torch.Tensor):
+    x = (z - params["bias"]) * torch.exp(-params["logs"])
+    return x, -torch.sum(params["logs"]) * z.shape[1]

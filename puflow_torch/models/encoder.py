@@ -1,0 +1,211 @@
+"""Geometry-context encoders for the interpolation flow.
+
+Counterpart of `puflow_tpu.models.encoder`, inference only (BatchNorm in
+eval mode, unfolded):
+  * `feature_extract_apply` — densely-connected EdgeConv stack (LeakyReLU
+    0.05) with a max-pool over the K neighbours;
+  * the distance encoder, the k-NN context and the weight unit, which
+    make the interpolation logits;
+  * `interpolation_apply` — softmax over the K=8 neighbour slots of the
+    first r of R_MAX=32 logits, then the latent blend;
+  * `feat_merge_apply` — the 2-layer bottleneck that makes flow conditions.
+
+Layout is channel-last; every 1x1 conv is a channel matmul (models/nn.py).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from puflow_torch.models.nn import (bn_apply, bn_init, channel_matmul,
+                                    linear_apply, linear_init)
+from puflow_torch.ops.knn import gather_points, knn_indices
+
+_FEU_SLOPE = 0.05   # FeatureExtractUnit LeakyReLU slope
+_MLP_SLOPE = 0.01   # torch default slope (DistanceEncoder / WeightEstimation)
+
+INTERP_K = 8        # neighbours blended per new point
+R_MAX = 32          # max supported upratio
+
+
+# --------------------------------------------------------------------------
+# FeatureExtractUnit: densely-connected EdgeConv
+# --------------------------------------------------------------------------
+def feature_extract_init(generator, idim: int, odim: int, growth_width: int,
+                         device=None):
+    if odim % growth_width:
+        raise ValueError(f"odim {odim} is not a multiple of {growth_width}")
+    edim = idim * 3
+    convs, bn_states = [], []
+    in_ch = edim
+    for i in range(odim // growth_width):
+        w = linear_init(generator, in_ch, growth_width, device=device)
+        bn_p, bn_s = bn_init(growth_width, device=device)
+        convs.append({"lin": w, "bn": bn_p})
+        bn_states.append(bn_s)
+        in_ch = edim + growth_width * (i + 1)
+    params = {"convs": convs,
+              "conv_out": linear_init(generator, in_ch, odim, device=device)}
+    return params, {"convs": bn_states}
+
+
+def feature_extract_apply(params, state, x: torch.Tensor,
+                          knn_idx: torch.Tensor,
+                          pooling: bool = True) -> torch.Tensor:
+    """x: [B, N, C] -> pooled [B, N, odim] or per-slot [B, N, K, odim].
+
+    The edge feature [x, x_nbr, x_nbr - x] of every layer factorises onto
+    the block input: ``e @ W = x @ (W_0 - W_2) + x_nbr @ (W_1 + W_2)``. So
+    the whole stack gathers once per block: ``x @ [W_nbr_0 | ...]`` is
+    gathered and sliced per layer, as in the JAX package.
+    """
+    C = x.shape[-1]
+    layers = list(params["convs"]) + [{"lin": params["conv_out"]}]
+    w_selfs, w_nbrs, offsets = [], [], [0]
+    for layer in layers:
+        w = layer["lin"]["w"]
+        w_selfs.append(w[:C] - w[2 * C:3 * C])
+        w_nbrs.append(w[C:2 * C] + w[2 * C:3 * C])
+        offsets.append(offsets[-1] + w.shape[1])
+    p_self = channel_matmul(x, torch.cat(w_selfs, dim=1))
+    p_nbr = gather_points(channel_matmul(x, torch.cat(w_nbrs, dim=1)),
+                          knn_idx)                          # [B, N, K, sum]
+
+    def edge_term(i):
+        lo, hi = offsets[i], offsets[i + 1]
+        return p_self[:, :, None, lo:hi] + p_nbr[..., lo:hi]
+
+    h_cat = None
+    for i, (conv_p, bn_s) in enumerate(zip(params["convs"], state["convs"])):
+        h = edge_term(i)
+        if h_cat is not None:
+            h = h + channel_matmul(h_cat, conv_p["lin"]["w"][3 * C:])
+        h = h + conv_p["lin"]["b"]
+        h = F.leaky_relu(bn_apply(conv_p["bn"], bn_s, h), _FEU_SLOPE)
+        h_cat = h if h_cat is None else torch.cat([h_cat, h], dim=-1)
+
+    f = edge_term(len(layers) - 1)
+    f = f + channel_matmul(h_cat, params["conv_out"]["w"][3 * C:])
+    f = f + params["conv_out"]["b"]                         # [B, N, K, odim]
+    return torch.amax(f, dim=2) if pooling else f
+
+
+# --------------------------------------------------------------------------
+# DistanceEncoder, KnnContextEncoder, WeightEstimationUnit
+# --------------------------------------------------------------------------
+def distance_encoder_init(generator, dim_in: int = 3, dim_out: int = 128,
+                          device=None):
+    c_in = dim_in * 3 + 1
+    bn0_p, bn0_s = bn_init(64, device=device)
+    bn1_p, bn1_s = bn_init(64, device=device)
+    params = {
+        "lin0": linear_init(generator, c_in, 64, device=device), "bn0": bn0_p,
+        "lin1": linear_init(generator, 64, 64, device=device), "bn1": bn1_p,
+        "lin2": linear_init(generator, 64, dim_out, device=device),
+    }
+    return params, {"bn0": bn0_s, "bn1": bn1_s}
+
+
+def distance_encoder_apply(params, state, xyz: torch.Tensor,
+                           knn_idx: torch.Tensor) -> torch.Tensor:
+    """[pt, neighbour, pt - neighbour, |pt - neighbour|] per slot through a
+    BN-MLP -> [B, N, K, dim_out]."""
+    neighbours = gather_points(xyz, knn_idx)                # [B, N, K, 3]
+    pt = xyz[:, :, None, :].expand_as(neighbours)
+    vec = pt - neighbours
+    dist = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True))
+    f = torch.cat([pt, neighbours, vec, dist], dim=-1)
+    h = linear_apply(params["lin0"], f)
+    h = F.leaky_relu(bn_apply(params["bn0"], state["bn0"], h), _MLP_SLOPE)
+    h = linear_apply(params["lin1"], h)
+    h = F.leaky_relu(bn_apply(params["bn1"], state["bn1"], h), _MLP_SLOPE)
+    return linear_apply(params["lin2"], h)
+
+
+def knn_context_init(generator, pc_channel: int = 3, device=None):
+    de_p, de_s = distance_encoder_init(generator, pc_channel, 128,
+                                       device=device)
+    fe_p, fe_s = feature_extract_init(generator, pc_channel, 128,
+                                      growth_width=16, device=device)
+    return ({"distance_encoder": de_p, "feat_conv": fe_p},
+            {"distance_encoder": de_s, "feat_conv": fe_s})
+
+
+def knn_context_apply(params, state, xyz: torch.Tensor,
+                      knn_idx: torch.Tensor) -> torch.Tensor:
+    """xyz: [B, N, 3]; knn_idx: [B, N, k] -> [B, N, k, 256]."""
+    dist = distance_encoder_apply(params["distance_encoder"],
+                                  state["distance_encoder"], xyz, knn_idx)
+    feat = feature_extract_apply(params["feat_conv"], state["feat_conv"],
+                                 xyz, knn_idx, pooling=False)
+    return torch.cat([dist, feat], dim=-1)
+
+
+def weight_unit_init(generator, feat_dim: int = 256, device=None):
+    bn0_p, bn0_s = bn_init(128, device=device)
+    bn1_p, bn1_s = bn_init(64, device=device)
+    params = {
+        "lin0": linear_init(generator, feat_dim, 128, device=device),
+        "bn0": bn0_p,
+        "lin1": linear_init(generator, 128, 64, device=device), "bn1": bn1_p,
+        "lin2": linear_init(generator, 64, R_MAX, device=device),
+    }
+    return params, {"bn0": bn0_s, "bn1": bn1_s}
+
+
+def weight_unit_apply(params, state, context: torch.Tensor) -> torch.Tensor:
+    """context: [B, N, k, C] -> logits [B, N, k, R_MAX]."""
+    h = linear_apply(params["lin0"], context)
+    h = F.leaky_relu(bn_apply(params["bn0"], state["bn0"], h), _MLP_SLOPE)
+    h = linear_apply(params["lin1"], h)
+    h = F.leaky_relu(bn_apply(params["bn1"], state["bn1"], h), _MLP_SLOPE)
+    return linear_apply(params["lin2"], h)
+
+
+def interpolation_init(generator, pc_channel: int = 3, device=None):
+    kc_p, kc_s = knn_context_init(generator, pc_channel, device=device)
+    wu_p, wu_s = weight_unit_init(generator, 256, device=device)
+    return ({"knn_context": kc_p, "weight_unit": wu_p},
+            {"knn_context": kc_s, "weight_unit": wu_s})
+
+
+def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
+                        upratio: int,
+                        knn_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Blend each point's k-NN latents into `upratio` new latents.
+
+    z: [B, N, C] latents; xyz: [B, N, 3] geometry -> [B, N, C, upratio].
+    `knn_idx` may be a neighbour list with K >= INTERP_K sorted by
+    ascending distance; its first INTERP_K columns are then the K=8 graph.
+    """
+    if not 1 <= upratio <= R_MAX:
+        raise ValueError(f"upratio={upratio} out of range [1, {R_MAX}]: the "
+                         f"weight head emits at most R_MAX={R_MAX} rows")
+    if knn_idx is None:
+        knn_idx = knn_indices(xyz, xyz, INTERP_K)
+    elif knn_idx.shape[-1] < INTERP_K:
+        raise ValueError(f"knn_idx has {knn_idx.shape[-1]} < {INTERP_K} "
+                         "neighbours")
+    knn_idx = knn_idx[..., :INTERP_K]
+    ctx = knn_context_apply(params["knn_context"], state["knn_context"], xyz,
+                            knn_idx)
+    logits = weight_unit_apply(params["weight_unit"], state["weight_unit"],
+                               ctx)[..., :upratio]          # [B, N, k, r]
+    weights = torch.softmax(logits, dim=2)                  # over the k slots
+    nei = gather_points(z, knn_idx)                         # [B, N, k, C]
+    return torch.einsum("bnkc,bnkr->bncr", nei, weights)
+
+
+# --------------------------------------------------------------------------
+# FeatMergeUnit
+# --------------------------------------------------------------------------
+def feat_merge_init(generator, idim: int, odim: int, device=None):
+    return {"conv1": linear_init(generator, idim, idim // 2, device=device),
+            "conv2": linear_init(generator, idim // 2, odim, bias=False,
+                                 device=device)}
+
+
+def feat_merge_apply(params, x: torch.Tensor) -> torch.Tensor:
+    return linear_apply(params["conv2"],
+                        F.relu(linear_apply(params["conv1"], x)))

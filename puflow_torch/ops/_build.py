@@ -1,0 +1,111 @@
+"""Build the CUDA kernels in `puflow_torch/csrc` and bind them with ctypes.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface under ``puflow_torch/_build/``.
+The library's name carries a hash of the sources and flags: it is built
+at first use and again only when a source changes. Each C entry point
+takes device pointers and the CUDA stream as ``void*``, launches on that
+stream and returns ``cudaGetLastError()``; `check` turns a non-zero code
+into an exception.
+
+Nothing here runs at import: the CPU tests import every module of the
+port on hosts without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each entry point in csrc/*.cu (all return cudaError_t)
+_SIGNATURES = {
+    "puflow_fps": [_P, _I, _I, _I, _P, _P, _P],
+    "puflow_flow_f": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "puflow_flow_g": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless a library for these sources exists.
+
+    Returns ``(library path, seconds spent compiling)`` (0.0 when the
+    library was already there).
+    """
+    lib = BUILD_DIR / f"libpuflow_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.puflow_error_string.argtypes = [_I]
+    lib.puflow_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if code != 0:
+        what = library().puflow_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({what}) at launch")
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

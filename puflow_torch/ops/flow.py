@@ -1,0 +1,196 @@
+"""Forward and inverse flow chains: the CUDA kernels and their plain versions.
+
+Counterpart of `puflow_tpu.ops.pallas.flow_pallas` (`flow_f_pallas`,
+`flow_g_pallas`, here `csrc/flow_f.cu` and `csrc/flow_g.cu`) and of the
+flow-block functions of `puflow_tpu.models.discrete`. One flow block is
+ActNorm -> inv1x1 -> additive coupling (split 1 for even blocks, 2 for
+odd) -> reverse channels -> affine injector, each conditioned on the
+block's encoder features.
+
+The wrappers `flow_f` and `flow_g` launch their kernel for CUDA tensors
+and run the plain version (`flow_f_plain`, `flow_g_plain`) for CPU
+tensors. Inference only: no log-determinant, no gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from puflow_torch.flows.coupling import (
+    additive_coupling_forward,
+    additive_coupling_inverse,
+    affine_injector_forward,
+    affine_injector_inverse,
+)
+from puflow_torch.flows.normalize import actnorm_forward, actnorm_inverse
+from puflow_torch.flows.permutate import (
+    inv1x1_forward,
+    inv1x1_inverse,
+    reverse_permute,
+)
+from puflow_torch.ops import _build
+
+_REVERSE3 = (2, 1, 0)  # reverse permutation of 3 channels; self-inverse
+HDIM = 64              # LinearA1D hidden width the kernels are built for
+MAX_CDIM = 128         # widest condition whose block fits shared memory
+MAX_BLOCKS = 8
+MAX_UPRATIO = 32       # R_MAX of the interpolation head
+
+
+def _split(i: int) -> int:
+    return 1 if i % 2 == 0 else 2
+
+
+def flow_block_forward(params: dict, x: torch.Tensor, c: torch.Tensor,
+                       is_even: bool):
+    """One Glow step; logdet sums the actnorm, inv1x1 and injector terms
+    (the additive coupling is volume-preserving)."""
+    split = 1 if is_even else 2
+    x, ld0 = actnorm_forward(params["actnorm"], x)
+    x, ld1 = inv1x1_forward(params["inv1x1"], x)
+    x, _ = additive_coupling_forward(params["coupling1"], x, c, split)
+    x = reverse_permute(x, _REVERSE3)
+    x, ld4 = affine_injector_forward(params["coupling2"], x, c)
+    return x, ld0 + ld1 + ld4
+
+
+def flow_block_inverse(params: dict, z: torch.Tensor, c: torch.Tensor,
+                       is_even: bool) -> torch.Tensor:
+    split = 1 if is_even else 2
+    z, _ = affine_injector_inverse(params["coupling2"], z, c)
+    z = reverse_permute(z, _REVERSE3)
+    z, _ = additive_coupling_inverse(params["coupling1"], z, c, split)
+    z, _ = inv1x1_inverse(params["inv1x1"], z)
+    z, _ = actnorm_inverse(params["actnorm"], z)
+    return z
+
+
+def flow_f_plain(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
+    """Points ``[B, N, 3]`` + conditions ``[B, N, cdim_i]`` -> latents
+    ``[B, N, 3]``: `discrete.f_transform` without the log-det."""
+    for i, (bp, c) in enumerate(zip(flow_blocks, cs)):
+        x, _ = flow_block_forward(bp, x, c, is_even=(i % 2 == 0))
+    return x
+
+
+def flow_g_plain(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
+    """Latents ``[B, N, 3, r]`` + un-repeated conditions ``[B, N, cdim_i]``
+    -> points ``[B, N * r, 3]``, point-major (a point's r samples are
+    consecutive rows): the XLA branch of `discrete.g_transform`."""
+    B, N, C, r = fz.shape
+    z = fz.transpose(2, 3).reshape(B, N * r, C)
+    for i in reversed(range(len(flow_blocks))):
+        c = torch.repeat_interleave(cs[i], r, dim=1)
+        z = flow_block_inverse(flow_blocks[i], z, c, is_even=(i % 2 == 0))
+    return z
+
+
+def _pack_weights(flow_blocks, inverse: bool):
+    """Flow-block params -> (flat f32 weights, per-block offsets) in the
+    layout of `csrc/flow_common.cuh`. Matrices keep their [in, out] layout;
+    the inverse flow stores W^-1 and exp(-logs)."""
+    pieces, woff = [], [0]
+    for bp in flow_blocks:
+        an, w = bp["actnorm"], bp["inv1x1"]["W"]
+        if inverse:
+            # linalg.inv without its error check, whose read of the status
+            # would stop the host until the card drains its queue
+            w_inv = torch.linalg.inv_ex(w).inverse
+            head = [an["bias"], torch.exp(-an["logs"]), w_inv]
+        else:
+            head = [torch.exp(an["logs"]), an["bias"], w]
+        nets = (bp["coupling1"]["bias_net"], bp["coupling2"]["scale_net"],
+                bp["coupling2"]["bias_net"])
+        block = head + [net[k] for net in nets
+                        for k in ("w0", "w1", "b1", "w2", "b2")]
+        pieces.extend(t.reshape(-1) for t in block)
+        woff.append(woff[-1] + sum(t.numel() for t in block))
+    return torch.cat(pieces).to(torch.float32).contiguous(), woff
+
+
+def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
+    """Validate what the kernels take; returns the host metadata arrays."""
+    if points.dtype != torch.float32 or not points.is_contiguous():
+        raise ValueError(f"{name}: expects contiguous float32 input, got "
+                         f"{points.dtype}")
+    if len(cs) != len(flow_blocks) or not 1 <= len(cs) <= MAX_BLOCKS:
+        raise ValueError(f"{name}: {len(cs)} conditions for "
+                         f"{len(flow_blocks)} blocks (1 to {MAX_BLOCKS})")
+    for i, (bp, c) in enumerate(zip(flow_blocks, cs)):
+        if (c.device != points.device or c.dtype != torch.float32
+                or not c.is_contiguous()):
+            raise ValueError(f"{name}: condition {i} must be contiguous "
+                             f"float32 on {points.device}")
+        if c.shape[:-1] != points.shape[:2] or c.shape[-1] > MAX_CDIM:
+            raise ValueError(f"{name}: condition {i} has shape "
+                             f"{tuple(c.shape)}; expected "
+                             f"{tuple(points.shape[:2])} + (<= {MAX_CDIM},)")
+        if bp["inv1x1"]["W"].device != points.device:
+            raise ValueError(f"{name}: block {i} is not on {points.device}")
+        if bp["coupling1"]["bias_net"]["w1"].shape != (HDIM, HDIM):
+            raise ValueError(f"{name}: kernels take hidden width {HDIM}")
+        if bp["coupling1"]["bias_net"]["w0"].shape[0] != (
+                c.shape[-1] + _split(i)):
+            raise ValueError(f"{name}: block {i} does not match its "
+                             "condition width")
+    c_ptrs = (ctypes.c_longlong * len(cs))(*(c.data_ptr() for c in cs))
+    cdims = (ctypes.c_int * len(cs))(*(c.shape[-1] for c in cs))
+    return c_ptrs, cdims
+
+
+def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
+    """Forward flow, points ``[B, N, 3]`` -> latents ``[B, N, 3]``, with no
+    log-det: the CUDA kernel for CUDA tensors, `flow_f_plain` for CPU."""
+    if x.device.type == "cpu":
+        return flow_f_plain(flow_blocks, x, cs)
+    if x.device.type != "cuda":
+        raise ValueError(f"flow_f: no kernel for {x.device}")
+    if x.ndim != 3 or x.shape[2] != 3:
+        raise ValueError(f"flow_f: expects [B, N, 3], got {tuple(x.shape)}")
+    c_ptrs, cdims = _check_inputs("flow_f", flow_blocks, x, cs)
+    weights, woff = _pack_weights(flow_blocks, inverse=False)
+    woff_c = (ctypes.c_int * len(woff))(*woff)
+    z = torch.empty_like(x)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        code = lib.puflow_flow_f(
+            x.data_ptr(), weights.data_ptr(), ctypes.addressof(c_ptrs),
+            ctypes.addressof(cdims), ctypes.addressof(woff_c), len(cs),
+            x.shape[0] * x.shape[1], z.data_ptr(),
+            _build.stream_ptr(x.device))
+    _build.check(code, "puflow_flow_f")
+    flow_f.launches += 1
+    return z
+
+
+def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
+    """Inverse flow, latents ``[B, N, 3, r]`` + un-repeated conditions ->
+    points ``[B, N * r, 3]`` point-major: the CUDA kernel for CUDA
+    tensors, `flow_g_plain` for CPU."""
+    if fz.device.type == "cpu":
+        return flow_g_plain(flow_blocks, fz, cs)
+    if fz.device.type != "cuda":
+        raise ValueError(f"flow_g: no kernel for {fz.device}")
+    if fz.ndim != 4 or fz.shape[2] != 3 or not 1 <= fz.shape[3] <= MAX_UPRATIO:
+        raise ValueError("flow_g: expects [B, N, 3, r] with r <= "
+                         f"{MAX_UPRATIO}, got {tuple(fz.shape)}")
+    c_ptrs, cdims = _check_inputs("flow_g", flow_blocks, fz, cs)
+    weights, woff = _pack_weights(flow_blocks, inverse=True)
+    woff_c = (ctypes.c_int * len(woff))(*woff)
+    B, N, C, r = fz.shape
+    out = torch.empty((B, N * r, C), dtype=torch.float32, device=fz.device)
+    lib = _build.library()
+    with torch.cuda.device(fz.device):
+        code = lib.puflow_flow_g(
+            fz.data_ptr(), weights.data_ptr(), ctypes.addressof(c_ptrs),
+            ctypes.addressof(cdims), ctypes.addressof(woff_c), len(cs),
+            B * N, r, out.data_ptr(), _build.stream_ptr(fz.device))
+    _build.check(code, "puflow_flow_g")
+    flow_g.launches += 1
+    return out
+
+
+flow_f.launches = 0
+flow_g.launches = 0

@@ -1,0 +1,112 @@
+"""Guards of the port: no jax in `puflow_torch`, no silent CPU fallback,
+and the CLI end to end on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from puflow_torch.cli import upsample as t_cli
+from puflow_torch.ops import flow as t_flow
+from puflow_torch.ops import fps as t_fps
+from puflow_torch.utils.device import resolve_device
+from puflow_tpu.checkpoint import save_checkpoint
+from puflow_tpu.models import discrete as j_discrete
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _port_modules():
+    pkg = ROOT / "puflow_torch"
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in pkg.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'puflow_tpu')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+
+
+def test_wrappers_raise_on_other_devices():
+    meta = torch.empty((1, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_fps.farthest_point_sample(meta, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_flow.flow_f([], meta, [])
+    with pytest.raises(ValueError, match="no kernel"):
+        t_flow.flow_g([], torch.empty((1, 8, 3, 4), device="meta"), [])
+
+
+@pytest.fixture(scope="module")
+def cli_inputs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli")
+    params, state = j_discrete.init(jax.random.PRNGKey(0))
+    ckpt = str(tmp / "model.npz")
+    save_checkpoint(ckpt, params, state)
+    src = tmp / "in"
+    src.mkdir()
+    rng = np.random.RandomState(0)
+    pts = rng.randn(256, 3)
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
+    np.savetxt(src / "cloud.xyz", pts, fmt="%.6f")
+    return tmp, ckpt, src
+
+
+def test_cli_exits_nonzero_without_cuda(cli_inputs):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    tmp, ckpt, src = cli_inputs
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "puflow_torch.cli.upsample", "--source",
+         str(src), "--target", str(tmp / "out_cuda"), "--checkpoint", ckpt],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "cuda" in proc.stderr.lower()
+
+
+def test_cli_upsamples_on_cpu(cli_inputs):
+    tmp, ckpt, src = cli_inputs
+    out = tmp / "out_cpu"
+    t_cli.main(["--source", str(src), "--target", str(out), "--checkpoint",
+                ckpt, "--num_patch", "64", "--device", "cpu"])
+    lines = (out / "cloud.xyz").read_text().splitlines()
+    assert len(lines) == 256 * 4
+    assert all(len(v.split(".")[-1]) == 6 for v in lines[0].split())
+
+
+@pytest.mark.parametrize("flags", [["--model", "cnf"], ["--seeded_merge"],
+                                   ["--merge_groups", "4"]])
+def test_cli_unported_options_raise(cli_inputs, flags):
+    tmp, ckpt, src = cli_inputs
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_cli.main(["--source", str(src), "--target", str(tmp / "x"),
+                    "--checkpoint", ckpt, "--device", "cpu", *flags])
+
+
+def test_pt_checkpoint_raises(cli_inputs):
+    tmp, _, src = cli_inputs
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_cli.main(["--source", str(src), "--target", str(tmp / "x"),
+                    "--checkpoint", str(tmp / "model.pt"), "--device", "cpu"])
