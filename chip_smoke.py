@@ -4,16 +4,23 @@
 
 Drives `puflow_torch`'s whole-cloud x4 upsampling (2048 -> 8192 points per
 cloud, 32 patches of 256 points each, the full-width discrete model with
-seeded, perturbed weights) and its three hand-written CUDA kernels:
+seeded, perturbed weights) in both of the upsample CLI's configurations:
+the default, with BatchNorm folded into the convs, where every model stage
+is a hand-written CUDA kernel (k-NN, encoder, interpolation head, flow f,
+blend plus flow g), and `--exact`, with BN unfolded, where FPS, flow f and
+flow g are kernels. Phases:
 
   1. checks the card, prints its name and power limit, turns TF32 off;
   2. builds the kernels from `puflow_torch/csrc` and prints the build time;
   3. compares each kernel with its plain PyTorch version on the card at
-     the main path's shapes, and times both;
-  4. runs `upsample_cloud` + `remove_outliers` on 8 clouds, checks the
-     output, that every kernel was launched by that run, and that the
-     result agrees with the same pipeline on the plain versions;
-  5. times the main path per stage with CUDA events at B=8 and B=32, and
+     the main path's shapes (256 patches of 256 points, r=4), times both,
+     and works out each kernel's bound from the work these inputs need;
+  4. runs `upsample_cloud` + `remove_outliers` on 8 clouds in each
+     configuration, with every launch count set to 0 just before and read
+     just after; checks the output, that each kernel of the path was
+     launched, and that the result agrees with the same pipeline on the
+     plain versions;
+  5. times each path per stage with CUDA events at B=8 and B=32, and
      traces one run of each with torch.profiler for the card's idle share
      and its top kernels;
   6. prints one JSON line of kernel results and, last, the device line.
@@ -37,13 +44,17 @@ from puflow_torch import checkpoint
 from puflow_torch.inference.patch import (normalize_cloud, remove_outliers,
                                           upsample_cloud)
 from puflow_torch.models import discrete
-from puflow_torch.models.encoder import interpolation_apply
+from puflow_torch.models.encoder import INTERP_K, interpolation_apply
+from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
 from puflow_torch.ops import _build
+from puflow_torch.ops import encoder as enc_ops
 from puflow_torch.ops import flow as flow_ops
+from puflow_torch.ops import interp as interp_ops
 from puflow_torch.ops.chamfer import chamfer_parts
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain)
-from puflow_torch.ops.knn import gather_points, knn_indices
+from puflow_torch.ops.knn import (gather_points, knn_indices, knn_self,
+                                  knn_self_plain)
 
 SEED = 2021
 N_POINTS = 2048
@@ -54,17 +65,47 @@ N_OUTLIERS = 24
 NPOINT = N_POINTS * UPRATIO + N_OUTLIERS
 N_PATCH = int(N_POINTS / PATCH * EXPAND)                   # 32 per cloud
 MERGE_N = N_PATCH * PATCH * UPRATIO + N_POINTS             # 34816
+K = discrete.NUM_NEIGHBORS
 
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32 flop/s outside
+# the tensor cores. A kernel's bound is the larger of its bytes (inputs
+# read once, outputs written once) over the first and its flops over the
+# second.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+PALLAS = "puflow_tpu/ops/pallas/"
 KERNELS = {
     "fps": {"route": "cuda", "source": "puflow_torch/csrc/fps.cu",
-            "replaces": "puflow_tpu/ops/pallas/fps_pallas.py:254"},
+            "replaces": PALLAS + "fps_pallas.py:254"},
+    "knn_self": {"route": "cuda", "source": "puflow_torch/csrc/knn.cu",
+                 "replaces": PALLAS + "knn_pallas.py:81"},
+    "encoder": {"route": "cuda", "source": "puflow_torch/csrc/encoder.cu",
+                "replaces": PALLAS + "encoder_pallas.py:411"},
+    "interp_head": {"route": "cuda", "source": "puflow_torch/csrc/interp.cu",
+                    "replaces": PALLAS + "encoder_pallas.py:893"},
     "flow_f": {"route": "cuda", "source": "puflow_torch/csrc/flow_f.cu",
-               "replaces": "puflow_tpu/ops/pallas/flow_pallas.py:394"},
+               "replaces": PALLAS + "flow_pallas.py:394"},
     "flow_g": {"route": "cuda", "source": "puflow_torch/csrc/flow_g.cu",
-               "replaces": "puflow_tpu/ops/pallas/flow_pallas.py:458"},
+               "replaces": PALLAS + "flow_pallas.py:458"},
+    "flow_g_blend": {"route": "cuda", "source": "puflow_torch/csrc/flow_g.cu",
+                     "replaces": PALLAS + "flow_pallas.py:515"},
 }
-WRAPPERS = {"fps": farthest_point_sample, "flow_f": flow_ops.flow_f,
-            "flow_g": flow_ops.flow_g}
+WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
+            "encoder": enc_ops.encoder_conditions,
+            "interp_head": interp_ops.interp_head, "flow_f": flow_ops.flow_f,
+            "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend}
+# the kernels each configuration's main path must launch
+PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
+                    "flow_g_blend"),
+         "exact": ("fps", "flow_f", "flow_g")}
+KERNEL_OPS = dict(WRAPPERS, knn=knn_indices)
+PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
+             "knn": knn_indices,
+             "encoder": enc_ops.encoder_conditions_plain,
+             "interp_head": interp_ops.interp_head_plain,
+             "flow_f": flow_ops.flow_f_plain, "flow_g": flow_ops.flow_g_plain,
+             "flow_g_blend": flow_ops.flow_g_blend_plain}
 
 
 def log(*args):
@@ -93,6 +134,73 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return nbytes(tree)
+
+
+def set_bound(entry, n_bytes: float, flops: float):
+    """The least time the card could take: bytes over HBM bandwidth or
+    flops over the FP32 peak, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32 * 1e3
+    entry.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def encoder_macs(params, rows: int, k: int) -> int:
+    """Multiply-adds of the six EdgeConv blocks and their merge MLPs on
+    ``rows`` points with ``k`` neighbours each (projections once per
+    point, the layers once per edge row)."""
+    macs = 0
+    for fp, mp in zip(params["feat_convs"], params["merge_convs"]):
+        layers = [c["lin"]["w"] for c in fp["convs"]] + [fp["conv_out"]["w"]]
+        c = layers[0].shape[0] // 3
+        gt = sum(w.shape[1] for w in layers)
+        macs += 2 * rows * c * gt
+        macs += rows * k * sum((w.shape[0] - 3 * c) * w.shape[1]
+                               for w in layers)
+        macs += rows * (mp["conv1"]["w"].numel() + mp["conv2"]["w"].numel())
+    return macs
+
+
+def interp_macs(ip, rows: int) -> int:
+    """Multiply-adds of the head over ``rows`` (point, slot) rows."""
+    kc = ip["knn_context"]
+    mats = [kc["distance_encoder"][f"lin{i}"]["w"] for i in range(3)]
+    mats += [c["lin"]["w"] for c in kc["feat_conv"]["convs"]]
+    mats += [kc["feat_conv"]["conv_out"]["w"]]
+    mats += [ip["weight_unit"][f"lin{i}"]["w"] for i in range(3)]
+    return rows * sum(w.numel() for w in mats)
+
+
+def flow_macs(blocks, points: int, r: int | None) -> int:
+    """Multiply-adds of the flow blocks: forward over ``points`` rows (r
+    None), or inverse with the condition-only MLPs once per point and the
+    coupling's h1 part for each of its r rows."""
+    macs = 0
+    for i, bp in enumerate(blocks):
+        split = 1 if i % 2 == 0 else 2
+        c1 = bp["coupling1"]["bias_net"]
+        cond = sum(net["w0"].numel() + net["w1"].numel() + net["w2"].numel()
+                   for net in bp["coupling2"].values())
+        cdim = bp["coupling2"]["scale_net"]["w0"].shape[0]
+        proj = cdim * c1["w0"].shape[1]
+        tail = split * c1["w0"].shape[1] + c1["w1"].numel() + c1["w2"].numel()
+        if r is None:
+            macs += points * (cond + proj + tail + 9)
+        else:
+            macs += points * (cond + proj) + points * r * (tail + 9)
+    return macs
+
+
 def synthetic_clouds(batch: int, seed: int) -> torch.Tensor:
     """Seeded surfaces: points on ellipsoids with random axes and a
     low-frequency radial bump, made with numpy and moved to the card."""
@@ -104,54 +212,69 @@ def synthetic_clouds(batch: int, seed: int) -> torch.Tensor:
     return torch.from_numpy((v * axes * bump).astype(np.float32)).cuda()
 
 
-def seeded_model():
-    """Full-width model from a torch.Generator seed, perturbed as in the
-    tests so the flows are far from the identity."""
+def seeded_models():
+    """Full-width models from a torch.Generator seed, perturbed as in the
+    tests so the flows are far from the identity: (unfolded, folded)."""
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    params, state = discrete.init(gen)
+    params, state = discrete.init(gen, device="cpu")
     params, state = checkpoint.to_numpy_tree(
         discrete.DiscreteModel(params, state))
     discrete.perturb_init(params, state, SEED)
-    return checkpoint.from_numpy_tree(params, state, "cuda")
+    model = checkpoint.from_numpy_tree(params, state, "cuda")
+    tp, ts = model.trees()
+    return model, discrete.DiscreteModel(fold_bn_inference(tp, ts),
+                                         empty_bn_state(ts))
 
 
-def sample_staged(model, patches, f_fn, g_fn, mark):
+def sample_staged(model, patches, ops, mark):
     """`discrete.sample` written out stage by stage, calling ``mark`` after
-    each stage; f_fn / g_fn pick the kernels or the plain versions."""
+    each stage; ``ops`` picks the kernels or the plain versions."""
     params, state = model.trees()
-    knn_idx = knn_indices(patches, patches, discrete.NUM_NEIGHBORS)
+    if discrete.is_folded(params):
+        idx = ops["knn_self"](patches, K)
+        idx8 = idx[..., :INTERP_K]
+        mark("knn_self")
+        cs = ops["encoder"](params, patches, idx)
+        mark("encoder")
+        ws = ops["interp_head"](params["interp"], patches, idx8, UPRATIO,
+                                "weights")
+        mark("interp_head")
+        z = ops["flow_f"](params["flow_blocks"], patches, cs)
+        mark("flow_f")
+        x = ops["flow_g_blend"](params["flow_blocks"], z, ws, idx8, cs)
+        mark("flow_g_blend")
+        return x
+    knn_idx = ops["knn"](patches, patches, K)
     cs = discrete.feat_extract(params, state, patches, knn_idx)
     mark("encoder")
-    z = f_fn(params["flow_blocks"], patches, cs)
+    z = ops["flow_f"](params["flow_blocks"], patches, cs)
     mark("flow_f")
     fz = interpolation_apply(params["interp"], state["interp"], z, patches,
                              UPRATIO, knn_idx=knn_idx).contiguous()
     mark("interpolation")
-    x = g_fn(params["flow_blocks"], fz, cs)
+    x = ops["flow_g"](params["flow_blocks"], fz, cs)
     mark("flow_g")
     return x
 
 
-def pipeline_staged(model, pc, fps_fn=farthest_point_sample,
-                    f_fn=flow_ops.flow_f, g_fn=flow_ops.flow_g,
-                    mark=lambda stage: None):
+def pipeline_staged(model, pc, ops=KERNEL_OPS, mark=lambda stage: None):
     """`upsample_cloud` + `remove_outliers`, written out stage by stage."""
     B = pc.shape[0]
     pc_n, g_centroid, g_furthest = normalize_cloud(pc)
-    seed_idx = fps_fn(pc_n, N_PATCH)
+    seed_idx = ops["fps"](pc_n, N_PATCH)
     mark("seed_fps")
     seeds = gather_points(pc_n, seed_idx)
     idx = knn_indices(seeds, pc_n, PATCH)
     patches = gather_points(pc_n, idx).reshape(B * N_PATCH, PATCH, 3)
     flat_n, centroids, furthest = normalize_cloud(patches)
     mark("patch_knn")
-    pred = sample_staged(model, flat_n, f_fn, g_fn, mark)
+    pred = sample_staged(model, flat_n, ops, mark)
     pred = (pred * furthest + centroids).reshape(B, -1, 3)
     cov = torch.zeros((B, N_POINTS), dtype=torch.bool, device=pc.device)
     cov.scatter_(1, idx.reshape(B, -1), True)
     originals = torch.where(cov[..., None], pc_n, pred[:, :1, :])
     union = torch.cat([pred, originals], dim=1).contiguous()
-    merged = gather_points(union, fps_fn(union, NPOINT))
+    merged = gather_points(union, ops["fps"](union, NPOINT))
     merged = merged * g_furthest + g_centroid
     mark("merge_fps")
     out = remove_outliers(merged, pc, N_OUTLIERS)
@@ -175,9 +298,39 @@ def check_fps(name, xyz, m, results):
         float((got - ref).abs().max()))
 
 
-def phase_compare(model, results):
-    """Each kernel against its plain version at the main path's shapes."""
-    rng = np.random.RandomState(SEED)
+def check_close(results, name, got, ref, tol):
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    log(f"{name} {tuple(got.shape)}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    results[name]["max_abs_err"] = max(
+        results[name].get("max_abs_err", 0.0), err)
+
+
+def time_pair(results, name, kernel, plain, reps=10):
+    """plain, kernel, kernel, plain: compare within one call."""
+    p1 = time_ms(plain, reps)
+    k1 = time_ms(kernel, reps)
+    k2 = time_ms(kernel, reps)
+    p2 = time_ms(plain, reps)
+    e = results[name]
+    e.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None)
+    log(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+        f"{p2:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+
+
+def main_path_patches(batch: int) -> torch.Tensor:
+    """batch * 32 normalised patches of 256 points, cut from seeded clouds
+    as the main path cuts them."""
+    pc_n, _, _ = normalize_cloud(synthetic_clouds(batch, SEED + 1))
+    seeds = gather_points(pc_n, farthest_point_sample_plain(pc_n, N_PATCH))
+    patches = gather_points(pc_n, knn_indices(seeds, pc_n, PATCH))
+    x, _, _ = normalize_cloud(patches.reshape(batch * N_PATCH, PATCH, 3))
+    return x.contiguous()
+
+
+def compare_fps(results, rng):
     for B, N, m, label in ((8, N_POINTS, N_PATCH, "seed pick"),
                            (8, MERGE_N, NPOINT, "merge")):
         grid = rng.randint(0, 11, (B, N, 3)).astype(np.float32)
@@ -198,50 +351,119 @@ def phase_compare(model, results):
         lambda: farthest_point_sample_plain(merge_cloud, NPOINT), 1)
     log(f"fps seed pick [8, {N_POINTS}] -> {N_PATCH}: kernel {seed_ms:.4f} "
         f"ms, plain {seed_plain:.4f} ms")
+    # each step: 3 sub, 3 mul, 2 add, a min and a compare per point
+    set_bound(results["fps"], nbytes(merge_cloud) + 8 * NPOINT * 4,
+              10 * 8 * MERGE_N * (NPOINT - 1))
+    results["fps"].update(ms=merge_ms, plain_ms=merge_plain, library_ms=None)
     log(f"fps merge [8, {MERGE_N}] -> {NPOINT}: kernel {merge_ms:.4f} ms, "
-        f"plain {merge_plain:.4f} ms")
-    results["fps"].update(ms=merge_ms, plain_ms=merge_plain)
+        f"plain {merge_plain:.4f} ms, bound "
+        f"{results['fps']['bound_ms']:.4f} ms "
+        f"({results['fps']['bound_by']})")
 
-    # flows on 256 patches of 256 points with the port's own conditions
+
+def compare_folded(folded, x, results, rng):
+    """The folded path's four kernels on 256 patches of 256 points."""
+    M, n = x.shape[:2]
+    grid = torch.from_numpy(
+        rng.randint(0, 7, (M, n, 3)).astype(np.float32)).cuda()
+    for label, pts in (("float", x), ("integer grid", grid)):
+        got, ref = knn_self(pts, K), knn_self_plain(pts, K)
+        torch.cuda.synchronize()
+        if not bool((got == ref).all()):
+            raise AssertionError(f"knn_self {label}: {int((got != ref).sum())}"
+                                 " indices differ from the plain version")
+        log(f"knn_self {label} {tuple(pts.shape)} -> {K}: indices equal")
+    results["knn_self"]["max_abs_err"] = 0.0
+    # per patch: n^2 distances (8 flops each) and as many compares
+    set_bound(results["knn_self"], nbytes(x) + M * n * K * 8, 9 * M * n * n)
+    time_pair(results, "knn_self", lambda: knn_self(x, K),
+              lambda: knn_self_plain(x, K))
+
+    fp, _ = folded.trees()
+    idx = knn_self_plain(x, K)
+    idx8 = idx[..., :INTERP_K]
+    cs = enc_ops.encoder_conditions(fp, x, idx)
+    cs_ref = enc_ops.encoder_conditions_plain(fp, x, idx)
+    torch.cuda.synchronize()
+    for b, (got, ref) in enumerate(zip(cs, cs_ref)):
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"encoder block {b} {tuple(got.shape)}: max_abs_err {err:.3e}, "
+            f"relative {err / scale:.3e} (tol 5e-5 * {scale:.4f} + 1e-4)")
+        if not err < 5e-5 * scale + 1e-4:
+            raise AssertionError(f"encoder block {b}: {err} (scale {scale})")
+        results["encoder"]["max_abs_err"] = max(
+            results["encoder"].get("max_abs_err", 0.0), err)
+    set_bound(results["encoder"],
+              nbytes(x, idx, *cs) + tree_bytes(fp["feat_convs"])
+              + tree_bytes(fp["merge_convs"]),
+              2 * encoder_macs(fp, M * n, K))
+    time_pair(results, "encoder",
+              lambda: enc_ops.encoder_conditions(fp, x, idx),
+              lambda: enc_ops.encoder_conditions_plain(fp, x, idx), reps=3)
+
+    blocks, ip = fp["flow_blocks"], fp["interp"]
+    z = flow_ops.flow_f_plain(blocks, x, cs_ref)
+    for mode, tol in (("logits", 2e-3), ("weights", 5e-4),
+                      ("latents", 5e-4)):
+        log(f"interp_head mode {mode}:")
+        check_close(results, "interp_head",
+                    interp_ops.interp_head(ip, x, idx8, UPRATIO, mode, z),
+                    interp_ops.interp_head_plain(ip, x, idx8, UPRATIO, mode,
+                                                 z), tol)
+    ws = interp_ops.interp_head_plain(ip, x, idx8, UPRATIO)
+    set_bound(results["interp_head"], nbytes(x, idx8, ws) + tree_bytes(ip),
+              2 * interp_macs(ip, M * n * INTERP_K))
+    time_pair(results, "interp_head",
+              lambda: interp_ops.interp_head(ip, x, idx8, UPRATIO),
+              lambda: interp_ops.interp_head_plain(ip, x, idx8, UPRATIO))
+    for mode in ("logits", "latents"):   # the other two epilogues
+        k_ms = time_ms(
+            lambda: interp_ops.interp_head(ip, x, idx8, UPRATIO, mode, z), 10)
+        p_ms = time_ms(lambda: interp_ops.interp_head_plain(
+            ip, x, idx8, UPRATIO, mode, z), 10)
+        log(f"interp_head mode {mode}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms")
+
+    ref = flow_ops.flow_g_blend_plain(blocks, z, ws, idx8, cs_ref)
+    check_close(results, "flow_g_blend",
+                flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref), ref,
+                1e-5 * max(1.0, float(ref.abs().max())))
+    set_bound(results["flow_g_blend"],
+              nbytes(z, ws, idx8, ref, *cs_ref) + tree_bytes(blocks),
+              2 * (flow_macs(blocks, M * n, UPRATIO)
+                   + M * n * UPRATIO * 3 * INTERP_K))
+    time_pair(results, "flow_g_blend",
+              lambda: flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref),
+              lambda: flow_ops.flow_g_blend_plain(blocks, z, ws, idx8,
+                                                  cs_ref))
+
+
+def compare_flows(model, x, results):
+    """Flow f and g with the unfolded model's own conditions."""
+    M, n = x.shape[:2]
     params, state = model.trees()
     blocks = params["flow_blocks"]
-    pc_n, _, _ = normalize_cloud(synthetic_clouds(8, SEED + 1))
-    seeds = gather_points(pc_n, farthest_point_sample_plain(pc_n, N_PATCH))
-    patches = gather_points(pc_n, knn_indices(seeds, pc_n, PATCH))
-    x, _, _ = normalize_cloud(patches.reshape(8 * N_PATCH, PATCH, 3))
-    knn_idx = knn_indices(x, x, discrete.NUM_NEIGHBORS)
+    knn_idx = knn_indices(x, x, K)
     cs = discrete.feat_extract(params, state, x, knn_idx)
     z_ref = flow_ops.flow_f_plain(blocks, x, cs)
     fz = interpolation_apply(params["interp"], state["interp"], z_ref, x,
                              UPRATIO, knn_idx=knn_idx).contiguous()
     g_ref = flow_ops.flow_g_plain(blocks, fz, cs)
+    # exact f32 on both sides; summation order differs
     for name, got, ref in (("flow_f", flow_ops.flow_f(blocks, x, cs), z_ref),
                            ("flow_g", flow_ops.flow_g(blocks, fz, cs),
                             g_ref)):
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        # exact f32 on both sides; summation order differs
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        log(f"{name} {tuple(got.shape)}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
-        results[name]["max_abs_err"] = err
-    timings = {
-        "flow_f": (lambda: flow_ops.flow_f(blocks, x, cs),
-                   lambda: flow_ops.flow_f_plain(blocks, x, cs)),
-        "flow_g": (lambda: flow_ops.flow_g(blocks, fz, cs),
-                   lambda: flow_ops.flow_g_plain(blocks, fz, cs)),
-    }
-    for name, (kernel, plain) in timings.items():
-        # plain, kernel, kernel, plain: compare within one call
-        p1 = time_ms(plain, 10)
-        k1 = time_ms(kernel, 10)
-        k2 = time_ms(kernel, 10)
-        p2 = time_ms(plain, 10)
-        results[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-        log(f"{name} [256 patches x {PATCH}]: kernel {k1:.4f} / {k2:.4f} ms,"
-            f" plain {p1:.4f} / {p2:.4f} ms")
+        check_close(results, name, got, ref,
+                    1e-5 * max(1.0, float(ref.abs().max())))
+    set_bound(results["flow_f"], nbytes(x, z_ref, *cs) + tree_bytes(blocks),
+              2 * flow_macs(blocks, M * n, None))
+    set_bound(results["flow_g"], nbytes(fz, g_ref, *cs) + tree_bytes(blocks),
+              2 * flow_macs(blocks, M * n, UPRATIO))
+    time_pair(results, "flow_f", lambda: flow_ops.flow_f(blocks, x, cs),
+              lambda: flow_ops.flow_f_plain(blocks, x, cs))
+    time_pair(results, "flow_g", lambda: flow_ops.flow_g(blocks, fz, cs),
+              lambda: flow_ops.flow_g_plain(blocks, fz, cs))
 
 
 def chamfer(a, b) -> float:
@@ -249,7 +471,10 @@ def chamfer(a, b) -> float:
     return float((d_ab.mean(dim=1) + d_ba.mean(dim=1)).max())
 
 
-def phase_main_path(model, results):
+def phase_main_path(name, model, results):
+    """One configuration's main path on 8 clouds, with its launch counts;
+    the folded path's counts go into the kernel line, and flow_g's, which
+    only the exact path runs, from the exact path."""
     pc = synthetic_clouds(8, SEED)
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -257,13 +482,14 @@ def phase_main_path(model, results):
         out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND)
         out = remove_outliers(out, pc, N_OUTLIERS)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    log(f"main path: output {tuple(out.shape)}, launches {launches}")
-    for name, n in launches.items():
-        results[name]["launches"] = n
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    log(f"{name} main path: output {tuple(out.shape)}, launches {launches}")
+    for k in PATHS[name]:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched by the {name} "
                                  "main path")
+        if name == "folded" or k not in PATHS["folded"]:
+            results[k]["launches"] = launches[k]
     if tuple(out.shape) != (8, N_POINTS * UPRATIO, 3):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -271,39 +497,32 @@ def phase_main_path(model, results):
 
     with torch.no_grad():
         staged, patches = pipeline_staged(model, pc)
-        plain, _ = pipeline_staged(model, pc, farthest_point_sample_plain,
-                                   flow_ops.flow_f_plain,
-                                   flow_ops.flow_g_plain)
+        plain, _ = pipeline_staged(model, pc, PLAIN_OPS)
         one = patches[:N_PATCH].contiguous()
         got = model(one, UPRATIO)
-        params, state = model.trees()
-        knn_idx = knn_indices(one, one, discrete.NUM_NEIGHBORS)
-        cs = discrete.feat_extract(params, state, one, knn_idx)
-        z = flow_ops.flow_f_plain(params["flow_blocks"], one, cs)
-        fz = interpolation_apply(params["interp"], state["interp"], z, one,
-                                 UPRATIO, knn_idx=knn_idx)
-        ref = flow_ops.flow_g_plain(params["flow_blocks"], fz, cs)
+        ref = sample_staged(model, one, PLAIN_OPS, lambda stage: None)
     torch.cuda.synchronize()
     # the staged copy runs the same ops as upsample_cloud
     d_staged = float((staged - out).abs().max())
-    log(f"staged pipeline vs upsample_cloud: max_abs_diff {d_staged:.3e}")
+    log(f"{name} staged pipeline vs upsample_cloud: max_abs_diff "
+        f"{d_staged:.3e}")
     if not d_staged <= 1e-5:
         raise AssertionError("the staged pipeline is not the main path")
     err = float((got - ref).abs().max())
-    log(f"discrete.sample on {N_PATCH} patches vs plain composition: "
+    log(f"{name} discrete.sample on {N_PATCH} patches vs plain composition: "
         f"max_abs_err {err:.3e} (atol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"sample: max_abs_err {err} > 1e-4")
     # the plain pipeline can differ only by FPS near-tie flips that the
     # 1e-6-level model differences cause
     cd = chamfer(out, plain)
-    log(f"pipeline on kernels vs on plain versions: chamfer {cd:.3e} "
-        "(gate 1e-4)")
+    log(f"{name} pipeline on kernels vs on plain versions: chamfer "
+        f"{cd:.3e} (gate 1e-4)")
     if not cd < 1e-4:
         raise AssertionError(f"pipeline chamfer {cd} >= 1e-4")
 
 
-def traced_run(model, pc):
+def traced_run(name, model, pc):
     """One pipeline run under torch.profiler: prints the card's idle share
     (1 - union of device activity / host wall time) and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -324,14 +543,14 @@ def traced_run(model, pc):
         elif stop > end:
             busy_us += stop - end
         end = max(end, stop)
-    log(f"B={pc.shape[0]} traced run: wall {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy_us / 1e3:.3f} ms, idle share "
+    log(f"{name} B={pc.shape[0]} traced run: wall {wall_us / 1e3:.3f} ms, "
+        f"device busy {busy_us / 1e3:.3f} ms, idle share "
         f"{1.0 - busy_us / wall_us:.4f}")
     log(prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=12, max_name_column_width=60))
 
 
-def phase_timing(model, card):
+def phase_timing(name, model, card):
     for B in (8, 32):
         pc = synthetic_clouds(B, SEED + B)
         stages: dict[str, list[float]] = {}
@@ -357,11 +576,11 @@ def phase_timing(model, card):
         total = statistics.median(totals)
         split = ", ".join(f"{k} {statistics.median(v):.3f}"
                           for k, v in stages.items())
-        log(f"B={B} per-stage ms (median of 3): {split}")
-        log(f"B={B} end to end {total * 1e3:.2f} ms: {B / total:.2f} "
+        log(f"{name} B={B} per-stage ms (median of 3): {split}")
+        log(f"{name} B={B} end to end {total * 1e3:.2f} ms: {B / total:.2f} "
             f"clouds/s, {B * N_PATCH / total:.1f} patches/s on {card}")
         with torch.no_grad():
-            traced_run(model, pc)
+            traced_run(name, model, pc)
 
 
 def main():
@@ -383,13 +602,22 @@ def main():
         f" s with load ({lib.name})")
 
     results = {name: dict(name=name, **meta) for name, meta in KERNELS.items()}
-    model = seeded_model()
+    model, folded = seeded_models()
+    rng = np.random.RandomState(SEED)
     with torch.no_grad():
-        phase_compare(model, results)
-    phase_main_path(model, results)
-    phase_timing(model, card)
+        compare_fps(results, rng)
+        x = main_path_patches(8)                   # 256 patches x 256
+        compare_folded(folded, x, results, rng)
+        compare_flows(model, x, results)
+    phase_main_path("folded", folded, results)
+    phase_main_path("exact", model, results)
+    phase_timing("folded", folded, card)
+    phase_timing("exact", model, card)
 
-    log(json.dumps({"kernels": [results[name] for name in KERNELS]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels": [{k: results[name][k] for k in keys}
+                                for name in KERNELS]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from puflow_torch.models.discrete import DiscreteModel
+from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
 from puflow_torch.utils.device import resolve_device
 
 
@@ -72,9 +73,10 @@ def load_npz_checkpoint(path: str):
     return tree["params"], tree["state"]
 
 
-def from_numpy_tree(params, state, device="cpu") -> DiscreteModel:
-    """The port's model from numpy (params, state) trees, e.g. the JAX
-    package's parameters after ``jax.tree.map(np.asarray, ...)``."""
+def from_numpy_tree(params, state, device="cuda") -> DiscreteModel:
+    """The port's model on ``device`` from numpy (params, state) trees,
+    e.g. the JAX package's parameters after ``jax.tree.map(np.asarray,
+    ...)``."""
     device = resolve_device(device)
 
     def to_tensor(a):
@@ -94,8 +96,12 @@ def to_numpy_tree(model: DiscreteModel):
     return _map_tree(to_numpy, params), _map_tree(to_numpy, state)
 
 
-def load_checkpoint(path: str, device="cpu") -> DiscreteModel:
-    """Load a native ``.npz`` checkpoint onto ``device``."""
+def load_checkpoint(path: str, device="cuda",
+                    fold: bool = False) -> DiscreteModel:
+    """Load a native ``.npz`` checkpoint onto ``device``. ``fold=True``
+    folds eval-mode BatchNorm into the convs (`models.fold_bn`), the
+    inference configuration the upsample CLI runs by default; do not fold
+    parameters that will be trained further."""
     if path.endswith((".pt", ".ckpt")):
         raise NotImplementedError(
             "reference .pt checkpoints are not read by the port yet "
@@ -103,4 +109,9 @@ def load_checkpoint(path: str, device="cpu") -> DiscreteModel:
             "puflow_tpu and save it as .npz")
     if not path.endswith(".npz"):
         raise ValueError(f"unrecognised checkpoint format: {path}")
-    return from_numpy_tree(*load_npz_checkpoint(path), device=device)
+    model = from_numpy_tree(*load_npz_checkpoint(path), device=device)
+    if not fold:
+        return model
+    params, state = model.trees()
+    return DiscreteModel(fold_bn_inference(params, state),
+                         empty_bn_state(state))

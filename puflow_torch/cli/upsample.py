@@ -5,11 +5,13 @@ plus ``--device``:
 
     python -m puflow_torch.cli.upsample --source <dir> --target <dir> \
         --checkpoint <ckpt.npz> --up_ratio 4 [--num_patch 256] \
-        [--num_out N] [--seed 2021] [--device cuda]
+        [--num_out N] [--seed 2021] [--exact] [--device cuda]
 
-Reads the native ``.npz`` checkpoint format. Clouds are grouped by point
-count and batched ``--batch`` at a time, the tail batch padded so every
-batch has the same shape. Outputs are written with '%.6f'.
+Reads the native ``.npz`` checkpoint format and, unless ``--exact`` is
+given, folds BatchNorm into the convs as `puflow_tpu.cli.upsample` does.
+Clouds are grouped by point count and batched ``--batch`` at a time, the
+tail batch padded so every batch has the same shape. Outputs are written
+with '%.6f'.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ def main(argv=None):
     parser.add_argument("--model", choices=["discrete", "cnf"],
                         default="discrete")
     parser.add_argument("--exact", action="store_true",
-                        help="unfolded BatchNorm. The port runs unfolded "
-                             "BatchNorm with or without this flag until BN "
-                             "folding is ported (ROADMAP.md, next slice)")
+                        help="keep BatchNorm unfolded: the encoder, the "
+                             "k-NN and the interpolation head run as plain "
+                             "tensor ops, while FPS, flow f and flow g still "
+                             "run as CUDA kernels. Default: BN folded into "
+                             "the convs, every model stage a CUDA kernel")
     parser.add_argument("--batch", type=int, default=1,
                         help="clouds per device batch")
     parser.add_argument("--seeded_merge", action="store_true",
@@ -70,7 +74,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     rng = np.random.RandomState(args.seed)
-    model = load_checkpoint(args.checkpoint, device)
+    model = load_checkpoint(args.checkpoint, device, fold=not args.exact)
 
     os.makedirs(args.target, exist_ok=True)
     paths = []

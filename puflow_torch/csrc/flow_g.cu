@@ -1,14 +1,22 @@
 // Inverse flow g (interpolated latents -> points), all flow blocks in one
-// launch, over conditions that are not repeated.
+// launch, over conditions that are not repeated; with the latent blend of
+// the interpolation in its prologue (puflow_flow_g_blend).
 //
-// Replaces the TPU kernel `flow_g_pallas` (puflow_tpu/ops/pallas/
-// flow_pallas.py, `_flow_g_kernel` / `_flow_g_body`). Per block, in
+// Replaces the TPU kernels `flow_g_pallas` and `flow_g_blend_pallas`
+// (puflow_tpu/ops/pallas/flow_pallas.py, `_flow_g_kernel`,
+// `_flow_g_blend_kernel`, both on `_flow_g_body`). Per block, in
 // inverse order: affine injector z = z * exp(MLP_s(c)) + MLP_b(c) ->
 // reverse channels -> additive coupling h2 += MLP([h1, c]) -> inv1x1
 // (z' = W^-1 z) -> ActNorm (z - bias) * exp(-logs). Input latents are
 // [P, 3, r] (P points, r samples each); output rows are point-major
-// [P * r, 3], the r samples of a point consecutive. Plain version:
-// `flow_g_plain` in puflow_torch/ops/flow.py.
+// [P * r, 3], the r samples of a point consecutive. Plain versions:
+// `flow_g_plain` and `flow_g_blend_plain` in puflow_torch/ops/flow.py.
+//
+// The blend: each point's r latents are sum_s z[q_s] w[s, :] over its k
+// neighbours q_s, from flow_f's latents z [P, 3] and the interpolation
+// head's weights [P, k, r]. The prologue computes them straight into the
+// tile's state rows, so the interpolated latents never make a round trip
+// through device memory of their own and no second kernel runs.
 //
 // What bounds it on the H100: FP32 FMAs, as in flow_f. Of the three MLPs
 // per block, the two injector MLPs and the coupling's condition
@@ -28,6 +36,8 @@
 // bf16 split); W^-1 comes from torch.linalg.inv on the host side, as the
 // plain version computes it.
 
+#include <cstdint>
+
 #include "flow_common.cuh"
 
 namespace puflow {
@@ -46,8 +56,17 @@ __host__ __device__ inline int g_smem_floats(int wmax, int ldc) {
          2 * kPoints * 3 + 2 * kRows * 3;
 }
 
+// The blend's inputs; z == nullptr selects flow_g's latents `fz`.
+struct Blend {
+  const float* z;        // [n_points, 3] latents of flow_f
+  const float* ws;       // [n_points, k, r] interpolation weights
+  const int64_t* idx;    // point p's neighbours at idx[p * idx_stride + s],
+                         // indices within its patch of n points
+  int idx_stride, n, k;
+};
+
 __global__ void __launch_bounds__(kThreads, 1)
-flow_g_kernel(const float* __restrict__ fz, FlowArgs args,
+flow_g_kernel(const float* __restrict__ fz, Blend blend, FlowArgs args,
               const float* __restrict__ weights, float* __restrict__ out,
               int n_points, int r, int ldc_max) {
   extern __shared__ float smem[];
@@ -69,14 +88,26 @@ flow_g_kernel(const float* __restrict__ fz, FlowArgs args,
   // The state of the tile's rows lives in its output rows: 12 bytes a row,
   // read and written once per flow block. Latents [np][3][r] -> rows
   // p * r + s.
-  const float* fz_tile = fz + static_cast<size_t>(p0) * 3 * r;
   float* z_tile = out + static_cast<size_t>(p0) * r * 3;
   for (int i = t; i < rows * 3; i += kThreads) {
     const int p = i / (3 * r);
     const int rem = i - p * 3 * r;
     const int ch = rem / r;
     const int s = rem - ch * r;
-    z_tile[(p * r + s) * 3 + ch] = fz_tile[i];
+    float v;
+    if (blend.z == nullptr) {
+      v = fz[static_cast<size_t>(p0) * 3 * r + i];
+    } else {
+      const int gp = p0 + p;
+      const int64_t base = static_cast<int64_t>(gp / blend.n) * blend.n;
+      const int64_t* nb =
+          blend.idx + static_cast<int64_t>(gp) * blend.idx_stride;
+      const float* w = blend.ws + static_cast<size_t>(gp) * blend.k * r + s;
+      v = 0.f;
+      for (int q = 0; q < blend.k; ++q)
+        v = fmaf(blend.z[(base + nb[q]) * 3 + ch], w[q * r], v);
+    }
+    z_tile[(p * r + s) * 3 + ch] = v;
   }
 
   for (int b = args.nblocks - 1; b >= 0; --b) {
@@ -158,17 +189,10 @@ flow_g_kernel(const float* __restrict__ fz, FlowArgs args,
   }
 }
 
-}  // namespace
-}  // namespace puflow
-
-// fz [n_points, 3, r] -> out [n_points * r, 3], point-major. c_ptrs /
-// cdims / woff are host arrays of nblocks, nblocks and nblocks + 1 entries;
-// the conditions are [n_points, cdim] (not repeated).
-extern "C" int puflow_flow_g(const void* fz, const void* weights,
-                             const void* c_ptrs, const void* cdims,
-                             const void* woff, int nblocks, int n_points,
-                             int r, void* out, void* stream) {
-  using namespace puflow;
+cudaError_t launch_g(const float* fz, const Blend& blend, const void* weights,
+                     const void* c_ptrs, const void* cdims, const void* woff,
+                     int nblocks, int n_points, int r, void* out,
+                     void* stream) {
   FlowArgs args;
   const int cmax = fill_args(&args, static_cast<const long long*>(c_ptrs),
                              static_cast<const int*>(cdims),
@@ -184,7 +208,42 @@ extern "C" int puflow_flow_g(const void* fz, const void* weights,
   if (err != cudaSuccess) return err;
   const int grid = (n_points + kPoints - 1) / kPoints;
   flow_g_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fz), args, static_cast<const float*>(weights),
+      fz, blend, args, static_cast<const float*>(weights),
       static_cast<float*>(out), n_points, r, ldc_max);
   return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace puflow
+
+// fz [n_points, 3, r] -> out [n_points * r, 3], point-major. c_ptrs /
+// cdims / woff are host arrays of nblocks, nblocks and nblocks + 1 entries;
+// the conditions are [n_points, cdim] (not repeated).
+extern "C" int puflow_flow_g(const void* fz, const void* weights,
+                             const void* c_ptrs, const void* cdims,
+                             const void* woff, int nblocks, int n_points,
+                             int r, void* out, void* stream) {
+  using namespace puflow;
+  return launch_g(static_cast<const float*>(fz), Blend{}, weights, c_ptrs,
+                  cdims, woff, nblocks, n_points, r, out, stream);
+}
+
+// z [n_points, 3] (patches of n points), ws [n_points, k, r], idx
+// [n_points, >= k] int64 with row stride idx_stride -> out [n_points * r,
+// 3], point-major; the other arguments as for puflow_flow_g.
+extern "C" int puflow_flow_g_blend(const void* z, const void* ws,
+                                   const void* idx, int idx_stride, int n,
+                                   int k, const void* weights,
+                                   const void* c_ptrs, const void* cdims,
+                                   const void* woff, int nblocks,
+                                   int n_points, int r, void* out,
+                                   void* stream) {
+  using namespace puflow;
+  if (z == nullptr || k < 1 || n < 1 || n_points % n != 0)
+    return cudaErrorInvalidValue;
+  const Blend blend{static_cast<const float*>(z),
+                    static_cast<const float*>(ws),
+                    static_cast<const int64_t*>(idx), idx_stride, n, k};
+  return launch_g(nullptr, blend, weights, c_ptrs, cdims, woff, nblocks,
+                  n_points, r, out, stream);
 }

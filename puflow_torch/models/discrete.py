@@ -6,7 +6,10 @@ reverse channel permute -> affine injector, conditioned on a densely
 connected EdgeConv pyramid (`feat_extract`). Upsampling: points ->
 latents through the forward flow f (`ops.flow.flow_f`), k-NN latent
 interpolation (k=8, learned softmax weights), inverse flow g
-(`ops.flow.flow_g`) on the interpolated latents.
+(`ops.flow.flow_g`) on the interpolated latents. With BN-folded params
+(`models.fold_bn`) every stage is a kernel wrapper: `ops.knn.knn_self`,
+`ops.encoder.encoder_conditions`, `ops.interp.interp_head`, `flow_f` and
+`ops.flow.flow_g_blend`.
 
 Parameters are the JAX package's (params, state) trees, held as
 `DiscreteModel`'s parameters and buffers; the functions take the trees.
@@ -22,20 +25,23 @@ from puflow_torch.flows.coupling import linear_a1d_init
 from puflow_torch.flows.normalize import actnorm_init
 from puflow_torch.flows.permutate import inv1x1_init
 from puflow_torch.models.encoder import (
-    feat_merge_apply,
+    INTERP_K,
     feat_merge_init,
-    feature_extract_apply,
     feature_extract_init,
     interpolation_apply,
     interpolation_init,
 )
+from puflow_torch.ops.encoder import (encoder_conditions,
+                                      encoder_conditions_plain)
 from puflow_torch.ops.flow import (
     flow_block_forward,
     flow_f,
     flow_g,
+    flow_g_blend,
     flow_g_plain,
 )
-from puflow_torch.ops.knn import knn_indices
+from puflow_torch.ops.interp import interp_head
+from puflow_torch.ops.knn import knn_indices, knn_self
 from puflow_torch.utils.device import resolve_device
 
 NUM_BLOCKS = 6
@@ -66,10 +72,11 @@ def flow_block_init(generator, cdim: int, is_even: bool,
     }
 
 
-def init(generator: torch.Generator, device="cpu"):
+def init(generator: torch.Generator, device="cuda"):
     """Seeded (params, state): the same tree and shapes as the JAX `init`.
 
-    The generator must live on ``device`` (a CUDA generator for CUDA).
+    The generator must live on ``device`` (a CUDA generator for CUDA);
+    pass ``device="cpu"`` with a CPU generator to build on the host.
     """
     device = resolve_device(device)
     interp_p, interp_s = interpolation_init(generator, PC_CHANNEL,
@@ -93,14 +100,9 @@ def init(generator: torch.Generator, device="cpu"):
 
 
 def feat_extract(params, state, xyz: torch.Tensor, knn_idx: torch.Tensor):
-    """EdgeConv pyramid -> per-block conditions ``[B, N, cdim_i]``."""
-    cs = []
-    c = xyz
-    for fp, fs, mp in zip(params["feat_convs"], state["feat_convs"],
-                          params["merge_convs"]):
-        c = feature_extract_apply(fp, fs, c, knn_idx)
-        cs.append(feat_merge_apply(mp, c))
-    return cs
+    """EdgeConv pyramid -> per-block conditions ``[B, N, cdim_i]``, as
+    tensor ops (folded or unfolded params)."""
+    return encoder_conditions_plain(params, xyz, knn_idx, state)
 
 
 def f_transform(params, x: torch.Tensor, cs):
@@ -119,13 +121,32 @@ def g_transform(params, z: torch.Tensor, cs, upratio: int) -> torch.Tensor:
     return flow_g_plain(params["flow_blocks"], z, cs)
 
 
+def is_folded(params) -> bool:
+    """Whether BN is folded into the convs (`models.fold_bn`): no ``bn``
+    in the first encoder conv and no ``bn0`` in the weight unit, the test
+    of `puflow_tpu.models.discrete.forward`."""
+    return ("bn" not in params["feat_convs"][0]["convs"][0]
+            and "bn0" not in params["interp"]["weight_unit"])
+
+
 def forward(params, state, xyz: torch.Tensor, upratio: int):
     """Inference pass ``[B, N, 3] -> ([B, N*r, 3], NaN, state)``.
 
     As the JAX package's inference branch: the forward flow runs without
-    its log-density (returned as NaN), and both flows go through their
-    kernel wrappers.
+    its log-density (returned as NaN). BN-folded params (`is_folded`) take
+    the fused branch of `puflow_tpu.models.discrete.forward`, every stage a
+    kernel wrapper; unfolded params run the encoder and the interpolation
+    head as tensor ops, and both flows through their kernel wrappers.
     """
+    if is_folded(params):
+        xyz = xyz.contiguous()
+        knn_idx = knn_self(xyz, NUM_NEIGHBORS)          # ascending, self first
+        idx8 = knn_idx[..., :INTERP_K]                  # K=16 sorted -> K=8
+        cs = encoder_conditions(params, xyz, knn_idx)
+        ws = interp_head(params["interp"], xyz, idx8, upratio, "weights")
+        z = flow_f(params["flow_blocks"], xyz, cs)
+        x = flow_g_blend(params["flow_blocks"], z, ws, idx8, cs)
+        return x, torch.tensor(float("nan")), state
     knn_idx = knn_indices(xyz, xyz, NUM_NEIGHBORS)
     cs = feat_extract(params, state, xyz, knn_idx)
     z = flow_f(params["flow_blocks"], xyz.contiguous(), cs)

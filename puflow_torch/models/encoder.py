@@ -1,13 +1,14 @@
 """Geometry-context encoders for the interpolation flow.
 
 Counterpart of `puflow_tpu.models.encoder`, inference only (BatchNorm in
-eval mode, unfolded):
+eval mode; a layer whose ``bn`` / ``bn0`` / ``bn1`` key is absent was
+folded by `models.fold_bn` and skips it):
   * `feature_extract_apply` — densely-connected EdgeConv stack (LeakyReLU
     0.05) with a max-pool over the K neighbours;
   * the distance encoder, the k-NN context and the weight unit, which
     make the interpolation logits;
   * `interpolation_apply` — softmax over the K=8 neighbour slots of the
-    first r of R_MAX=32 logits, then the latent blend;
+    first r of R_MAX=32 logits, then the latent blend (`ops.interp`);
   * `feat_merge_apply` — the 2-layer bottleneck that makes flow conditions.
 
 Layout is channel-last; every 1x1 conv is a channel matmul (models/nn.py).
@@ -54,6 +55,7 @@ def feature_extract_apply(params, state, x: torch.Tensor,
                           knn_idx: torch.Tensor,
                           pooling: bool = True) -> torch.Tensor:
     """x: [B, N, C] -> pooled [B, N, odim] or per-slot [B, N, K, odim].
+    ``state`` is read only for unfolded BN (None when folded).
 
     The edge feature [x, x_nbr, x_nbr - x] of every layer factorises onto
     the block input: ``e @ W = x @ (W_0 - W_2) + x_nbr @ (W_1 + W_2)``. So
@@ -77,12 +79,14 @@ def feature_extract_apply(params, state, x: torch.Tensor,
         return p_self[:, :, None, lo:hi] + p_nbr[..., lo:hi]
 
     h_cat = None
-    for i, (conv_p, bn_s) in enumerate(zip(params["convs"], state["convs"])):
+    for i, conv_p in enumerate(params["convs"]):
         h = edge_term(i)
         if h_cat is not None:
             h = h + channel_matmul(h_cat, conv_p["lin"]["w"][3 * C:])
         h = h + conv_p["lin"]["b"]
-        h = F.leaky_relu(bn_apply(conv_p["bn"], bn_s, h), _FEU_SLOPE)
+        if "bn" in conv_p:
+            h = bn_apply(conv_p["bn"], state["convs"][i], h)
+        h = F.leaky_relu(h, _FEU_SLOPE)
         h_cat = h if h_cat is None else torch.cat([h_cat, h], dim=-1)
 
     f = edge_term(len(layers) - 1)
@@ -116,10 +120,18 @@ def distance_encoder_apply(params, state, xyz: torch.Tensor,
     vec = pt - neighbours
     dist = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True))
     f = torch.cat([pt, neighbours, vec, dist], dim=-1)
-    h = linear_apply(params["lin0"], f)
-    h = F.leaky_relu(bn_apply(params["bn0"], state["bn0"], h), _MLP_SLOPE)
-    h = linear_apply(params["lin1"], h)
-    h = F.leaky_relu(bn_apply(params["bn1"], state["bn1"], h), _MLP_SLOPE)
+    return _mlp3_apply(params, state, f)
+
+
+def _mlp3_apply(params, state, x: torch.Tensor) -> torch.Tensor:
+    """lin0 -> [bn0] -> LeakyReLU -> lin1 -> [bn1] -> LeakyReLU -> lin2,
+    BN skipped where folded."""
+    h = x
+    for i in range(2):
+        h = linear_apply(params[f"lin{i}"], h)
+        if f"bn{i}" in params:
+            h = bn_apply(params[f"bn{i}"], state[f"bn{i}"], h)
+        h = F.leaky_relu(h, _MLP_SLOPE)
     return linear_apply(params["lin2"], h)
 
 
@@ -134,7 +146,10 @@ def knn_context_init(generator, pc_channel: int = 3, device=None):
 
 def knn_context_apply(params, state, xyz: torch.Tensor,
                       knn_idx: torch.Tensor) -> torch.Tensor:
-    """xyz: [B, N, 3]; knn_idx: [B, N, k] -> [B, N, k, 256]."""
+    """xyz: [B, N, 3]; knn_idx: [B, N, k] -> [B, N, k, 256]. ``state`` may
+    be None when the params are folded."""
+    if state is None:
+        state = {"distance_encoder": None, "feat_conv": None}
     dist = distance_encoder_apply(params["distance_encoder"],
                                   state["distance_encoder"], xyz, knn_idx)
     feat = feature_extract_apply(params["feat_conv"], state["feat_conv"],
@@ -156,11 +171,7 @@ def weight_unit_init(generator, feat_dim: int = 256, device=None):
 
 def weight_unit_apply(params, state, context: torch.Tensor) -> torch.Tensor:
     """context: [B, N, k, C] -> logits [B, N, k, R_MAX]."""
-    h = linear_apply(params["lin0"], context)
-    h = F.leaky_relu(bn_apply(params["bn0"], state["bn0"], h), _MLP_SLOPE)
-    h = linear_apply(params["lin1"], h)
-    h = F.leaky_relu(bn_apply(params["bn1"], state["bn1"], h), _MLP_SLOPE)
-    return linear_apply(params["lin2"], h)
+    return _mlp3_apply(params, state, context)
 
 
 def interpolation_init(generator, pc_channel: int = 3, device=None):
@@ -178,7 +189,12 @@ def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
     z: [B, N, C] latents; xyz: [B, N, 3] geometry -> [B, N, C, upratio].
     `knn_idx` may be a neighbour list with K >= INTERP_K sorted by
     ascending distance; its first INTERP_K columns are then the K=8 graph.
+    Folded params go through `ops.interp.interp_head` (the CUDA kernel for
+    CUDA tensors), unfolded ones through its plain version with BN.
     """
+    # ops.interp builds its plain version from this module's functions
+    from puflow_torch.ops.interp import interp_head, interp_head_plain
+
     if not 1 <= upratio <= R_MAX:
         raise ValueError(f"upratio={upratio} out of range [1, {R_MAX}]: the "
                          f"weight head emits at most R_MAX={R_MAX} rows")
@@ -188,13 +204,10 @@ def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
         raise ValueError(f"knn_idx has {knn_idx.shape[-1]} < {INTERP_K} "
                          "neighbours")
     knn_idx = knn_idx[..., :INTERP_K]
-    ctx = knn_context_apply(params["knn_context"], state["knn_context"], xyz,
-                            knn_idx)
-    logits = weight_unit_apply(params["weight_unit"], state["weight_unit"],
-                               ctx)[..., :upratio]          # [B, N, k, r]
-    weights = torch.softmax(logits, dim=2)                  # over the k slots
-    nei = gather_points(z, knn_idx)                         # [B, N, k, C]
-    return torch.einsum("bnkc,bnkr->bncr", nei, weights)
+    if "bn0" not in params["weight_unit"]:
+        return interp_head(params, xyz, knn_idx, upratio, "latents", z)
+    return interp_head_plain(params, xyz, knn_idx, upratio, "latents", z,
+                             state)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Geometry ops and the flow kernels.
+"""Geometry ops and the model's kernels.
 
 Each hand-written CUDA kernel (`csrc/`) sits in the module of its plain
-PyTorch version: `ops.fps` (farthest point sampling) and `ops.flow` (the
-forward and inverse flow chains). A wrapper launches its kernel for a
-CUDA tensor and runs the plain version for a CPU tensor.
+PyTorch version: `ops.fps` (farthest point sampling), `ops.knn` (the
+self k-NN of a patch), `ops.encoder` (the condition encoder), `ops.interp`
+(the interpolation head) and `ops.flow` (the forward flow, the inverse
+flow, and the latent blend plus inverse flow). A wrapper launches its
+kernel for a CUDA tensor and runs the plain version for a CPU tensor.
 """

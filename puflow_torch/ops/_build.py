@@ -1,7 +1,8 @@
 """Build the CUDA kernels in `puflow_torch/csrc` and bind them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface under ``puflow_torch/_build/``.
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
+for ``sm_90a``; a last ``nvcc`` links the objects into one shared library
+with a plain C interface under ``puflow_torch/_build/``.
 The library's name carries a hash of the sources and flags: it is built
 at first use and again only when a source changes. Each C entry point
 takes device pointers and the CUDA stream as ``void*``, launches on that
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,12 @@ _SIGNATURES = {
     "puflow_fps": [_P, _I, _I, _I, _P, _P, _P],
     "puflow_flow_f": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     "puflow_flow_g": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "puflow_flow_g_blend": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                            _I, _P, _P],
+    "puflow_knn_self": [_P, _I, _I, _I, _P, _P],
+    "puflow_encoder": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+    "puflow_interp_head": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                           _P],
 }
 
 
@@ -59,6 +66,21 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; wait for all, raise if one failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels unless a library for these sources exists.
 
@@ -70,15 +92,19 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    objs.mkdir(exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    obj_paths = [objs / f"{src.stem}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _run([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+              for src, obj in zip(srcs, obj_paths)])
+        _run([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *(str(o) for o in obj_paths)]])
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
     return lib, seconds
 

@@ -1,15 +1,18 @@
 """Forward and inverse flow chains: the CUDA kernels and their plain versions.
 
 Counterpart of `puflow_tpu.ops.pallas.flow_pallas` (`flow_f_pallas`,
-`flow_g_pallas`, here `csrc/flow_f.cu` and `csrc/flow_g.cu`) and of the
-flow-block functions of `puflow_tpu.models.discrete`. One flow block is
+`flow_g_pallas` and `flow_g_blend_pallas`, here `csrc/flow_f.cu` and
+`csrc/flow_g.cu`) and of the flow-block functions of
+`puflow_tpu.models.discrete`. One flow block is
 ActNorm -> inv1x1 -> additive coupling (split 1 for even blocks, 2 for
 odd) -> reverse channels -> affine injector, each conditioned on the
 block's encoder features.
 
-The wrappers `flow_f` and `flow_g` launch their kernel for CUDA tensors
-and run the plain version (`flow_f_plain`, `flow_g_plain`) for CPU
-tensors. Inference only: no log-determinant, no gradient.
+The wrappers `flow_f`, `flow_g` and `flow_g_blend` (the latent blend of
+the interpolation, then the inverse flow) launch their kernel for CUDA
+tensors and run the plain version (`flow_f_plain`, `flow_g_plain`,
+`flow_g_blend_plain`) for CPU tensors. Inference only: no
+log-determinant, no gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from puflow_torch.flows.permutate import (
     reverse_permute,
 )
 from puflow_torch.ops import _build
+from puflow_torch.ops.knn import check_graph, gather_points
 
 _REVERSE3 = (2, 1, 0)  # reverse permutation of 3 channels; self-inverse
 HDIM = 64              # LinearA1D hidden width the kernels are built for
@@ -85,6 +89,16 @@ def flow_g_plain(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
         c = torch.repeat_interleave(cs[i], r, dim=1)
         z = flow_block_inverse(flow_blocks[i], z, c, is_even=(i % 2 == 0))
     return z
+
+
+def flow_g_blend_plain(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
+                       knn_idx: torch.Tensor, cs) -> torch.Tensor:
+    """Latents ``[B, N, 3]`` of f, interpolation weights ``[B, N, K, r]``
+    and their K-NN graph ``[B, N, K]`` -> points ``[B, N * r, 3]``: the
+    blend ``sum_k z[idx_k] ws_k`` followed by `flow_g_plain`."""
+    nei = gather_points(z, knn_idx)                        # [B, N, K, 3]
+    fz = torch.einsum("bnkc,bnkr->bncr", nei, ws)
+    return flow_g_plain(flow_blocks, fz, cs)
 
 
 def _pack_weights(flow_blocks, inverse: bool):
@@ -192,5 +206,45 @@ def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
     return out
 
 
+def flow_g_blend(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
+                 knn_idx: torch.Tensor, cs) -> torch.Tensor:
+    """Latent blend plus inverse flow, ``[B, N * r, 3]`` point-major (see
+    `flow_g_blend_plain`): the CUDA kernel for CUDA tensors, whose
+    prologue blends each point's latents, the plain version for CPU."""
+    if z.device.type == "cpu":
+        return flow_g_blend_plain(flow_blocks, z, ws, knn_idx, cs)
+    if z.device.type != "cuda":
+        raise ValueError(f"flow_g_blend: no kernel for {z.device}")
+    if z.ndim != 3 or z.shape[2] != 3:
+        raise ValueError(f"flow_g_blend: expects z [B, N, 3], got "
+                         f"{tuple(z.shape)}")
+    B, N, C = z.shape
+    k = check_graph("flow_g_blend", knn_idx, z)
+    if (ws.dtype != torch.float32 or ws.device != z.device
+            or not ws.is_contiguous() or ws.ndim != 4
+            or ws.shape[:3] != (B, N, k)
+            or not 1 <= ws.shape[3] <= MAX_UPRATIO):
+        raise ValueError("flow_g_blend: expects contiguous float32 ws "
+                         f"[{B}, {N}, {k}, r <= {MAX_UPRATIO}], got "
+                         f"{ws.dtype} {tuple(ws.shape)}")
+    c_ptrs, cdims = _check_inputs("flow_g_blend", flow_blocks, z, cs)
+    weights, woff = _pack_weights(flow_blocks, inverse=True)
+    woff_c = (ctypes.c_int * len(woff))(*woff)
+    r = ws.shape[3]
+    out = torch.empty((B, N * r, C), dtype=torch.float32, device=z.device)
+    lib = _build.library()
+    with torch.cuda.device(z.device):
+        code = lib.puflow_flow_g_blend(
+            z.data_ptr(), ws.data_ptr(), knn_idx.data_ptr(),
+            knn_idx.stride(1), N, k, weights.data_ptr(),
+            ctypes.addressof(c_ptrs), ctypes.addressof(cdims),
+            ctypes.addressof(woff_c), len(cs), B * N, r, out.data_ptr(),
+            _build.stream_ptr(z.device))
+    _build.check(code, "puflow_flow_g_blend")
+    flow_g_blend.launches += 1
+    return out
+
+
 flow_f.launches = 0
 flow_g.launches = 0
+flow_g_blend.launches = 0

@@ -5,11 +5,22 @@ Counterpart of `puflow_tpu.ops.knn`. Distances use the same expanded form
 sorted by ascending distance, so the first 8 columns of a K=16 graph are
 the K=8 graph. Tie order between equal distances may differ from the JAX
 package; every consumer is permutation-equivariant over neighbour slots.
+
+`knn_self` is the counterpart of the TPU kernel
+`ops/pallas/knn_pallas.py:knn_self_pallas` (here `csrc/knn.cu`): each
+point's neighbours within its own patch, from delta-form distances with
+first-occurrence ties; the kernel and `knn_self_plain` return the same
+indices.
 """
 
 from __future__ import annotations
 
 import torch
+
+from puflow_torch.ops import _build
+
+KNN_MAX_K = 16            # the kernel's register list
+_SMEM_BYTES = 232448      # shared memory a block may use: 12 bytes a point
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -43,3 +54,75 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, _, C = points.shape
     flat = idx.reshape(B, -1, 1).expand(-1, -1, C)
     return torch.gather(points, 1, flat).reshape(*idx.shape, C)
+
+
+def check_patches(name: str, xyz: torch.Tensor) -> None:
+    """Raise unless ``xyz`` is what the kernels take: contiguous float32
+    patches ``[B, n, 3]``."""
+    if (xyz.dtype != torch.float32 or xyz.ndim != 3 or xyz.shape[2] != 3
+            or not xyz.is_contiguous()):
+        raise ValueError(f"{name}: expects contiguous float32 [B, n, 3], "
+                         f"got {xyz.dtype} {tuple(xyz.shape)}")
+
+
+def check_graph(name: str, knn_idx: torch.Tensor,
+                points: torch.Tensor) -> int:
+    """Raise unless ``knn_idx`` is a K-NN graph the kernels take for
+    ``points`` ``[B, n, C]``: int64 ``[B, n, K]`` on the same device with
+    unit last stride and rows ``n * stride(1)`` apart per patch (a slice
+    ``idx[..., :8]`` qualifies). Returns K."""
+    B, n = points.shape[:2]
+    if (knn_idx.dtype != torch.int64 or knn_idx.device != points.device
+            or knn_idx.ndim != 3 or knn_idx.shape[:2] != (B, n)
+            or knn_idx.stride(2) != 1
+            or knn_idx.stride(0) != n * knn_idx.stride(1)):
+        raise ValueError(f"{name}: expects an int64 graph [{B}, {n}, K] "
+                         f"with unit last stride on {points.device}, got "
+                         f"{knn_idx.dtype} {tuple(knn_idx.shape)}")
+    k = knn_idx.shape[2]
+    if not 1 <= k <= 128:
+        raise ValueError(f"{name}: K={k} outside [1, 128]")
+    return k
+
+
+def knn_self_plain(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """``[B, n, 3] -> [B, n, k]`` int64: ascending self k-NN within each
+    patch, slot 0 the point itself, first index on ties.
+
+    Distances are the delta form ``(dx*dx + dy*dy) + dz*dz`` of
+    `knn_pallas.py:64-67`, which the kernel computes in the same order.
+    """
+    d = None
+    for c in range(3):
+        delta = xyz[:, None, :, c] - xyz[:, :, None, c]    # [B, query, cand]
+        sq = delta * delta
+        d = sq if d is None else d + sq
+    _, idx = torch.sort(d, dim=-1, stable=True)
+    return idx[..., :k].contiguous()
+
+
+def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """Self k-NN ``[B, n, 3] -> [B, n, k]`` int64: the CUDA kernel for a
+    CUDA tensor, `knn_self_plain` for a CPU tensor."""
+    if xyz.device.type == "cpu":
+        return knn_self_plain(xyz, k)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"knn_self: no kernel for {xyz.device}")
+    check_patches("knn_self", xyz)
+    B, n, _ = xyz.shape
+    if not 1 <= k <= min(KNN_MAX_K, n):
+        raise ValueError(f"knn_self: k={k} outside [1, min({KNN_MAX_K}, n)]")
+    if n * 12 > _SMEM_BYTES:
+        raise ValueError(f"knn_self: a patch of {n} points does not fit "
+                         "shared memory")
+    out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
+    lib = _build.library()
+    with torch.cuda.device(xyz.device):
+        code = lib.puflow_knn_self(xyz.data_ptr(), B, n, k, out.data_ptr(),
+                                   _build.stream_ptr(xyz.device))
+    _build.check(code, "puflow_knn_self")
+    knn_self.launches += 1
+    return out
+
+
+knn_self.launches = 0

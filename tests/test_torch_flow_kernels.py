@@ -43,7 +43,7 @@ def case():
     z, _ = j_discrete.f_transform(jp, jnp.asarray(x), cs)
     fz, _ = interpolation_apply(jp["interp"], js["interp"], z,
                                 jnp.asarray(x), R, False, knn_idx=idx)
-    model = t_checkpoint.from_numpy_tree(params, state)
+    model = t_checkpoint.from_numpy_tree(params, state, "cpu")
     blocks = model.trees()[0]["flow_blocks"]
     return dict(jp=jp, x=x, cs=cs, z=z, fz=fz, blocks=blocks,
                 t_cs=[torch.tensor(np.asarray(c)) for c in cs])

@@ -11,9 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from puflow_torch import checkpoint as t_checkpoint
 from puflow_torch.cli import upsample as t_cli
+from puflow_torch.models import discrete as t_discrete
+from puflow_torch.ops import encoder as t_encoder
 from puflow_torch.ops import flow as t_flow
 from puflow_torch.ops import fps as t_fps
+from puflow_torch.ops import interp as t_interp
+from puflow_torch.ops import knn as t_knn
 from puflow_torch.utils.device import resolve_device
 from puflow_tpu.checkpoint import save_checkpoint
 from puflow_tpu.models import discrete as j_discrete
@@ -56,6 +61,16 @@ def test_wrappers_raise_on_other_devices():
         t_flow.flow_f([], meta, [])
     with pytest.raises(ValueError, match="no kernel"):
         t_flow.flow_g([], torch.empty((1, 8, 3, 4), device="meta"), [])
+    idx = torch.empty((1, 8, 8), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_knn.knn_self(meta, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_encoder.encoder_conditions({}, meta, idx)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_interp.interp_head({}, meta, idx, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_flow.flow_g_blend([], meta, torch.empty((1, 8, 8, 4), device="meta"),
+                            idx, [])
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +86,23 @@ def cli_inputs(tmp_path_factory):
     pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
     np.savetxt(src / "cloud.xyz", pts, fmt="%.6f")
     return tmp, ckpt, src
+
+
+def test_entry_points_default_to_the_card(cli_inputs):
+    """Called without a device, the public entry points ask for CUDA, and
+    on a host without a card that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    _, ckpt, _ = cli_inputs
+    params, state = j_discrete.init(jax.random.PRNGKey(0))
+    params, state = (jax.tree.map(np.asarray, params),
+                     jax.tree.map(np.asarray, state))
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_discrete.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_checkpoint.from_numpy_tree(params, state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_checkpoint.load_checkpoint(ckpt)
 
 
 def test_cli_exits_nonzero_without_cuda(cli_inputs):

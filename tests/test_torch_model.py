@@ -25,7 +25,7 @@ def models():
     params, state = t_discrete.perturb_init(jax.tree.map(np.array, params),
                                             jax.tree.map(np.array, state), 2)
     return (jax.tree.map(jnp.asarray, (params, state)),
-            t_checkpoint.from_numpy_tree(params, state))
+            t_checkpoint.from_numpy_tree(params, state, "cpu"))
 
 
 def _cloud(seed):
@@ -40,7 +40,7 @@ def _shapes(tree):
 def test_init_tree_matches_jax():
     jp, js = j_discrete.init(jax.random.PRNGKey(0))
     gen = torch.Generator().manual_seed(0)
-    tp, ts = t_discrete.init(gen)
+    tp, ts = t_discrete.init(gen, device="cpu")
     assert _shapes((tp, ts)) == _shapes((jp, js))
     model = t_discrete.DiscreteModel(tp, ts)
     assert sum(p.numel() for p in model.parameters()) == 806_103

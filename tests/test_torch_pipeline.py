@@ -38,7 +38,7 @@ def test_upsample_cloud_matches_jax():
                                  PATCH, 4.0, None, False, 0)
     ref = np.asarray(j_patch.remove_outliers(ref, cloud, OUTLIERS))
 
-    model = t_checkpoint.from_numpy_tree(params, state)
+    model = t_checkpoint.from_numpy_tree(params, state, "cpu")
     pc = torch.from_numpy(pts)
     got = t_patch.upsample_cloud(model, pc, NPOINT, R, PATCH, 4.0)
     got = t_patch.remove_outliers(got, pc, OUTLIERS).numpy()
