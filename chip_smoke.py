@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's main path on one CUDA card.
+"""Smoke run of the PyTorch port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,11 @@ seeded, perturbed weights) in both of the upsample CLI's configurations:
 the default, with BatchNorm folded into the convs, where every model stage
 is a hand-written CUDA kernel (k-NN, encoder, interpolation head, flow f,
 blend plus flow g), and `--exact`, with BN unfolded, where FPS, flow f and
-flow g are kernels. Phases:
+flow g are kernels. Then it trains the same model at the reference PU1K
+configuration (batch 32, 256 -> 1024 points, loss 1e-4 NLL + 5e-2 EMD with
+the 50-iteration auction, Adam with clip 1e-2), whose auction EMD is a
+hand-written CUDA kernel, and runs the train CLI and serves the model it
+saved. Phases:
 
   1. checks the card, prints its name and power limit, turns TF32 off;
   2. builds the kernels from `puflow_torch/csrc` and prints the build time;
@@ -23,7 +27,17 @@ flow g are kernels. Phases:
   5. times each path per stage with CUDA events at B=8 and B=32, and
      traces one run of each with torch.profiler for the card's idle share
      and its top kernels;
-  6. prints one JSON line of kernel results and, last, the device line.
+  6. compares the EMD kernel with its plain version at the training shape
+     ([32, 1024] vs [32, 1024]): equal assignments, a NaN-input run, times
+     and the bound from the work the plain version counts;
+  7. trains: the first step's gradients with the kernel EMD against the
+     plain EMD, then 10 warm-up steps and 5 timed windows of 10 steps with
+     every launch count set to 0 before and read after (steps/s, a split
+     per step, peak memory), and one traced step;
+  8. runs `python -m puflow_torch.cli.train_pu1k --synthetic 2` on the
+     card, loads the checkpoint it saved (BN folded) and upsamples one
+     2048-point cloud with it;
+  9. prints one JSON line of kernel results and, last, the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
 refuses to run without it.
@@ -32,15 +46,19 @@ refuses to run without it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from puflow_torch import checkpoint
+from puflow_torch.data.synthetic import synthetic_pairs
 from puflow_torch.inference.patch import (normalize_cloud, remove_outliers,
                                           upsample_cloud)
 from puflow_torch.models import discrete
@@ -51,10 +69,12 @@ from puflow_torch.ops import encoder as enc_ops
 from puflow_torch.ops import flow as flow_ops
 from puflow_torch.ops import interp as interp_ops
 from puflow_torch.ops.chamfer import chamfer_parts
+from puflow_torch.ops.emd import emd_auction, emd_auction_plain
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain)
 from puflow_torch.ops.knn import (gather_points, knn_indices, knn_self,
                                   knn_self_plain)
+from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
 
 SEED = 2021
 N_POINTS = 2048
@@ -66,6 +86,9 @@ NPOINT = N_POINTS * UPRATIO + N_OUTLIERS
 N_PATCH = int(N_POINTS / PATCH * EXPAND)                   # 32 per cloud
 MERGE_N = N_PATCH * PATCH * UPRATIO + N_POINTS             # 34816
 K = discrete.NUM_NEIGHBORS
+TRAIN_B, TRAIN_N = 32, 256          # bench.py:bench_train, 256 -> 1024 points
+TRAIN_WARMUP, TRAIN_WINDOWS, TRAIN_STEPS = 10, 5, 10
+ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32 flop/s outside
 # the tensor cores. A kernel's bound is the larger of its bytes (inputs
@@ -90,15 +113,19 @@ KERNELS = {
                "replaces": PALLAS + "flow_pallas.py:458"},
     "flow_g_blend": {"route": "cuda", "source": "puflow_torch/csrc/flow_g.cu",
                      "replaces": PALLAS + "flow_pallas.py:515"},
+    "emd": {"route": "cuda", "source": "puflow_torch/csrc/emd.cu",
+            "replaces": PALLAS + "emd_pallas.py:149"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
             "encoder": enc_ops.encoder_conditions,
             "interp_head": interp_ops.interp_head, "flow_f": flow_ops.flow_f,
-            "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend}
+            "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend,
+            "emd": emd_auction}
 # the kernels each configuration's main path must launch
 PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
                     "flow_g_blend"),
-         "exact": ("fps", "flow_f", "flow_g")}
+         "exact": ("fps", "flow_f", "flow_g"),
+         "train": ("emd",)}
 KERNEL_OPS = dict(WRAPPERS, knn=knn_indices)
 PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "knn": knn_indices,
@@ -245,12 +272,13 @@ def sample_staged(model, patches, ops, mark):
         mark("flow_g_blend")
         return x
     knn_idx = ops["knn"](patches, patches, K)
-    cs = discrete.feat_extract(params, state, patches, knn_idx)
+    cs, _ = discrete.feat_extract(params, state, patches, knn_idx)
     mark("encoder")
     z = ops["flow_f"](params["flow_blocks"], patches, cs)
     mark("flow_f")
-    fz = interpolation_apply(params["interp"], state["interp"], z, patches,
-                             UPRATIO, knn_idx=knn_idx).contiguous()
+    fz, _ = interpolation_apply(params["interp"], state["interp"], z,
+                                patches, UPRATIO, knn_idx=knn_idx)
+    fz = fz.contiguous()
     mark("interpolation")
     x = ops["flow_g"](params["flow_blocks"], fz, cs)
     mark("flow_g")
@@ -445,10 +473,11 @@ def compare_flows(model, x, results):
     params, state = model.trees()
     blocks = params["flow_blocks"]
     knn_idx = knn_indices(x, x, K)
-    cs = discrete.feat_extract(params, state, x, knn_idx)
+    cs, _ = discrete.feat_extract(params, state, x, knn_idx)
     z_ref = flow_ops.flow_f_plain(blocks, x, cs)
-    fz = interpolation_apply(params["interp"], state["interp"], z_ref, x,
-                             UPRATIO, knn_idx=knn_idx).contiguous()
+    fz, _ = interpolation_apply(params["interp"], state["interp"], z_ref, x,
+                                UPRATIO, knn_idx=knn_idx)
+    fz = fz.contiguous()
     g_ref = flow_ops.flow_g_plain(blocks, fz, cs)
     # exact f32 on both sides; summation order differs
     for name, got, ref in (("flow_f", flow_ops.flow_f(blocks, x, cs), z_ref),
@@ -522,15 +551,18 @@ def phase_main_path(name, model, results):
         raise AssertionError(f"pipeline chamfer {cd} >= 1e-4")
 
 
-def traced_run(name, model, pc):
-    """One pipeline run under torch.profiler: prints the card's idle share
-    (1 - union of device activity / host wall time) and the top kernels."""
+def trace_idle(label, fn, untraced_s: float):
+    """One call of ``fn`` under torch.profiler: prints the card's busy
+    time (the union of its activity) and the top kernels. The profiler
+    slows the host, so the idle share is given against ``untraced_s``, the
+    median wall time of ``fn`` timed without it, and beside it against the
+    traced call's own wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline_staged(model, pc)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -543,11 +575,19 @@ def traced_run(name, model, pc):
         elif stop > end:
             busy_us += stop - end
         end = max(end, stop)
-    log(f"{name} B={pc.shape[0]} traced run: wall {wall_us / 1e3:.3f} ms, "
-        f"device busy {busy_us / 1e3:.3f} ms, idle share "
-        f"{1.0 - busy_us / wall_us:.4f}")
+    untraced_us = untraced_s * 1e6
+    log(f"{label}: device busy {busy_us / 1e3:.3f} ms (traced); idle share "
+        f"{1.0 - busy_us / untraced_us:.4f} of the untraced "
+        f"{untraced_us / 1e3:.3f} ms (median), "
+        f"{1.0 - busy_us / wall_us:.4f} of the traced {wall_us / 1e3:.3f} ms")
     log(prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=12, max_name_column_width=60))
+
+
+def traced_run(name, model, pc, untraced_s):
+    """One pipeline run under torch.profiler (`trace_idle`)."""
+    trace_idle(f"{name} B={pc.shape[0]}", lambda: pipeline_staged(model, pc),
+               untraced_s)
 
 
 def phase_timing(name, model, card):
@@ -580,7 +620,236 @@ def phase_timing(name, model, card):
         log(f"{name} B={B} end to end {total * 1e3:.2f} ms: {B / total:.2f} "
             f"clouds/s, {B * N_PATCH / total:.1f} patches/s on {card}")
         with torch.no_grad():
-            traced_run(name, model, pc)
+            traced_run(name, model, pc, total)
+
+
+def training_inputs(model):
+    """The perturbed model's trees after the ActNorm warm-up, and
+    bench.py's synthetic batch (32 patches, 256 -> 1024 points) on the
+    card."""
+    sp, de = synthetic_pairs(np.random.RandomState(0), TRAIN_B, TRAIN_N,
+                             UPRATIO)
+    sparse, dense = torch.from_numpy(sp).cuda(), torch.from_numpy(de).cuda()
+    params, state = model.trees()
+    params = discrete.actnorm_warmup(params, state, sparse)
+    return params, state, sparse, dense
+
+
+def phase_emd(results, params, state, sparse, dense):
+    """The auction kernel against its plain version at the training shape:
+    uniform clouds in [0, 1], and the model's own training prediction
+    against its target."""
+    cfg = TrainConfig()
+    eps, iters = cfg.emd_eps, cfg.emd_iters
+    rng = np.random.RandomState(SEED + 2)
+    uniform = tuple(torch.from_numpy(rng.rand(TRAIN_B, TRAIN_N * UPRATIO, 3)
+                                     .astype(np.float32)).cuda()
+                    for _ in range(2))
+    with torch.no_grad():
+        pred, _, _ = discrete.forward(params, state, sparse, UPRATIO,
+                                      train=True)
+    pred = pred.contiguous()
+    for label, (x1, x2) in (("uniform [0, 1]", uniform),
+                            ("training prediction", (pred, dense))):
+        dist, assign = emd_auction(x1, x2, eps, iters)
+        ref_dist, ref_assign = emd_auction_plain(x1, x2, eps, iters)
+        torch.cuda.synchronize()
+        differ = int((assign != ref_assign).sum())
+        if differ:
+            raise AssertionError(f"emd {label}: {differ} assignments differ "
+                                 "from the plain version")
+        log(f"emd {label} {tuple(x1.shape)} vs {tuple(x2.shape)}: "
+            "assignments equal to the plain version")
+        check_close(results, "emd", dist, ref_dist,
+                    1e-6 * max(1.0, float(ref_dist.abs().max())))
+    bad = pred.clone()
+    bad[0, 7] = float("nan")
+    dist, assign = emd_auction(bad, dense, eps, iters)
+    torch.cuda.synchronize()
+    if bool(torch.isfinite(dist[0, 7])) or not bool(
+            torch.isfinite(dist[1:]).all()):
+        raise AssertionError("emd: a NaN row must give a non-finite dist "
+                             "and leave the other clouds finite")
+    if int(assign.min()) < -1 or int(assign.max()) >= dense.shape[1]:
+        raise AssertionError("emd: assignment out of range on NaN input")
+    _, ref_assign = emd_auction_plain(bad, dense, eps, iters)
+    differ = int((assign != ref_assign).sum())
+    if differ or int(assign[0, 7]) != -1:
+        raise AssertionError(f"emd NaN input: {differ} assignments differ "
+                             "from the plain version, or the NaN row got a "
+                             "column")
+    log("emd NaN input: no CUDA error, dist non-finite on the NaN row "
+        "(assign -1), the other clouds finite, assignments equal to the "
+        "plain version")
+
+    # the bound: coordinates in, dist and assign out; the base matrix
+    # (12 flops and a square root a pair) and 4 flops per (unassigned row,
+    # column) per iteration, counted by the plain version on these inputs
+    unassigned = []
+    emd_auction_plain(pred, dense, eps, iters, unassigned)
+    rows = int(torch.stack(unassigned).sum())
+    B, n = pred.shape[:2]
+    m = dense.shape[1]
+    log(f"emd auction work: {rows} unassigned row sweeps over {iters} "
+        f"iterations ({rows / B / n:.3f} full sweeps a cloud)")
+    set_bound(results["emd"], nbytes(pred, dense) + B * n * (4 + 8),
+              13 * B * n * m + 4 * m * rows)
+    time_pair(results, "emd", lambda: emd_auction(pred, dense, eps, iters),
+              lambda: emd_auction_plain(pred, dense, eps, iters))
+
+
+def step_grads(trainer, sparse, dense, emd_fn):
+    """The gradient the train step takes, with the EMD ``emd_fn``."""
+    cfg = trainer.cfg
+    leaf = trainer.params.detach().requires_grad_()
+    pred, logpx, _ = discrete.forward(
+        trainer.param_layout.unflatten(leaf),
+        trainer.state_layout.unflatten(trainer.bn_state), sparse,
+        cfg.upratio, train=True)
+    dist, _ = emd_fn(pred, dense, cfg.emd_eps, cfg.emd_iters)
+    loss = logpx * cfg.logpx_weight + torch.sum(dist) * cfg.emd_weight
+    return torch.autograd.grad(loss, leaf)[0], float(loss.detach())
+
+
+ROUNDING_ZERO = 1e-4
+
+
+def rounding_zero(layout, grads) -> dict:
+    """The bias leaves whose gradient is zero to rounding: the largest
+    entry is below ``ROUNDING_ZERO`` times that of the same layer's weight
+    gradient. (A bias that train-mode BN follows has an exactly zero
+    gradient, BN removes the mean, and holds rounding noise of the batch
+    sums, about 1e-6 of the weight's; a bias with a real gradient has more
+    than 1e-2 of it.) -> {path: that ratio}."""
+    peak = {p: float(g.abs().max())
+            for p, g in zip(layout.paths, grads.split(layout.sizes))}
+    ratios = {p: peak[p] / max(peak[p[:-1] + "w"], 1e-30)
+              for p in layout.paths
+              if p.endswith("/b") and p[:-1] + "w" in peak}
+    return {p: r for p, r in ratios.items() if r < ROUNDING_ZERO}
+
+
+def phase_train(results, params, state, sparse, dense, card):
+    """The training main path: TrainConfig() defaults at batch 32."""
+    trainer = Trainer(TrainConfig(), params, state, device="cuda")
+    layout = trainer.param_layout
+    g_kernel, loss_kernel = step_grads(trainer, sparse, dense, emd_auction)
+    g_plain, loss_plain = step_grads(trainer, sparse, dense,
+                                     emd_auction_plain)
+    # leaves whose true gradient is zero hold only rounding noise: there
+    # both sides must be zero to rounding, and every other leaf is held to
+    # the bound
+    zero_plain = rounding_zero(layout, g_plain)
+    zero_kernel = rounding_zero(layout, g_kernel)
+    if set(zero_plain) != set(zero_kernel):
+        raise AssertionError(
+            "train gradients: the leaves zero to rounding differ between "
+            f"kernel EMD and plain EMD: {sorted(set(zero_plain) ^ set(zero_kernel))}")
+    worst = 0.0
+    for path, a, b in zip(layout.paths, g_kernel.split(layout.sizes),
+                          g_plain.split(layout.sizes)):
+        if path in zero_plain:
+            continue
+        scale = max(float(b.abs().max()), 1e-3)
+        err, tol = float((a - b).abs().max()), 5e-4 * scale + 1e-6
+        if not err <= tol:
+            raise AssertionError(f"train gradients {path}: kernel EMD vs "
+                                 f"plain EMD {err} > {tol}")
+        worst = max(worst, err / tol)
+    log(f"train step 1 gradients, kernel EMD vs plain EMD: "
+        f"{len(layout.paths) - len(zero_plain)} leaves within 5e-4 * scale + "
+        f"1e-6 (worst {worst:.3e} of the bound); loss {loss_kernel:.6f} vs "
+        f"{loss_plain:.6f}")
+    log(f"train step 1 gradients zero to rounding on both sides (largest "
+        f"entry / the layer weight's, below {ROUNDING_ZERO:g}), kernel vs "
+        f"plain: " + ", ".join(f"{p} {zero_kernel[p]:.2e} vs {r:.2e}"
+                               for p, r in zero_plain.items()))
+
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = [trainer.step(sparse, dense) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    windows, splits = [], {}
+    for _ in range(TRAIN_WINDOWS):
+        marks_per_step = []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            marks = [("start", torch.cuda.Event(enable_timing=True))]
+            marks[0][1].record()
+
+            def mark(stage, marks=marks):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((stage, ev))
+
+            metrics.append(trainer.step(sparse, dense, mark))
+            marks_per_step.append(marks)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        for marks in marks_per_step:
+            for (_, a), (stage, b) in zip(marks, marks[1:]):
+                splits.setdefault(stage, []).append(a.elapsed_time(b))
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_WARMUP + TRAIN_WINDOWS * TRAIN_STEPS
+    log(f"train main path: {steps} steps, launches {launches}")
+    if launches["emd"] != steps:
+        raise AssertionError(f"emd kernel launched {launches['emd']} times "
+                             f"in {steps} train steps")
+    results["emd"]["launches"] = launches["emd"]
+    table = torch.stack([torch.stack([m["loss"], m["emd"],
+                                      m["nan_step"].float()])
+                         for m in metrics]).cpu().numpy()
+    if not np.isfinite(table[:, :2]).all() or table[:, 2].any():
+        raise AssertionError("train: a loss was not finite or a step "
+                             "tripped the NaN guard")
+    log(f"train loss first {table[0, 0]:.6f} last {table[-1, 0]:.6f}, emd "
+        f"first {table[0, 1]:.4f} last {table[-1, 1]:.4f}, no NaN step")
+    per_step = [w / TRAIN_STEPS for w in windows]
+    median = statistics.median(per_step)
+    log(f"train B={TRAIN_B} step ms per window of {TRAIN_STEPS}: "
+        + ", ".join(f"{t * 1e3:.3f}" for t in per_step)
+        + f"; steps/s median {1.0 / median:.3f} (range "
+        f"{1.0 / max(per_step):.3f} to {1.0 / min(per_step):.3f}), on {card}")
+    log(f"train B={TRAIN_B} per-step split, ms (median of "
+        f"{TRAIN_WINDOWS * TRAIN_STEPS}): " + ", ".join(
+            f"{k} {statistics.median(v):.3f}" for k, v in splits.items()))
+    log(f"train B={TRAIN_B} peak device memory "
+        f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    trace_idle(f"train B={TRAIN_B} step",
+               lambda: trainer.step(sparse, dense), median)
+
+
+def phase_cli():
+    """Train with the CLI on the card, then serve what it saved."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "m.npz")
+        cmd = [sys.executable, "-m", "puflow_torch.cli.train_pu1k",
+               "--synthetic", "2", "--max_epochs", "1", "--val_batches", "1",
+               "--batch_size", str(TRAIN_B), "--device", "cuda",
+               "--checkpoint", ckpt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        log(f"train CLI ({time.perf_counter() - t0:.1f} s, exit "
+            f"{proc.returncode}): {' '.join(cmd[1:])}")
+        log(proc.stdout.strip())
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI failed:\n{proc.stderr[-4000:]}")
+        model = checkpoint.load_checkpoint(ckpt, "cuda", fold=True)
+        pc = synthetic_clouds(1, SEED + 3)
+        with torch.no_grad():
+            out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND)
+            out = remove_outliers(out, pc, N_OUTLIERS)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (1, N_POINTS * UPRATIO, 3):
+            raise AssertionError(f"served output shape {tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("served output has non-finite values")
+        log(f"served the CLI-trained checkpoint (BN folded): {N_POINTS} -> "
+            f"{tuple(out.shape)}, finite")
 
 
 def main():
@@ -613,6 +882,10 @@ def main():
     phase_main_path("exact", model, results)
     phase_timing("folded", folded, card)
     phase_timing("exact", model, card)
+    params, state, sparse, dense = training_inputs(model)
+    phase_emd(results, params, state, sparse, dense)
+    phase_train(results, params, state, sparse, dense, card)
+    phase_cli()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,0 +1,92 @@
+"""Shared body of the train CLIs (the discrete model's: train_pu1k).
+
+The port's counterpart of `puflow_tpu.cli._train_common`, with the same
+flags plus ``--device`` (default ``cuda``). ``--synthetic N`` trains on N
+synthetic steps per epoch and needs no data file; ``--begin_checkpoint``
+takes a native ``.npz`` checkpoint.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def build_parser(defaults: dict) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--data", type=str, default=defaults.get("data"))
+    p.add_argument("--checkpoint", type=str,
+                   default=defaults.get("checkpoint"))
+    p.add_argument("--begin_checkpoint", type=str, default=None)
+    p.add_argument("--learning_rate", type=float,
+                   default=defaults.get("learning_rate", 1e-3))
+    p.add_argument("--sched_patience", type=int, default=10)
+    p.add_argument("--sched_factor", type=float, default=0.5)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--max_epochs", type=int,
+                   default=defaults.get("max_epochs", 100))
+    p.add_argument("--seed", type=int, default=2021)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic steps/epoch instead of data")
+    p.add_argument("--val_batches", type=int, default=400)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to train on (default cuda)")
+    return p
+
+
+def run_training(args, make_data_loaders):
+    """Train the discrete model; make_data_loaders(args) ->
+    (train_iter_fn, val_iter_fn)."""
+    import torch
+
+    from puflow_torch.checkpoint import load_npz_checkpoint, save_checkpoint
+    from puflow_torch.models import discrete
+    from puflow_torch.train.trainer import TrainConfig, Trainer
+    from puflow_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = TrainConfig(
+        learning_rate=args.learning_rate,
+        sched_patience=args.sched_patience,
+        sched_factor=args.sched_factor,
+        max_epochs=args.max_epochs,
+        seed=args.seed,
+    )
+
+    if args.synthetic:
+        from puflow_torch.data.synthetic import synthetic_epoch
+
+        train_iter = synthetic_epoch(args.seed, args.synthetic,
+                                     args.batch_size)
+        val_iter = synthetic_epoch(args.seed + 1,
+                                   max(args.synthetic // 4, 1),
+                                   args.batch_size)
+    else:
+        train_iter, val_iter = make_data_loaders(args)
+
+    if args.begin_checkpoint:
+        if not args.begin_checkpoint.endswith(".npz"):
+            raise ValueError("--begin_checkpoint takes a native .npz "
+                             f"checkpoint, got {args.begin_checkpoint}")
+        params, state = load_npz_checkpoint(args.begin_checkpoint)
+    else:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        params, state = discrete.init(gen, device=device)
+        first = next(iter(train_iter()))
+        params = discrete.actnorm_warmup(
+            params, state, torch.as_tensor(first[0], device=device))
+
+    trainer = Trainer(cfg, params, state, device=device)
+    os.makedirs(os.path.dirname(args.checkpoint) or ".", exist_ok=True)
+
+    def save(epoch, p, s, path=None):
+        save_checkpoint(path or args.checkpoint, p, s)
+
+    trainer.fit(train_iter, val_iter, checkpoint_fn=save)
+    # the final save is skipped on interruption, as in the reference
+    if not trainer.interrupted:
+        final = args.checkpoint.replace(".npz",
+                                        f"-epoch{args.max_epochs}.npz")
+        save(args.max_epochs, *trainer.numpy_params(), path=final)
+        print(f"Model saved to {final}")
+    return trainer

@@ -1,15 +1,20 @@
 """PointInterpFlow (discrete): 6-block conditional Glow for point upsampling.
 
-Counterpart of `puflow_tpu.models.discrete`, inference only. Per flow
-block: ActNorm -> invertible 1x1 conv -> additive spatial coupling ->
-reverse channel permute -> affine injector, conditioned on a densely
-connected EdgeConv pyramid (`feat_extract`). Upsampling: points ->
-latents through the forward flow f (`ops.flow.flow_f`), k-NN latent
-interpolation (k=8, learned softmax weights), inverse flow g
-(`ops.flow.flow_g`) on the interpolated latents. With BN-folded params
+Counterpart of `puflow_tpu.models.discrete`. Per flow block: ActNorm ->
+invertible 1x1 conv -> additive spatial coupling -> reverse channel
+permute -> affine injector, conditioned on a densely connected EdgeConv
+pyramid (`feat_extract`). Upsampling: points -> latents through the
+forward flow f, k-NN latent interpolation (k=8, learned softmax weights),
+inverse flow g on the interpolated latents.
+
+Inference (`sample`, `forward(..., fast_f=True)`) runs f and g through
+their kernel wrappers (`ops.flow`); with BN-folded params
 (`models.fold_bn`) every stage is a kernel wrapper: `ops.knn.knn_self`,
 `ops.encoder.encoder_conditions`, `ops.interp.interp_head`, `flow_f` and
-`ops.flow.flow_g_blend`.
+`ops.flow.flow_g_blend`. Training (`forward(..., train=True)`) is plain
+tensor ops with autograd, as the JAX package's training branch is XLA:
+batch-statistics BN, f with its log-determinant (`log_prob`), the plain
+interpolation head and the plain inverse flow.
 
 Parameters are the JAX package's (params, state) trees, held as
 `DiscreteModel`'s parameters and buffers; the functions take the trees.
@@ -22,11 +27,14 @@ import torch
 from torch import nn
 
 from puflow_torch.flows.coupling import linear_a1d_init
-from puflow_torch.flows.normalize import actnorm_init
+from puflow_torch.flows.normalize import actnorm_init, actnorm_init_from_data
 from puflow_torch.flows.permutate import inv1x1_init
+from puflow_torch.flows.prior import standard_gaussian_logp
 from puflow_torch.models.encoder import (
     INTERP_K,
+    feat_merge_apply,
     feat_merge_init,
+    feature_extract_apply,
     feature_extract_init,
     interpolation_apply,
     interpolation_init,
@@ -99,10 +107,22 @@ def init(generator: torch.Generator, device="cuda"):
     return params, state
 
 
-def feat_extract(params, state, xyz: torch.Tensor, knn_idx: torch.Tensor):
-    """EdgeConv pyramid -> per-block conditions ``[B, N, cdim_i]``, as
-    tensor ops (folded or unfolded params)."""
-    return encoder_conditions_plain(params, xyz, knn_idx, state)
+def feat_extract(params, state, xyz: torch.Tensor, knn_idx: torch.Tensor,
+                 train: bool = False):
+    """EdgeConv pyramid -> (per-block conditions ``[B, N, cdim_i]``, new
+    encoder BN state), as tensor ops (folded or unfolded params; ``state``
+    None when folded)."""
+    if not train:
+        cs = encoder_conditions_plain(params, xyz, knn_idx, state)
+        return cs, None if state is None else state["feat_convs"]
+    cs, new_fs = [], []
+    c = xyz
+    for fp, fs, mp in zip(params["feat_convs"], state["feat_convs"],
+                          params["merge_convs"]):
+        c, fs = feature_extract_apply(fp, fs, c, knn_idx, train=True)
+        new_fs.append(fs)
+        cs.append(feat_merge_apply(mp, c))
+    return cs, new_fs
 
 
 def f_transform(params, x: torch.Tensor, cs):
@@ -114,11 +134,23 @@ def f_transform(params, x: torch.Tensor, cs):
     return x, log_det
 
 
-def g_transform(params, z: torch.Tensor, cs, upratio: int) -> torch.Tensor:
-    """Latents ``[B, N, C, r]`` -> points ``[B, N*r, C]``, point-major."""
+def g_transform(params, z: torch.Tensor, cs, upratio: int,
+                fast: bool = False) -> torch.Tensor:
+    """Latents ``[B, N, C, r]`` -> points ``[B, N*r, C]``, point-major.
+    ``fast=True`` (inference) goes through the `ops.flow.flow_g` kernel
+    wrapper, which has no backward; training keeps the plain version."""
     if z.shape[-1] != upratio:
         raise ValueError(f"latents carry {z.shape[-1]} samples, not {upratio}")
+    if fast:
+        return flow_g(params["flow_blocks"], z.contiguous(), cs)
     return flow_g_plain(params["flow_blocks"], z, cs)
+
+
+def log_prob(params, x: torch.Tensor, cs):
+    """(z, scalar NLL objective): ``-mean(log p(z) + log|det J|)``."""
+    z, log_det = f_transform(params, x, cs)
+    logp = standard_gaussian_logp(z)
+    return z, -torch.mean(logp + log_det)
 
 
 def is_folded(params) -> bool:
@@ -129,16 +161,23 @@ def is_folded(params) -> bool:
             and "bn0" not in params["interp"]["weight_unit"])
 
 
-def forward(params, state, xyz: torch.Tensor, upratio: int):
-    """Inference pass ``[B, N, 3] -> ([B, N*r, 3], NaN, state)``.
+def forward(params, state, xyz: torch.Tensor, upratio: int,
+            train: bool = False, fast_f: bool = False):
+    """Full upsampling pass ``[B, N, 3] -> ([B, N*r, 3], scalar NLL,
+    new state)``.
 
-    As the JAX package's inference branch: the forward flow runs without
-    its log-density (returned as NaN). BN-folded params (`is_folded`) take
-    the fused branch of `puflow_tpu.models.discrete.forward`, every stage a
-    kernel wrapper; unfolded params run the encoder and the interpolation
-    head as tensor ops, and both flows through their kernel wrappers.
+    ``train=True``: BN on batch statistics, the NLL through `log_prob`,
+    the plain interpolation head and inverse flow, all differentiable; the
+    new state carries the moved BN running statistics.
+    ``fast_f=True`` (inference only, what `sample` passes): the forward
+    flow runs without its log-density, returned as NaN. BN-folded params
+    then take the fused branch of `puflow_tpu.models.discrete.forward`,
+    every stage a kernel wrapper; unfolded params run the encoder and the
+    interpolation head as tensor ops, and both flows through their kernel
+    wrappers. Inference without ``fast_f`` (validation) computes the NLL
+    with the plain f.
     """
-    if is_folded(params):
+    if fast_f and not train and is_folded(params):
         xyz = xyz.contiguous()
         knn_idx = knn_self(xyz, NUM_NEIGHBORS)          # ascending, self first
         idx8 = knn_idx[..., :INTERP_K]                  # K=16 sorted -> K=8
@@ -148,20 +187,44 @@ def forward(params, state, xyz: torch.Tensor, upratio: int):
         x = flow_g_blend(params["flow_blocks"], z, ws, idx8, cs)
         return x, torch.tensor(float("nan")), state
     knn_idx = knn_indices(xyz, xyz, NUM_NEIGHBORS)
-    cs = feat_extract(params, state, xyz, knn_idx)
-    z = flow_f(params["flow_blocks"], xyz.contiguous(), cs)
+    cs, feat_s = feat_extract(params, state, xyz, knn_idx, train)
+    if fast_f and not train:
+        z = flow_f(params["flow_blocks"], xyz.contiguous(), cs)
+        logp_x = torch.tensor(float("nan"))
+    else:
+        z, logp_x = log_prob(params, xyz, cs)
     # K=16 sorted -> its first 8 columns ARE the K=8 graph
-    fz = interpolation_apply(params["interp"], state["interp"], z, xyz,
-                             upratio, knn_idx=knn_idx)
-    x = flow_g(params["flow_blocks"], fz.contiguous(), cs)
-    return x, torch.tensor(float("nan")), state
+    fz, interp_s = interpolation_apply(
+        params["interp"], None if state is None else state["interp"], z,
+        xyz, upratio, train, knn_idx=knn_idx)
+    x = g_transform(params, fz, cs, upratio, fast=not train)
+    new_state = None if state is None else {"interp": interp_s,
+                                            "feat_convs": feat_s}
+    return x, logp_x, new_state
 
 
 def sample(params, state, sparse: torch.Tensor,
            upratio: int = 4) -> torch.Tensor:
     """Inference entry: the dense cloud only."""
-    dense, _, _ = forward(params, state, sparse, upratio)
+    dense, _, _ = forward(params, state, sparse, upratio, fast_f=True)
     return dense
+
+
+@torch.no_grad()
+def actnorm_warmup(params, state, xyz: torch.Tensor):
+    """Data-dependent ActNorm init from one representative batch: returns
+    params whose every block's ActNorm is set from the activations that
+    the already initialised earlier blocks produce, as the reference's
+    first forward does. Run once before training."""
+    knn_idx = knn_indices(xyz, xyz, NUM_NEIGHBORS)
+    cs, _ = feat_extract(params, state, xyz, knn_idx)
+    new_blocks = []
+    x = xyz
+    for i, (bp, c) in enumerate(zip(params["flow_blocks"], cs)):
+        bp = dict(bp, actnorm=actnorm_init_from_data(x))
+        x, _ = flow_block_forward(bp, x, c, is_even=(i % 2 == 0))
+        new_blocks.append(bp)
+    return dict(params, flow_blocks=new_blocks)
 
 
 # --------------------------------------------------------------------------
@@ -215,11 +278,12 @@ class DiscreteModel(nn.Module):
         return sample(params, state, sparse, upratio)
 
 
-def _leaves(tree, prefix: str):
-    """(path, array) of every leaf of a nested dict/list tree."""
+def _leaves(tree, prefix: str = ""):
+    """(path, leaf) of every leaf of a nested dict/list tree, with the
+    `.npz` key paths (``prefix/flow_blocks/0/...``)."""
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for key, val in items:
-        path = f"{prefix}/{key}"
+        path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, (dict, list, tuple)):
             yield from _leaves(val, path)
         else:

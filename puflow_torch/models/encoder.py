@@ -1,8 +1,11 @@
 """Geometry-context encoders for the interpolation flow.
 
-Counterpart of `puflow_tpu.models.encoder`, inference only (BatchNorm in
-eval mode; a layer whose ``bn`` / ``bn0`` / ``bn1`` key is absent was
-folded by `models.fold_bn` and skips it):
+Counterpart of `puflow_tpu.models.encoder`. Every apply function returns
+``(out, new_state)`` as the JAX functions do: with ``train=True`` BatchNorm
+normalises with batch statistics and the new state carries the moved
+running statistics; with ``train=False`` it uses the running statistics
+and hands the state back. A layer whose ``bn`` / ``bn0`` / ``bn1`` key is
+absent was folded by `models.fold_bn` and skips BN (inference only).
   * `feature_extract_apply` — densely-connected EdgeConv stack (LeakyReLU
     0.05) with a max-pool over the K neighbours;
   * the distance encoder, the k-NN context and the weight unit, which
@@ -52,10 +55,10 @@ def feature_extract_init(generator, idim: int, odim: int, growth_width: int,
 
 
 def feature_extract_apply(params, state, x: torch.Tensor,
-                          knn_idx: torch.Tensor,
-                          pooling: bool = True) -> torch.Tensor:
-    """x: [B, N, C] -> pooled [B, N, odim] or per-slot [B, N, K, odim].
-    ``state`` is read only for unfolded BN (None when folded).
+                          knn_idx: torch.Tensor, train: bool = False,
+                          pooling: bool = True):
+    """x: [B, N, C] -> (pooled [B, N, odim] or per-slot [B, N, K, odim],
+    new state). ``state`` is None when the params are folded.
 
     The edge feature [x, x_nbr, x_nbr - x] of every layer factorises onto
     the block input: ``e @ W = x @ (W_0 - W_2) + x_nbr @ (W_1 + W_2)``. So
@@ -79,20 +82,24 @@ def feature_extract_apply(params, state, x: torch.Tensor,
         return p_self[:, :, None, lo:hi] + p_nbr[..., lo:hi]
 
     h_cat = None
+    new_bn = []
     for i, conv_p in enumerate(params["convs"]):
         h = edge_term(i)
         if h_cat is not None:
             h = h + channel_matmul(h_cat, conv_p["lin"]["w"][3 * C:])
         h = h + conv_p["lin"]["b"]
+        bn_s = None if state is None else state["convs"][i]
         if "bn" in conv_p:
-            h = bn_apply(conv_p["bn"], state["convs"][i], h)
+            h, bn_s = bn_apply(conv_p["bn"], bn_s, h, train)
+        new_bn.append(bn_s)
         h = F.leaky_relu(h, _FEU_SLOPE)
         h_cat = h if h_cat is None else torch.cat([h_cat, h], dim=-1)
 
     f = edge_term(len(layers) - 1)
     f = f + channel_matmul(h_cat, params["conv_out"]["w"][3 * C:])
     f = f + params["conv_out"]["b"]                         # [B, N, K, odim]
-    return torch.amax(f, dim=2) if pooling else f
+    out = torch.amax(f, dim=2) if pooling else f
+    return out, (None if state is None else {"convs": new_bn})
 
 
 # --------------------------------------------------------------------------
@@ -112,27 +119,29 @@ def distance_encoder_init(generator, dim_in: int = 3, dim_out: int = 128,
 
 
 def distance_encoder_apply(params, state, xyz: torch.Tensor,
-                           knn_idx: torch.Tensor) -> torch.Tensor:
+                           knn_idx: torch.Tensor, train: bool = False):
     """[pt, neighbour, pt - neighbour, |pt - neighbour|] per slot through a
-    BN-MLP -> [B, N, K, dim_out]."""
+    BN-MLP -> ([B, N, K, dim_out], new state)."""
     neighbours = gather_points(xyz, knn_idx)                # [B, N, K, 3]
     pt = xyz[:, :, None, :].expand_as(neighbours)
     vec = pt - neighbours
     dist = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True))
     f = torch.cat([pt, neighbours, vec, dist], dim=-1)
-    return _mlp3_apply(params, state, f)
+    return _mlp3_apply(params, state, f, train)
 
 
-def _mlp3_apply(params, state, x: torch.Tensor) -> torch.Tensor:
+def _mlp3_apply(params, state, x: torch.Tensor, train: bool):
     """lin0 -> [bn0] -> LeakyReLU -> lin1 -> [bn1] -> LeakyReLU -> lin2,
-    BN skipped where folded."""
+    BN skipped where folded. Returns (out, new state)."""
     h = x
+    new_state = None if state is None else dict(state)
     for i in range(2):
         h = linear_apply(params[f"lin{i}"], h)
         if f"bn{i}" in params:
-            h = bn_apply(params[f"bn{i}"], state[f"bn{i}"], h)
+            h, new_state[f"bn{i}"] = bn_apply(params[f"bn{i}"],
+                                              state[f"bn{i}"], h, train)
         h = F.leaky_relu(h, _MLP_SLOPE)
-    return linear_apply(params["lin2"], h)
+    return linear_apply(params["lin2"], h), new_state
 
 
 def knn_context_init(generator, pc_channel: int = 3, device=None):
@@ -145,16 +154,19 @@ def knn_context_init(generator, pc_channel: int = 3, device=None):
 
 
 def knn_context_apply(params, state, xyz: torch.Tensor,
-                      knn_idx: torch.Tensor) -> torch.Tensor:
-    """xyz: [B, N, 3]; knn_idx: [B, N, k] -> [B, N, k, 256]. ``state`` may
-    be None when the params are folded."""
-    if state is None:
-        state = {"distance_encoder": None, "feat_conv": None}
-    dist = distance_encoder_apply(params["distance_encoder"],
-                                  state["distance_encoder"], xyz, knn_idx)
-    feat = feature_extract_apply(params["feat_conv"], state["feat_conv"],
-                                 xyz, knn_idx, pooling=False)
-    return torch.cat([dist, feat], dim=-1)
+                      knn_idx: torch.Tensor, train: bool = False):
+    """xyz: [B, N, 3]; knn_idx: [B, N, k] -> ([B, N, k, 256], new state).
+    ``state`` is None when the params are folded."""
+    de_s = fe_s = None
+    if state is not None:
+        de_s, fe_s = state["distance_encoder"], state["feat_conv"]
+    dist, de_s = distance_encoder_apply(params["distance_encoder"], de_s,
+                                        xyz, knn_idx, train)
+    feat, fe_s = feature_extract_apply(params["feat_conv"], fe_s, xyz,
+                                       knn_idx, train, pooling=False)
+    new_state = (None if state is None
+                 else {"distance_encoder": de_s, "feat_conv": fe_s})
+    return torch.cat([dist, feat], dim=-1), new_state
 
 
 def weight_unit_init(generator, feat_dim: int = 256, device=None):
@@ -169,9 +181,10 @@ def weight_unit_init(generator, feat_dim: int = 256, device=None):
     return params, {"bn0": bn0_s, "bn1": bn1_s}
 
 
-def weight_unit_apply(params, state, context: torch.Tensor) -> torch.Tensor:
-    """context: [B, N, k, C] -> logits [B, N, k, R_MAX]."""
-    return _mlp3_apply(params, state, context)
+def weight_unit_apply(params, state, context: torch.Tensor,
+                      train: bool = False):
+    """context: [B, N, k, C] -> (logits [B, N, k, R_MAX], new state)."""
+    return _mlp3_apply(params, state, context, train)
 
 
 def interpolation_init(generator, pc_channel: int = 3, device=None):
@@ -182,15 +195,16 @@ def interpolation_init(generator, pc_channel: int = 3, device=None):
 
 
 def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
-                        upratio: int,
-                        knn_idx: torch.Tensor | None = None) -> torch.Tensor:
+                        upratio: int, train: bool = False,
+                        knn_idx: torch.Tensor | None = None):
     """Blend each point's k-NN latents into `upratio` new latents.
 
-    z: [B, N, C] latents; xyz: [B, N, 3] geometry -> [B, N, C, upratio].
-    `knn_idx` may be a neighbour list with K >= INTERP_K sorted by
-    ascending distance; its first INTERP_K columns are then the K=8 graph.
-    Folded params go through `ops.interp.interp_head` (the CUDA kernel for
-    CUDA tensors), unfolded ones through its plain version with BN.
+    z: [B, N, C] latents; xyz: [B, N, 3] geometry -> ([B, N, C, upratio],
+    new state). `knn_idx` may be a neighbour list with K >= INTERP_K
+    sorted by ascending distance; its first INTERP_K columns are then the
+    K=8 graph. Folded params at inference go through
+    `ops.interp.interp_head` (the CUDA kernel for CUDA tensors); unfolded
+    ones, and training, through its plain version with BN.
     """
     # ops.interp builds its plain version from this module's functions
     from puflow_torch.ops.interp import interp_head, interp_head_plain
@@ -204,10 +218,13 @@ def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
         raise ValueError(f"knn_idx has {knn_idx.shape[-1]} < {INTERP_K} "
                          "neighbours")
     knn_idx = knn_idx[..., :INTERP_K]
+    if train:
+        return interp_head_plain(params, xyz, knn_idx, upratio, "latents", z,
+                                 state, train=True)
     if "bn0" not in params["weight_unit"]:
-        return interp_head(params, xyz, knn_idx, upratio, "latents", z)
+        return interp_head(params, xyz, knn_idx, upratio, "latents", z), state
     return interp_head_plain(params, xyz, knn_idx, upratio, "latents", z,
-                             state)
+                             state), state
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Functional NN primitives: channel-last linear map and eval-mode BatchNorm.
+"""Functional NN primitives: channel-last linear map and BatchNorm.
 
 All tensors are channel-last (``[B, N, K, C]`` / ``[B, N, C]``) and linear
 weights are ``[in, out]``, as in `puflow_tpu.models.nn`, so a parameter tree
-moves between the two packages unchanged. Inference only: BatchNorm uses
-its running statistics.
+moves between the two packages unchanged. BatchNorm is functional: its
+scale and bias are parameters, its running statistics a separate state
+tree.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def linear_init(generator: torch.Generator, cin: int, cout: int,
@@ -44,7 +46,27 @@ def bn_init(channel: int, device=None):
     return params, state
 
 
-def bn_apply(params: dict, state: dict, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last axis."""
-    inv = torch.rsqrt(state["var"] + BN_EPS) * params["scale"]
-    return (x - state["mean"]) * inv + params["bias"]
+def bn_apply(params: dict, state: dict, x: torch.Tensor,
+             train: bool = False):
+    """BatchNorm over the last axis. Returns ``(y, new_state)``.
+
+    Eval mode normalises with the running statistics and returns ``state``
+    unchanged. Train mode normalises with the batch statistics over every
+    other axis (biased variance) and moves the running statistics towards
+    them (unbiased variance, momentum 0.1), as torch's BatchNorm does.
+    """
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean = torch.mean(x, dim=axes)
+        var = torch.mean(torch.square(x - mean), dim=axes)   # biased
+        n = x.numel() // x.shape[-1]
+        unbiased = var * n / max(n - 1, 1)
+        new_state = {
+            "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,
+            "var": (1 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * unbiased,
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    inv = torch.rsqrt(var + BN_EPS) * params["scale"]
+    return (x - mean) * inv + params["bias"], new_state

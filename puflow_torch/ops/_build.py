@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each entry point in csrc/*.cu (all return cudaError_t)
 _SIGNATURES = {
     "puflow_fps": [_P, _I, _I, _I, _P, _P, _P],
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "puflow_encoder": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     "puflow_interp_head": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                            _P],
+    "puflow_emd_auction": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P],
 }
 
 

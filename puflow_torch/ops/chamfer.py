@@ -1,7 +1,9 @@
-"""Directed nearest-neighbour distances (Chamfer parts).
+"""Chamfer distances from directed nearest-neighbour distances.
 
-Counterpart of `puflow_tpu.ops.chamfer.chamfer_parts`; outlier removal
-(`inference.patch.remove_outliers`) reduces them.
+Counterpart of `puflow_tpu.ops.chamfer`: `chamfer_parts` (outlier removal,
+`inference.patch.remove_outliers`, reduces them), `chamfer_distance` (the
+training loss term of the pugan recipe, pytorch3d convention) and
+`chamfer_distance_kaolin` (validation).
 """
 
 from __future__ import annotations
@@ -19,3 +21,17 @@ def chamfer_parts(x: torch.Tensor, y: torch.Tensor):
     d_xy, idx_xy = torch.min(d, dim=-1)
     d_yx, idx_yx = torch.min(d, dim=-2)
     return d_xy, idx_xy, d_yx, idx_yx
+
+
+def chamfer_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Symmetric chamfer distance, mean over points then over the batch:
+    the sum of the two directed means (pytorch3d's convention)."""
+    d_xy, _, d_yx, _ = chamfer_parts(x, y)
+    return torch.mean(torch.mean(d_xy, dim=-1) + torch.mean(d_yx, dim=-1))
+
+
+def chamfer_distance_kaolin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-cloud chamfer ``[B]`` in kaolin's convention:
+    ``mean_i d_xy + mean_j d_yx``; callers pick the batch reduction."""
+    d_xy, _, d_yx, _ = chamfer_parts(x, y)
+    return torch.mean(d_xy, dim=-1) + torch.mean(d_yx, dim=-1)

@@ -36,7 +36,7 @@ def encoder_conditions_plain(params, xyz: torch.Tensor,
     for i, (fp, mp) in enumerate(zip(params["feat_convs"],
                                      params["merge_convs"])):
         fs = None if state is None else state["feat_convs"][i]
-        c = feature_extract_apply(fp, fs, c, knn_idx)
+        c, _ = feature_extract_apply(fp, fs, c, knn_idx)
         cs.append(feat_merge_apply(mp, c))
     return cs
 

@@ -12,7 +12,7 @@ from puflow_torch import checkpoint
 from puflow_torch.models import discrete
 from puflow_torch.models.encoder import interpolation_apply
 from puflow_torch.models.fold_bn import fold_bn_inference
-from puflow_torch.ops import encoder, flow, interp
+from puflow_torch.ops import emd, encoder, flow, interp
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain)
 from puflow_torch.ops.knn import knn_indices, knn_self, knn_self_plain
@@ -54,14 +54,15 @@ def test_flow_kernels_match_plain(card, r):
     x = torch.from_numpy((rng.randn(37, 64, 3) * 0.3).astype(np.float32))
     x = x.to(card)
     idx = knn_indices(x, x, 16)
-    cs = discrete.feat_extract(tp, ts, x, idx)
+    cs, _ = discrete.feat_extract(tp, ts, x, idx)
     blocks = tp["flow_blocks"]
     z = flow.flow_f(blocks, x, cs)
     z_ref = flow.flow_f_plain(blocks, x, cs)
     tol = 1e-5 * max(1.0, float(z_ref.abs().max()))
     assert float((z - z_ref).abs().max()) <= tol
-    fz = interpolation_apply(tp["interp"], ts["interp"], z_ref, x, r,
-                             knn_idx=idx).contiguous()
+    fz, _ = interpolation_apply(tp["interp"], ts["interp"], z_ref, x, r,
+                                knn_idx=idx)
+    fz = fz.contiguous()
     g = flow.flow_g(blocks, fz, cs)
     g_ref = flow.flow_g_plain(blocks, fz, cs)
     tol = 1e-5 * max(1.0, float(g_ref.abs().max()))
@@ -144,3 +145,65 @@ def test_folded_sample_runs_every_kernel(card, folded):
         interp.interp_head_plain(params["interp"], x, idx[..., :8], 4),
         idx[..., :8], encoder.encoder_conditions_plain(params, x, idx))
     assert float((got - ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("b,n,m", [(4, 1024, 1024), (3, 300, 301),
+                                   (2, 100, 257), (1, 9000, 9000)])
+def test_emd_kernel_matches_plain(card, b, n, m):
+    """Same assignments bit for bit; m = 301 and 257 take the scalar
+    sweep, n = m = 9000 keeps the auction state in global memory."""
+    rng = np.random.RandomState(n + m)
+    x1 = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32)).to(card)
+    x2 = torch.from_numpy(rng.rand(b, m, 3).astype(np.float32)).to(card)
+    before = emd.emd_auction.launches
+    dist, assign = emd.emd_auction(x1, x2, 0.005, 50)
+    assert emd.emd_auction.launches == before + 1
+    ref_dist, ref_assign = emd.emd_auction_plain(x1, x2, 0.005, 50)
+    np.testing.assert_array_equal(assign.cpu().numpy(),
+                                  ref_assign.cpu().numpy())
+    tol = 1e-6 * max(1.0, float(ref_dist.abs().max()))
+    assert float((dist - ref_dist).abs().max()) <= tol
+
+
+def test_emd_kernel_non_finite_input(card):
+    x1 = torch.rand((2, 256, 3), device=card)
+    x2 = torch.rand((2, 256, 3), device=card)
+    x1[0, 5] = float("nan")
+    x2[1] = float("inf")
+    dist, assign = emd.emd_auction(x1, x2, 0.005, 50)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(dist[0, 5]))
+    assert not bool(torch.isfinite(dist[1]).any())
+    assert int(assign.max()) < 256 and int(assign.min()) >= -1
+    # the plain version skips non-finite values as the kernel does
+    _, ref_assign = emd.emd_auction_plain(x1, x2, 0.005, 50)
+    np.testing.assert_array_equal(assign.cpu().numpy(),
+                                  ref_assign.cpu().numpy())
+
+
+def test_train_step_kernel_emd_matches_plain(card):
+    """One train step's gradients with the kernel EMD against the same
+    step with the plain EMD (gather backward uses atomics: tolerance, not
+    equality)."""
+    from puflow_torch.data.synthetic import synthetic_pairs
+    from puflow_torch.train import trainer
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    params, state = discrete.init(gen, device=card)
+    sparse, dense = (torch.from_numpy(a).to(card) for a in
+                     synthetic_pairs(np.random.RandomState(0), 8, 256, 4))
+    params = discrete.actnorm_warmup(params, state, sparse)
+    layout, s_layout = trainer.TreeLayout(params), trainer.TreeLayout(state)
+    grads = []
+    for emd_fn in (emd.emd_auction, emd.emd_auction_plain):
+        leaf = layout.flatten(params).requires_grad_()
+        bn_state = s_layout.unflatten(s_layout.flatten(state))
+        pred, logpx, _ = discrete.forward(layout.unflatten(leaf), bn_state,
+                                          sparse, 4, train=True)
+        dist, assign = emd_fn(pred, dense, 0.005, 50)
+        loss = logpx * 1e-4 + torch.sum(dist) * 5e-2
+        grads.append(torch.autograd.grad(loss, leaf)[0])
+    for path, a, b in zip(layout.paths, grads[0].split(layout.sizes),
+                          grads[1].split(layout.sizes)):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) <= 5e-4 * scale + 1e-6, path

@@ -14,6 +14,7 @@ import torch
 from puflow_torch import checkpoint as t_checkpoint
 from puflow_torch.cli import upsample as t_cli
 from puflow_torch.models import discrete as t_discrete
+from puflow_torch.ops import emd as t_emd
 from puflow_torch.ops import encoder as t_encoder
 from puflow_torch.ops import flow as t_flow
 from puflow_torch.ops import fps as t_fps
@@ -71,6 +72,8 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         t_flow.flow_g_blend([], meta, torch.empty((1, 8, 8, 4), device="meta"),
                             idx, [])
+    with pytest.raises(ValueError, match="no kernel"):
+        t_emd.emd_auction(meta, meta)
 
 
 @pytest.fixture(scope="module")
@@ -142,3 +145,30 @@ def test_pt_checkpoint_raises(cli_inputs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_cli.main(["--source", str(src), "--target", str(tmp / "x"),
                     "--checkpoint", str(tmp / "model.pt"), "--device", "cpu"])
+
+
+def test_trainer_and_train_cli_default_to_the_card(tmp_path):
+    """The trainer and the train CLI ask for CUDA unless told otherwise;
+    on a host without a card that raises before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from puflow_torch.cli import train_pu1k
+    from puflow_torch.train.trainer import TrainConfig, Trainer
+
+    params, state = t_discrete.init(torch.Generator().manual_seed(0),
+                                    device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(TrainConfig(), params, state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_pu1k.main(["--synthetic", "1", "--max_epochs", "1",
+                         "--checkpoint", str(tmp_path / "m.npz")])
+    assert not (tmp_path / "m.npz").exists()
+
+
+def test_train_cli_rejects_torch_checkpoints(tmp_path):
+    from puflow_torch.cli import train_pu1k
+
+    with pytest.raises(ValueError, match=".npz"):
+        train_pu1k.main(["--synthetic", "1", "--device", "cpu",
+                         "--begin_checkpoint", str(tmp_path / "m.pt"),
+                         "--checkpoint", str(tmp_path / "m.npz")])

@@ -67,7 +67,7 @@ def test_sample_on_same_graph_matches_jax(models):
 
     xt = torch.from_numpy(x)
     idx_t = torch.tensor(np.asarray(idx)).long()
-    cs_t = t_discrete.feat_extract(tp, ts, xt, idx_t)
+    cs_t, _ = t_discrete.feat_extract(tp, ts, xt, idx_t)
     for c_t, c_j in zip(cs_t, cs):
         np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-5)
     z_t, ld_t = t_discrete.f_transform(tp, xt, cs_t)
@@ -75,8 +75,8 @@ def test_sample_on_same_graph_matches_jax(models):
     np.testing.assert_allclose(
         ld_t.numpy(), np.asarray(j_discrete.f_transform(jp, jnp.asarray(x),
                                                         cs)[1]), atol=1e-3)
-    fz_t = t_encoder.interpolation_apply(tp["interp"], ts["interp"], z_t, xt,
-                                         R, knn_idx=idx_t)
+    fz_t, _ = t_encoder.interpolation_apply(tp["interp"], ts["interp"], z_t,
+                                            xt, R, knn_idx=idx_t)
     got = t_discrete.g_transform(tp, fz_t, cs_t, R).numpy()
     assert got.shape == (B, N * R, 3)
     np.testing.assert_allclose(got, ref, atol=ATOL)
@@ -103,7 +103,7 @@ def test_f_g_roundtrip(models):
     tp, ts = model.trees()
     x = torch.from_numpy(_cloud(5))
     idx = t_knn(x, x, 16)
-    cs = t_discrete.feat_extract(tp, ts, x, idx)
+    cs, _ = t_discrete.feat_extract(tp, ts, x, idx)
     z, _ = t_discrete.f_transform(tp, x, cs)
     back = t_discrete.g_transform(tp, z[..., None], cs, 1)
     np.testing.assert_allclose(back.numpy(), x.numpy(), atol=1e-4)
