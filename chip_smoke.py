@@ -12,7 +12,12 @@ flow g are kernels. Then it trains the same model at the reference PU1K
 configuration (batch 32, 256 -> 1024 points, loss 1e-4 NLL + 5e-2 EMD with
 the 50-iteration auction, Adam with clip 1e-2), whose auction EMD is a
 hand-written CUDA kernel, and runs the train CLI and serves the model it
-saved. Phases:
+saved. Last it serves the CNF family (`--model cnf`: six continuous flow
+blocks, dopri5 at tolerance 1e-5), full width, in the same two
+configurations: every block-solve is one launch of the hand-written
+whole-solve kernel, twelve a `continuous.sample`, and with BN folded the
+encoder and the interpolation head (mode `latents`) are kernels too.
+Phases:
 
   1. checks the card, prints its name and power limit, turns TF32 off;
   2. builds the kernels from `puflow_torch/csrc` and prints the build time;
@@ -37,7 +42,20 @@ saved. Phases:
   8. runs `python -m puflow_torch.cli.train_pu1k --synthetic 2` on the
      card, loads the checkpoint it saved (BN folded) and upsamples one
      2048-point cloud with it;
-  9. prints one JSON line of kernel results and, last, the device line.
+  9. compares the CNF whole-solve kernel with its plain version (both
+     directions, condition widths 32 and 128, R = 8,192, R = 32,768 with
+     the conditions of 8,192 points, and an R that leaves a partial tile):
+     error, equal step counts, two runs bit-equal, times and the bound
+     from the field evaluations the solve made;
+ 10. runs the CNF main path on 8 clouds in each configuration with the
+     launch counts set to 0 before and read after (12 solves a sample, no
+     solve at the step limit), against the same pipeline on plain versions;
+ 11. times `continuous.sample` at 32 patches and the whole CNF pipeline at
+     1 and 8 clouds per stage, with the steps of every block-solve, and
+     traces one run of each;
+ 12. saves a seeded CNF checkpoint and runs `python -m
+     puflow_torch.cli.upsample --model cnf` on it;
+ 13. prints one JSON line of kernel results and, last, the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
 refuses to run without it.
@@ -61,10 +79,11 @@ from puflow_torch import checkpoint
 from puflow_torch.data.synthetic import synthetic_pairs
 from puflow_torch.inference.patch import (normalize_cloud, remove_outliers,
                                           upsample_cloud)
-from puflow_torch.models import discrete
+from puflow_torch.models import continuous, discrete
 from puflow_torch.models.encoder import INTERP_K, interpolation_apply
 from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
 from puflow_torch.ops import _build
+from puflow_torch.ops import cnf as cnf_ops
 from puflow_torch.ops import encoder as enc_ops
 from puflow_torch.ops import flow as flow_ops
 from puflow_torch.ops import interp as interp_ops
@@ -115,24 +134,36 @@ KERNELS = {
                      "replaces": PALLAS + "flow_pallas.py:515"},
     "emd": {"route": "cuda", "source": "puflow_torch/csrc/emd.cu",
             "replaces": PALLAS + "emd_pallas.py:149"},
+    "cnf_solve": {"route": "cuda", "source": "puflow_torch/csrc/cnf_solve.cu",
+                  "replaces": PALLAS + "cnf_pallas.py:372"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
             "encoder": enc_ops.encoder_conditions,
             "interp_head": interp_ops.interp_head, "flow_f": flow_ops.flow_f,
             "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend,
-            "emd": emd_auction}
+            "emd": emd_auction, "cnf_solve": cnf_ops.cnf_solve}
 # the kernels each configuration's main path must launch
 PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
                     "flow_g_blend"),
          "exact": ("fps", "flow_f", "flow_g"),
-         "train": ("emd",)}
-KERNEL_OPS = dict(WRAPPERS, knn=knn_indices)
+         "train": ("emd",),
+         "cnf_folded": ("fps", "encoder", "interp_head", "cnf_solve"),
+         "cnf_exact": ("fps", "cnf_solve")}
+# the path whose run gives each kernel's count in the kernel line
+COUNT_FROM = {"fps": "folded", "knn_self": "folded", "encoder": "folded",
+              "interp_head": "folded", "flow_f": "folded",
+              "flow_g_blend": "folded", "flow_g": "exact", "emd": "train",
+              "cnf_solve": "cnf_folded"}
+KERNEL_OPS = dict(WRAPPERS, knn=knn_indices, cnf_solve_t=cnf_ops.cnf_solve_t)
 PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "knn": knn_indices,
              "encoder": enc_ops.encoder_conditions_plain,
              "interp_head": interp_ops.interp_head_plain,
              "flow_f": flow_ops.flow_f_plain, "flow_g": flow_ops.flow_g_plain,
-             "flow_g_blend": flow_ops.flow_g_blend_plain}
+             "flow_g_blend": flow_ops.flow_g_blend_plain,
+             "cnf_solve_t": cnf_ops.cnf_solve_plain}
+CNF_SOLVES = 2 * continuous.NUM_BLOCKS      # block-solves a `sample`
+FIELD_MACS = 3 * 64 + 64 * 64 + 64 * 3      # multiply-adds, row x evaluation
 
 
 def log(*args):
@@ -239,23 +270,61 @@ def synthetic_clouds(batch: int, seed: int) -> torch.Tensor:
     return torch.from_numpy((v * axes * bump).astype(np.float32)).cuda()
 
 
-def seeded_models():
-    """Full-width models from a torch.Generator seed, perturbed as in the
-    tests so the flows are far from the identity: (unfolded, folded)."""
+def seeded_models(family: str = "discrete"):
+    """Full-width models of a family ("discrete" or "cnf") from a
+    torch.Generator seed, perturbed as in the tests so the flows are far
+    from the identity (and the CNF solves take more than the minimum of
+    steps): (unfolded, folded)."""
+    init = continuous.init if family == "cnf" else discrete.init
+    cls = checkpoint.MODELS[family]
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    params, state = discrete.init(gen, device="cpu")
-    params, state = checkpoint.to_numpy_tree(
-        discrete.DiscreteModel(params, state))
+    params, state = checkpoint.to_numpy_tree(cls(*init(gen, device="cpu")))
     discrete.perturb_init(params, state, SEED)
-    model = checkpoint.from_numpy_tree(params, state, "cuda")
+    model = checkpoint.from_numpy_tree(params, state, "cuda", model=family)
     tp, ts = model.trees()
-    return model, discrete.DiscreteModel(fold_bn_inference(tp, ts),
-                                         empty_bn_state(ts))
+    return model, cls(fold_bn_inference(tp, ts), empty_bn_state(ts))
+
+
+def cnf_sample_staged(model, patches, ops, mark):
+    """`continuous.sample` written out stage by stage."""
+    params, state = model.trees()
+    folded = discrete.is_folded(params)
+    knn_idx = knn_indices(patches, patches, K)
+    idx8 = knn_idx[..., :INTERP_K]
+    mark("knn")
+    if folded:
+        cs = ops["encoder"](params, patches, knn_idx)
+    else:
+        cs = enc_ops.encoder_conditions_plain(params, patches, knn_idx, state)
+    mark("encoder")
+    blocks = params["flow_blocks"]
+    ends = [bp["sqrt_end_time"] * bp["sqrt_end_time"] for bp in blocks]
+    zero = torch.zeros_like(ends[0])
+    z = patches
+    for bp, c, T in zip(blocks, cs, ends):
+        z = ops["cnf_solve_t"](bp["layers"], c, z, zero, T)
+    mark("f_solves")
+    if folded:
+        fz = ops["interp_head"](params["interp"], patches, idx8, UPRATIO,
+                                "latents", z)
+    else:
+        fz = interp_ops.interp_head_plain(params["interp"], patches, idx8,
+                                          UPRATIO, "latents", z,
+                                          state["interp"])
+    mark("head")
+    B, N, C, r = fz.shape
+    x = fz.transpose(2, 3).reshape(B, N * r, C)
+    for bp, c, T in reversed(list(zip(blocks, cs, ends))):
+        x = ops["cnf_solve_t"](bp["layers"], c, x, T, zero)
+    mark("g_solves")
+    return x
 
 
 def sample_staged(model, patches, ops, mark):
-    """`discrete.sample` written out stage by stage, calling ``mark`` after
-    each stage; ``ops`` picks the kernels or the plain versions."""
+    """The model's `sample` written out stage by stage, calling ``mark``
+    after each stage; ``ops`` picks the kernels or the plain versions."""
+    if isinstance(model, continuous.ContinuousModel):
+        return cnf_sample_staged(model, patches, ops, mark)
     params, state = model.trees()
     if discrete.is_folded(params):
         idx = ops["knn_self"](patches, K)
@@ -500,25 +569,43 @@ def chamfer(a, b) -> float:
     return float((d_ab.mean(dim=1) + d_ba.mean(dim=1)).max())
 
 
+def solve_steps(stats_log) -> list:
+    """[attempted, accepted] of each logged block-solve; raises if one
+    used its whole step budget."""
+    steps = torch.stack(stats_log).tolist()
+    worst = max(s[0] for s in steps)
+    if worst >= continuous.MAX_STEPS_EVAL:
+        raise AssertionError(f"a block-solve used {worst} steps: it did not "
+                             "converge within the step budget")
+    return steps
+
+
 def phase_main_path(name, model, results):
     """One configuration's main path on 8 clouds, with its launch counts;
-    the folded path's counts go into the kernel line, and flow_g's, which
-    only the exact path runs, from the exact path."""
+    `COUNT_FROM` says which path's count goes into the kernel line."""
     pc = synthetic_clouds(8, SEED)
     for fn in WRAPPERS.values():
         fn.launches = 0
+    cnf_ops.cnf_solve.stats_log = []
     with torch.no_grad():
         out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND)
         out = remove_outliers(out, pc, N_OUTLIERS)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    stats_log, cnf_ops.cnf_solve.stats_log = cnf_ops.cnf_solve.stats_log, None
     log(f"{name} main path: output {tuple(out.shape)}, launches {launches}")
     for k in PATHS[name]:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched by the {name} "
                                  "main path")
-        if name == "folded" or k not in PATHS["folded"]:
+        if COUNT_FROM[k] == name:
             results[k]["launches"] = launches[k]
+    if "cnf_solve" in PATHS[name]:
+        if launches["cnf_solve"] != CNF_SOLVES:
+            raise AssertionError(f"{launches['cnf_solve']} cnf_solve launches "
+                                 f"in one sample, not {CNF_SOLVES}")
+        log(f"{name} main path: [attempted, accepted] steps of the "
+            f"{CNF_SOLVES} block-solves (f then g): {solve_steps(stats_log)}")
     if tuple(out.shape) != (8, N_POINTS * UPRATIO, 3):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -538,7 +625,7 @@ def phase_main_path(name, model, results):
     if not d_staged <= 1e-5:
         raise AssertionError("the staged pipeline is not the main path")
     err = float((got - ref).abs().max())
-    log(f"{name} discrete.sample on {N_PATCH} patches vs plain composition: "
+    log(f"{name} model sample on {N_PATCH} patches vs plain composition: "
         f"max_abs_err {err:.3e} (atol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"sample: max_abs_err {err} > 1e-4")
@@ -590,8 +677,8 @@ def traced_run(name, model, pc, untraced_s):
                untraced_s)
 
 
-def phase_timing(name, model, card):
-    for B in (8, 32):
+def phase_timing(name, model, card, batches=(8, 32)):
+    for B in batches:
         pc = synthetic_clouds(B, SEED + B)
         stages: dict[str, list[float]] = {}
         totals = []
@@ -620,6 +707,13 @@ def phase_timing(name, model, card):
         log(f"{name} B={B} end to end {total * 1e3:.2f} ms: {B / total:.2f} "
             f"clouds/s, {B * N_PATCH / total:.1f} patches/s on {card}")
         with torch.no_grad():
+            if "cnf_solve" in PATHS[name]:
+                cnf_ops.cnf_solve.stats_log = []
+                pipeline_staged(model, pc)
+                stats_log = cnf_ops.cnf_solve.stats_log
+                cnf_ops.cnf_solve.stats_log = None
+                log(f"{name} B={B} [attempted, accepted] steps of the "
+                    f"block-solves (f then g): {solve_steps(stats_log)}")
             traced_run(name, model, pc, total)
 
 
@@ -852,6 +946,206 @@ def phase_cli():
             f"{tuple(out.shape)}, finite")
 
 
+SOLVER_TOL = 5e-5   # kernel against plain where a step size is not clipped
+WITNESS_STEPS = 1024
+
+
+def rk4_witness(layers, c, y, t0, t1, steps: int) -> torch.Tensor:
+    """A second witness for a block-solve, independent of the adaptive
+    solver: classical RK4 on `field_plain_csl` in float64 with ``steps``
+    equal steps and the time kept on the host. Its own error is read from
+    the same solve with half the steps."""
+    def to64(tree):
+        if isinstance(tree, dict):
+            return {k: to64(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [to64(v) for v in tree]
+        return tree.double()
+
+    c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
+    f = continuous.field_plain_csl(to64(layers), c.double())
+    y, t0, t1 = y.double(), float(t0), float(t1)
+    h = (t1 - t0) / steps
+    for i in range(steps):
+        t = t0 + i * h
+        k1 = f(t, y)
+        k2 = f(t + h / 2, y + (h / 2) * k1)
+        k3 = f(t + h / 2, y + (h / 2) * k2)
+        k4 = f(t + h, y + h * k3)
+        y = y + (h / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return y
+
+
+def witness_check(args, got, ref):
+    """Hold kernel and plain version against `rk4_witness`. Where a step
+    size follows the error estimate the two differ by more than rounding;
+    that is the solver's tolerance at work only if both lie about as far
+    from the witness, farther than they lie from each other. So the
+    kernel's error may be at most 1.25 times the plain version's, and
+    their difference at most half of the larger error (1e-6 of rounding
+    allowed in both)."""
+    fine = rk4_witness(*args, steps=WITNESS_STEPS)
+    own = float((fine - rk4_witness(*args, steps=WITNESS_STEPS // 2))
+                .abs().max())
+    err_k = float((got.double() - fine).abs().max())
+    err_p = float((ref.double() - fine).abs().max())
+    diff = float((got - ref).abs().max())
+    log(f"  against float64 RK4 of {WITNESS_STEPS} steps (its own error "
+        f"{own:.3e}): kernel {err_k:.3e}, plain {err_p:.3e}, kernel "
+        f"against plain {diff:.3e}")
+    if not own < 1e-7:
+        raise AssertionError("cnf_solve: the RK4 witness has not converged")
+    if not err_k <= 1.25 * err_p + 1e-6:
+        raise AssertionError("cnf_solve: the kernel lies farther from the "
+                             "float64 witness than the plain version")
+    if not diff <= 0.5 * max(err_k, err_p) + 1e-6:
+        raise AssertionError("cnf_solve: kernel and plain version differ by "
+                             "more than the solve's own error explains")
+
+
+def compare_cnf(model, results):
+    """The whole-solve kernel against `cnf_solve_plain` on 32 main-path
+    patches with the unfolded CNF model's own conditions.
+
+    With seeded blocks, whose field hardly depends on t, a solve takes
+    three steps and every step size is set by a clip (first step, growth
+    limit, end of the span), as in the JAX package's test of its kernel
+    (tests/test_cnf.py:195-213): the kernel is held to that test's bound,
+    5e-6, at every shape. With the model's perturbed blocks the step sizes
+    follow the error estimate, and a backward solve at tolerance 1e-5 ends
+    about 3e-5 from a float64 fixed-step solve on its worst rows, kernel
+    and plain version alike, and the two about 6e-6 from each other. Those
+    solves are held to `SOLVER_TOL`, five times the solver's tolerance,
+    and to `witness_check`.
+    Step counts must be equal and two kernel runs bit-equal everywhere.
+    """
+    params, state = model.trees()
+    x = main_path_patches(1)                       # [32, 256, 3]: R = 8,192
+    cs = enc_ops.encoder_conditions_plain(params, x, knn_indices(x, x, K),
+                                          state)
+    rng = np.random.RandomState(SEED + 4)
+    B, n = x.shape[:2]
+    latents = torch.from_numpy(
+        (rng.randn(B, n * UPRATIO, 3) * 0.5).astype(np.float32)).cuda()
+    seeded = continuous.init(torch.Generator(device="cuda").manual_seed(
+        SEED))[0]["flow_blocks"]
+
+    def solve_args(blocks, block, c, y, reverse):
+        bp = blocks[block]
+        T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
+        zero = torch.zeros_like(T)
+        return (bp["layers"], c, y) + ((T, zero) if reverse else (zero, T))
+
+    for weights, blocks, tol in (("seeded", seeded, 5e-6),
+                                 ("perturbed", params["flow_blocks"],
+                                  SOLVER_TOL)):
+        for block in (0, 3):                       # condition widths 32, 128
+            c = cs[block]
+            shapes = (("R = 8,192", c, x), ("R = 32,768, r = 4", c, latents),
+                      # 251 rows a patch: no multiple of any tile height
+                      ("R = 8,032", c[:, :251].contiguous(),
+                       x[:, :251].contiguous()))
+            for label, cc, y in shapes:
+                for reverse in (False, True):
+                    args = solve_args(blocks, block, cc, y, reverse)
+                    got, stats = cnf_ops.cnf_solve_t(*args, return_stats=True)
+                    again = cnf_ops.cnf_solve_t(*args)
+                    ref, ref_stats = cnf_ops.cnf_solve_plain(
+                        *args, return_stats=True)
+                    torch.cuda.synchronize()
+                    steps = stats.tolist()
+                    log(f"cnf_solve {weights} weights, cdim {cc.shape[-1]}, "
+                        f"{label}, {'T -> 0' if reverse else '0 -> T'}: "
+                        f"steps [attempted, accepted] kernel {steps}, plain "
+                        f"{ref_stats}")
+                    if steps != [ref_stats["steps"], ref_stats["accepted"]]:
+                        raise AssertionError(
+                            "cnf_solve: the kernel's step counts differ from "
+                            "the plain version's")
+                    if steps[0] >= continuous.MAX_STEPS_EVAL:
+                        raise AssertionError("cnf_solve: step budget used up")
+                    if not torch.equal(got, again):
+                        raise AssertionError("cnf_solve: two runs of the "
+                                             "kernel are not bit-equal")
+                    check_close(results, "cnf_solve", got, ref, tol)
+                    if weights == "perturbed":
+                        witness_check(args, got, ref)
+    blocks = params["flow_blocks"]
+
+    # times and the bound at the two shapes of `bench_cnf`'s sample, cdim
+    # 128: the function reads y, c, the layers and t0, t1 and writes y(t1);
+    # it makes 1 + 6 field evaluations a step attempted on every row
+    # (4,480 multiply-adds each) and projects the conditions once
+    for label, y, reverse in (("f, R = 8,192", x, False),
+                              ("g, R = 32,768, r = 4", latents, True)):
+        args = solve_args(blocks, 3, cs[3], y, reverse)
+        _, stats = cnf_ops.cnf_solve_t(*args, return_stats=True)
+        attempted = stats.tolist()[0]
+        rows, c_rows = y.shape[0] * y.shape[1], B * n
+        layers = args[0]
+        set_bound(results["cnf_solve"],
+                  2 * nbytes(y) + nbytes(cs[3]) + tree_bytes(layers) + 8,
+                  2 * (rows * FIELD_MACS * (1 + 6 * attempted)
+                       + c_rows * cs[3].shape[-1] * (4 * 64 + 6)))
+        log(f"cnf_solve {label}: {attempted} steps attempted, "
+            f"{1 + 6 * attempted} field evaluations a row")
+        # the kernel line keeps the last: the g solve
+        time_pair(results, "cnf_solve", lambda: cnf_ops.cnf_solve_t(*args),
+                  lambda: cnf_ops.cnf_solve_plain(*args), reps=5)
+
+
+def phase_cnf_bench(name, model, card):
+    """`continuous.sample` alone at `bench.py:bench_cnf`'s shape: 32
+    patches of 256 points, x4."""
+    patches = main_path_patches(1)
+    iters = 30
+    with torch.no_grad():
+        for _ in range(2):
+            model(patches, UPRATIO)
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model(patches, UPRATIO)
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / iters)
+        median = statistics.median(windows)
+        log(f"{name} continuous.sample on {patches.shape[0]} patches, ms per "
+            f"call in windows of {iters}: "
+            + ", ".join(f"{w * 1e3:.3f}" for w in windows)
+            + f"; median {patches.shape[0] / median:.1f} patches/s on {card}")
+        trace_idle(f"{name} continuous.sample, {patches.shape[0]} patches",
+                   lambda: model(patches, UPRATIO), median)
+
+
+def phase_cnf_cli(model):
+    """Save the seeded CNF model as `.npz`, then serve it with the CLI."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "cnf.npz")
+        checkpoint.save_checkpoint(ckpt, *checkpoint.to_numpy_tree(model))
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        np.savetxt(os.path.join(src, "cloud.xyz"),
+                   synthetic_clouds(1, SEED + 5)[0].cpu().numpy(), fmt="%.6f")
+        cmd = [sys.executable, "-m", "puflow_torch.cli.upsample", "--model",
+               "cnf", "--source", src, "--target", dst, "--checkpoint", ckpt,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        log(f"upsample CLI ({time.perf_counter() - t0:.1f} s, exit "
+            f"{proc.returncode}): {' '.join(cmd[1:])}")
+        log(proc.stdout.strip())
+        if proc.returncode != 0:
+            raise AssertionError("upsample CLI failed:\n"
+                                 + proc.stderr[-4000:])
+        out = np.loadtxt(os.path.join(dst, "cloud.xyz"))
+        if out.shape != (N_POINTS * UPRATIO, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"upsample CLI wrote {out.shape}")
+        log(f"upsample --model cnf wrote {out.shape[0]} finite points")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -886,6 +1180,17 @@ def main():
     phase_emd(results, params, state, sparse, dense)
     phase_train(results, params, state, sparse, dense, card)
     phase_cli()
+
+    cnf_model, cnf_folded = seeded_models("cnf")
+    with torch.no_grad():
+        compare_cnf(cnf_model, results)
+    phase_main_path("cnf_folded", cnf_folded, results)
+    phase_main_path("cnf_exact", cnf_model, results)
+    phase_cnf_bench("cnf_folded", cnf_folded, card)
+    phase_cnf_bench("cnf_exact", cnf_model, card)
+    phase_timing("cnf_folded", cnf_folded, card, batches=(1, 8))
+    phase_timing("cnf_exact", cnf_model, card, batches=(8,))
+    phase_cnf_cli(cnf_model)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from puflow_torch.models.continuous import ContinuousModel
 from puflow_torch.models.discrete import DiscreteModel
 from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
 from puflow_torch.utils.device import resolve_device
@@ -73,21 +74,35 @@ def load_npz_checkpoint(path: str):
     return tree["params"], tree["state"]
 
 
-def from_numpy_tree(params, state, device="cuda") -> DiscreteModel:
+MODELS = {"discrete": DiscreteModel, "cnf": ContinuousModel}
+
+
+def _model_class(model: str):
+    if model not in MODELS:
+        raise ValueError(f"unknown model family {model!r}: expected one of "
+                         f"{sorted(MODELS)}")
+    return MODELS[model]
+
+
+def from_numpy_tree(params, state, device="cuda",
+                    model: str = "discrete") -> DiscreteModel:
     """The port's model on ``device`` from numpy (params, state) trees,
     e.g. the JAX package's parameters after ``jax.tree.map(np.asarray,
-    ...)``."""
+    ...)``, keys unchanged. ``model`` names the family: ``"discrete"`` ->
+    `DiscreteModel`, ``"cnf"`` -> `ContinuousModel` (trees of
+    `continuous.init`)."""
+    cls = _model_class(model)
     device = resolve_device(device)
 
     def to_tensor(a):
         return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
-    return DiscreteModel(_map_tree(to_tensor, params),
-                         _map_tree(to_tensor, state))
+    return cls(_map_tree(to_tensor, params), _map_tree(to_tensor, state))
 
 
 def to_numpy_tree(model: DiscreteModel):
-    """Inverse of `from_numpy_tree`: numpy (params, state) trees."""
+    """Inverse of `from_numpy_tree`, for either family: numpy (params,
+    state) trees."""
     params, state = model.trees()
 
     def to_numpy(t):
@@ -96,12 +111,15 @@ def to_numpy_tree(model: DiscreteModel):
     return _map_tree(to_numpy, params), _map_tree(to_numpy, state)
 
 
-def load_checkpoint(path: str, device="cuda",
-                    fold: bool = False) -> DiscreteModel:
-    """Load a native ``.npz`` checkpoint onto ``device``. ``fold=True``
-    folds eval-mode BatchNorm into the convs (`models.fold_bn`), the
-    inference configuration the upsample CLI runs by default; do not fold
-    parameters that will be trained further."""
+def load_checkpoint(path: str, device="cuda", fold: bool = False,
+                    model: str = "discrete") -> DiscreteModel:
+    """Load a native ``.npz`` checkpoint of the ``model`` family
+    (``"discrete"`` or ``"cnf"``) onto ``device``. ``fold=True`` folds
+    eval-mode BatchNorm into the convs (`models.fold_bn`; the flow blocks
+    of either family pass through), the inference configuration the
+    upsample CLI runs by default; do not fold parameters that will be
+    trained further."""
+    cls = _model_class(model)
     if path.endswith((".pt", ".ckpt")):
         raise NotImplementedError(
             "reference .pt checkpoints are not read by the port yet "
@@ -109,9 +127,9 @@ def load_checkpoint(path: str, device="cuda",
             "puflow_tpu and save it as .npz")
     if not path.endswith(".npz"):
         raise ValueError(f"unrecognised checkpoint format: {path}")
-    model = from_numpy_tree(*load_npz_checkpoint(path), device=device)
+    loaded = from_numpy_tree(*load_npz_checkpoint(path), device=device,
+                             model=model)
     if not fold:
-        return model
-    params, state = model.trees()
-    return DiscreteModel(fold_bn_inference(params, state),
-                         empty_bn_state(state))
+        return loaded
+    params, state = loaded.trees()
+    return cls(fold_bn_inference(params, state), empty_bn_state(state))

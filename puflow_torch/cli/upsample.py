@@ -5,10 +5,13 @@ plus ``--device``:
 
     python -m puflow_torch.cli.upsample --source <dir> --target <dir> \
         --checkpoint <ckpt.npz> --up_ratio 4 [--num_patch 256] \
-        [--num_out N] [--seed 2021] [--exact] [--device cuda]
+        [--num_out N] [--seed 2021] [--model discrete|cnf] [--exact] \
+        [--device cuda]
 
 Reads the native ``.npz`` checkpoint format and, unless ``--exact`` is
 given, folds BatchNorm into the convs as `puflow_tpu.cli.upsample` does.
+``--model cnf`` serves the continuous family (`models.continuous`): six
+CNF blocks, each block-solve one CUDA kernel launch.
 Clouds are grouped by point count and batched ``--batch`` at a time, the
 tail batch padded so every batch has the same shape. Outputs are written
 with '%.6f'.
@@ -42,9 +45,10 @@ def main(argv=None):
     parser.add_argument("--exact", action="store_true",
                         help="keep BatchNorm unfolded: the encoder, the "
                              "k-NN and the interpolation head run as plain "
-                             "tensor ops, while FPS, flow f and flow g still "
-                             "run as CUDA kernels. Default: BN folded into "
-                             "the convs, every model stage a CUDA kernel")
+                             "tensor ops, while FPS and the flows (f and g, "
+                             "or the CNF solves) still run as CUDA kernels. "
+                             "Default: BN folded into the convs, the "
+                             "encoder and the head CUDA kernels too")
     parser.add_argument("--batch", type=int, default=1,
                         help="clouds per device batch")
     parser.add_argument("--seeded_merge", action="store_true",
@@ -56,10 +60,6 @@ def main(argv=None):
                         help="torch device to run on (default cuda)")
     args = parser.parse_args(argv)
 
-    if args.model == "cnf":
-        raise NotImplementedError(
-            "--model cnf: the CNF family is not ported yet (ROADMAP.md, "
-            "Queue 1 item 7)")
     if args.seeded_merge or args.merge_groups > 1:
         raise NotImplementedError(
             "--seeded_merge / --merge_groups > 1: the opt-in merges are not "
@@ -74,7 +74,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     rng = np.random.RandomState(args.seed)
-    model = load_checkpoint(args.checkpoint, device, fold=not args.exact)
+    model = load_checkpoint(args.checkpoint, device, fold=not args.exact,
+                            model=args.model)
 
     os.makedirs(args.target, exist_ok=True)
     paths = []

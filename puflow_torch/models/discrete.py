@@ -107,17 +107,30 @@ def init(generator: torch.Generator, device="cuda"):
     return params, state
 
 
+def encoder_is_folded(params) -> bool:
+    """Whether BN is folded into the encoder's convs (`models.fold_bn`)."""
+    return "bn" not in params["feat_convs"][0]["convs"][0]
+
+
 def feat_extract(params, state, xyz: torch.Tensor, knn_idx: torch.Tensor,
                  train: bool = False):
     """EdgeConv pyramid -> (per-block conditions ``[B, N, cdim_i]``, new
-    encoder BN state), as tensor ops (folded or unfolded params; ``state``
-    None when folded)."""
+    encoder BN state; ``state`` may be None when the params are folded).
+
+    Folded params at inference go through `ops.encoder.encoder_conditions`
+    (the CUDA kernel for CUDA tensors, its plain version for CPU tensors),
+    the dispatch of `puflow_tpu.models.discrete.feat_extract` without its
+    size gate; unfolded params, and training, are tensor ops with BN.
+    """
+    feat_s = None if state is None else state["feat_convs"]
     if not train:
-        cs = encoder_conditions_plain(params, xyz, knn_idx, state)
-        return cs, None if state is None else state["feat_convs"]
+        if encoder_is_folded(params):
+            return encoder_conditions(params, xyz.contiguous(),
+                                      knn_idx), feat_s
+        return encoder_conditions_plain(params, xyz, knn_idx, state), feat_s
     cs, new_fs = [], []
     c = xyz
-    for fp, fs, mp in zip(params["feat_convs"], state["feat_convs"],
+    for fp, fs, mp in zip(params["feat_convs"], feat_s,
                           params["merge_convs"]):
         c, fs = feature_extract_apply(fp, fs, c, knn_idx, train=True)
         new_fs.append(fs)
@@ -157,7 +170,7 @@ def is_folded(params) -> bool:
     """Whether BN is folded into the convs (`models.fold_bn`): no ``bn``
     in the first encoder conv and no ``bn0`` in the weight unit, the test
     of `puflow_tpu.models.discrete.forward`."""
-    return ("bn" not in params["feat_convs"][0]["convs"][0]
+    return (encoder_is_folded(params)
             and "bn0" not in params["interp"]["weight_unit"])
 
 
@@ -299,6 +312,12 @@ def perturb_init(params, state, seed: int):
     inv1x1. This moves those parameters with numpy noise drawn in sorted
     key order, so the same seed gives the same model whichever package
     made the trees.
+
+    On the CNF family's trees (`models.continuous`) it also moves the end
+    times apart and gives the layers' time rows (``hyper_gate`` /
+    ``hyper_bias`` ``w[0]``) a large scale: a seeded field barely depends
+    on t, and every solve would take the controller's minimum of three
+    steps with none rejected.
     """
     rng = np.random.RandomState(seed)
     leaves = dict(_leaves(params, "params"))
@@ -319,4 +338,11 @@ def perturb_init(params, state, seed: int):
             a[...] = rng.normal(0.0, 0.5, a.shape)
         elif leaf == "b2":
             a[...] = rng.normal(0.0, 0.2, a.shape)
+        elif parent in ("hyper_gate", "hyper_bias") and leaf == "w":
+            # a tenth of the scale on the output layer, whose time row
+            # translates the whole state: it stays of order 1
+            a[0] = rng.normal(0.0, 20.0 if a.shape[1] > PC_CHANNEL else 2.0,
+                              a.shape[1])
+        elif leaf == "sqrt_end_time":
+            a[...] = rng.uniform(0.5, 0.7)
     return params, state

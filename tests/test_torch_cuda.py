@@ -9,10 +9,10 @@ import pytest
 import torch
 
 from puflow_torch import checkpoint
-from puflow_torch.models import discrete
+from puflow_torch.models import continuous, discrete
 from puflow_torch.models.encoder import interpolation_apply
 from puflow_torch.models.fold_bn import fold_bn_inference
-from puflow_torch.ops import emd, encoder, flow, interp
+from puflow_torch.ops import cnf, emd, encoder, flow, interp
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain)
 from puflow_torch.ops.knn import knn_indices, knn_self, knn_self_plain
@@ -207,3 +207,128 @@ def test_train_step_kernel_emd_matches_plain(card):
                           grads[1].split(layout.sizes)):
         scale = max(float(b.abs().max()), 1e-3)
         assert float((a - b).abs().max()) <= 5e-4 * scale + 1e-6, path
+
+
+def _cnf_layers(card, cdim, seed, time_scale):
+    """A seeded 3-64-64-3 net on the card; ``time_scale`` > 0 gives its
+    time rows that scale (solves of several steps, some rejected)."""
+    gen = torch.Generator().manual_seed(seed)
+    layers = continuous.odenet_init(gen, 3, cdim, device="cpu")
+    for p in layers:
+        for k in ("hyper_gate", "hyper_bias"):
+            w = p[k]["w"]
+            if time_scale:
+                w[0] = torch.randn(w.shape[1], generator=gen) * (
+                    time_scale if w.shape[1] > 3 else time_scale / 10)
+    return [{k: {kk: t.to(card) for kk, t in v.items()} for k, v in p.items()}
+            for p in layers]
+
+
+def _rk4_float64(layers, c, y, t0, t1, steps):
+    """Classical RK4 on the plain field in float64, ``steps`` equal steps:
+    a witness independent of the adaptive solver."""
+    layers = [{k: {kk: t.double() for kk, t in v.items()}
+               for k, v in p.items()} for p in layers]
+    c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
+    f = continuous.field_plain_csl(layers, c.double())
+    y, h = y.double(), (t1 - t0) / steps
+    for i in range(steps):
+        t = t0 + i * h
+        k1 = f(t, y)
+        k2 = f(t + h / 2, y + (h / 2) * k1)
+        k3 = f(t + h / 2, y + (h / 2) * k2)
+        k4 = f(t + h, y + h * k3)
+        y = y + (h / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return y
+
+
+@pytest.mark.parametrize("b,n,r,cdim", [(2, 100, 1, 32), (32, 256, 1, 128),
+                                        (3, 333, 1, 64), (5, 231, 3, 128),
+                                        (8, 1024, 4, 32)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("time_scale,tol", [(0.0, 5e-6), (20.0, 5e-5)])
+def test_cnf_solve_kernel_matches_plain(card, b, n, r, cdim, reverse,
+                                        time_scale, tol):
+    """The whole-solve kernel against `cnf_solve_plain`: the same step
+    counts, two runs bit-equal. 333 and 231 rows a cloud leave a partial
+    last tile; r > 1 indexes the conditions by ``row // r``.
+
+    A seeded net takes three steps whose sizes are all set by a clip:
+    within 5e-6, the JAX package's bound for its kernel (tests/test_cnf.py).
+    With time rows of scale 20 the step sizes follow the error estimate and
+    two correct solvers differ by up to 1.1e-5 (measured): 5e-5, five times
+    the solver's tolerance, and both are held against a float64 fixed-step
+    RK4 solve, from which the kernel may lie at most 1.25 times as far as
+    the plain version (plus 1e-6 of rounding)."""
+    layers = _cnf_layers(card, cdim, b + n, time_scale)
+    rng = np.random.RandomState(n + cdim)
+    c = torch.from_numpy((rng.randn(b, n // r, cdim) * 0.3)
+                         .astype(np.float32)).to(card)
+    y = torch.from_numpy((rng.randn(b, n, 3) * 0.5).astype(np.float32))
+    y = y.to(card)
+    T = torch.tensor(0.36, device=card)
+    before = cnf.cnf_solve.launches
+    got, stats = cnf.cnf_solve(layers, c, y, T, reverse, return_stats=True)
+    again = cnf.cnf_solve(layers, c, y, T, reverse)
+    assert cnf.cnf_solve.launches == before + 2
+    zero = torch.zeros_like(T)
+    t0, t1 = (T, zero) if reverse else (zero, T)
+    ref, ref_stats = cnf.cnf_solve_plain(layers, c, y, t0, t1,
+                                         return_stats=True)
+    assert stats.tolist() == [ref_stats["steps"], ref_stats["accepted"]]
+    assert (ref_stats["steps"] > 3) == (time_scale > 0)
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) < tol
+    if time_scale:
+        truth = _rk4_float64(layers, c, y, float(t0), float(t1), 1024)
+        err_kernel = float((got.double() - truth).abs().max())
+        err_plain = float((ref.double() - truth).abs().max())
+        assert err_kernel <= 1.25 * err_plain + 1e-6
+
+
+def test_cnf_solve_kernel_step_budget_and_zero_span(card):
+    layers = _cnf_layers(card, 32, 0, 20.0)
+    c = torch.zeros((1, 70, 32), device=card)
+    y = torch.randn((1, 70, 3), generator=torch.Generator().manual_seed(0))
+    y = y.to(card)
+    out, stats = cnf.cnf_solve(layers, c, y, 0.0, return_stats=True)
+    assert stats.tolist() == [0, 0] and torch.equal(out, y)
+    out, stats = cnf.cnf_solve(layers, c, y, 0.4, max_steps=2,
+                               return_stats=True)
+    ref, ref_stats = cnf.cnf_solve_plain(layers, c, y, 0.0, 0.4, max_steps=2,
+                                         return_stats=True)
+    assert stats.tolist() == [2, ref_stats["accepted"]]
+    # an unconverged solve keeps its last state; its time follows the step
+    # sizes, which carry the error estimate's rounding (about 1e-5)
+    assert float((out - ref).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_cnf_sample_launches_twelve_solves(card, fold):
+    gen = torch.Generator().manual_seed(2)
+    params, state = checkpoint.to_numpy_tree(
+        continuous.ContinuousModel(*continuous.init(gen, device="cpu")))
+    discrete.perturb_init(params, state, 2)
+    model = checkpoint.from_numpy_tree(params, state, card, model="cnf")
+    tp, ts = model.trees()
+    if fold:
+        tp = fold_bn_inference(tp, ts)
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy((rng.randn(5, 64, 3) * 0.3).astype(np.float32))
+    x = x.to(card)
+    wrappers = (cnf.cnf_solve, encoder.encoder_conditions, interp.interp_head)
+    before = [w.launches for w in wrappers]
+    log = []
+    cnf.cnf_solve.stats_log = log
+    try:
+        got = continuous.sample(tp, ts, x, 4)
+    finally:
+        cnf.cnf_solve.stats_log = None
+    assert [w.launches - b for w, b in zip(wrappers, before)] == (
+        [12, 1, 1] if fold else [12, 0, 0])
+    steps = torch.stack(log).cpu()
+    assert steps.shape == (12, 2) and int(steps[:, 0].max()) < 128
+    # the same pipeline on plain versions (the model on the CPU)
+    cpu_model = checkpoint.from_numpy_tree(params, state, "cpu", model="cnf")
+    ref = cpu_model(x.cpu(), 4)
+    assert float((got.cpu() - ref).abs().max()) < 1e-4

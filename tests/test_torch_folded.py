@@ -145,6 +145,48 @@ def test_encoder_plain_matches_jax(case):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
+def test_feat_extract_dispatches_on_folded_params(case):
+    """`discrete.feat_extract` sends folded params at inference through the
+    `ops.encoder.encoder_conditions` wrapper (on CPU tensors: its plain
+    version) and unfolded params through the plain version with BN; both
+    give the conditions of JAX's XLA formulation."""
+    ref = [np.asarray(c) for c in j_discrete.feat_extract(
+        case["jf"], case["js"], jnp.asarray(case["x"]), case["idx"],
+        train=False)[0]]
+    plain = t_encoder.encoder_conditions_plain(case["tf"], case["xt"],
+                                               case["idx_t"])
+    calls = []
+    wrapper = t_discrete.encoder_conditions
+
+    def spy(*args):
+        calls.append(args)
+        return wrapper(*args)
+
+    t_discrete.encoder_conditions = spy
+    try:
+        for state in (None, t_fold.empty_bn_state(
+                t_checkpoint.from_numpy_tree(case["params"], case["state"],
+                                             "cpu").trees()[1])):
+            got, feat_s = t_discrete.feat_extract(case["tf"], state,
+                                                  case["xt"], case["idx_t"])
+            assert (feat_s is None) == (state is None)
+            for a, b, c in zip(got, plain, ref):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
+                err, scale = np.abs(a.numpy() - c).max(), np.abs(c).max()
+                # the encoder's bound (test_encoder_plain_matches_jax)
+                assert err < 5e-5 * scale + 1e-4
+        assert len(calls) == 2
+        tp, ts = t_checkpoint.from_numpy_tree(case["params"], case["state"],
+                                              "cpu").trees()
+        unfolded, feat_s = t_discrete.feat_extract(tp, ts, case["xt"],
+                                                   case["idx_t"])
+        assert len(calls) == 2 and feat_s is ts["feat_convs"]
+    finally:
+        t_discrete.encoder_conditions = wrapper
+    for a, b in zip(unfolded, plain):   # folding keeps the function
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
 @pytest.mark.parametrize("mode", ["logits", "weights", "latents"])
 def test_interp_head_plain_matches_jax(case, mode):
     ip = case["jf"]["interp"]

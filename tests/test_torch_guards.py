@@ -13,7 +13,9 @@ import torch
 
 from puflow_torch import checkpoint as t_checkpoint
 from puflow_torch.cli import upsample as t_cli
+from puflow_torch.models import continuous as t_continuous
 from puflow_torch.models import discrete as t_discrete
+from puflow_torch.ops import cnf as t_cnf
 from puflow_torch.ops import emd as t_emd
 from puflow_torch.ops import encoder as t_encoder
 from puflow_torch.ops import flow as t_flow
@@ -22,6 +24,7 @@ from puflow_torch.ops import interp as t_interp
 from puflow_torch.ops import knn as t_knn
 from puflow_torch.utils.device import resolve_device
 from puflow_tpu.checkpoint import save_checkpoint
+from puflow_tpu.models import continuous as j_continuous
 from puflow_tpu.models import discrete as j_discrete
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -74,6 +77,11 @@ def test_wrappers_raise_on_other_devices():
                             idx, [])
     with pytest.raises(ValueError, match="no kernel"):
         t_emd.emd_auction(meta, meta)
+    cond = torch.empty((1, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_cnf.cnf_solve([], cond, meta, 0.5)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_cnf.cnf_solve_t([], cond, meta, 0.0, 0.5)
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +139,49 @@ def test_cli_upsamples_on_cpu(cli_inputs):
     assert all(len(v.split(".")[-1]) == 6 for v in lines[0].split())
 
 
-@pytest.mark.parametrize("flags", [["--model", "cnf"], ["--seeded_merge"],
+def test_cnf_entry_points_default_to_the_card(tmp_path):
+    """`continuous.init`, `build_model`, `from_numpy_tree(model="cnf")`
+    and `load_checkpoint(model="cnf")` ask for CUDA unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    params, state = j_continuous.init(jax.random.PRNGKey(0))
+    ckpt = str(tmp_path / "cnf.npz")
+    save_checkpoint(ckpt, params, state)
+    params, state = (jax.tree.map(np.asarray, params),
+                     jax.tree.map(np.asarray, state))
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_continuous.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_continuous.build_model(torch.Generator().manual_seed(0), 3,
+                                 (64, 64), 8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_checkpoint.from_numpy_tree(params, state, model="cnf")
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_checkpoint.load_checkpoint(ckpt, model="cnf")
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_cli.main(["--source", str(tmp_path), "--target",
+                    str(tmp_path / "out"), "--checkpoint", ckpt, "--model",
+                    "cnf"])
+
+
+def test_cnf_training_is_not_ported():
+    """The differentiable CNF solves are not ported yet: every
+    way into them raises and names ROADMAP.md."""
+    params, state = t_continuous.init(torch.Generator().manual_seed(0),
+                                      device="cpu")
+    x = torch.zeros((1, 16, 3))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_continuous.forward(params, state, x, 4, train=True)
+    c = torch.zeros((1, 16, 32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_continuous.flow_block_inverse(params["flow_blocks"][0], x, c,
+                                        differentiable=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_continuous.f_transform(params, x, [c] * 6)
+
+
+@pytest.mark.parametrize("flags", [["--model", "cnf", "--seeded_merge"],
+                                   ["--seeded_merge"],
                                    ["--merge_groups", "4"]])
 def test_cli_unported_options_raise(cli_inputs, flags):
     tmp, ckpt, src = cli_inputs
