@@ -17,9 +17,14 @@ blocks, dopri5 at tolerance 1e-5), full width, in the same two
 configurations: every block-solve is one launch of the hand-written
 whole-solve kernel, twelve a `continuous.sample`, and with BN folded the
 encoder and the interpolation head (mode `latents`) are kernels too.
-Phases:
+Last it runs the opt-in merges of the folded discrete model: the
+seeded merge (`--seeded_merge`: every original emitted, the rest picked by
+the hand-written seeded-FPS kernel over 16 Morton cells a cloud) and the
+grouped union merge (`--merge_groups 16`: the FPS kernel over 16 Morton
+cells of the union). Phases:
 
-  1. checks the card, prints its name and power limit, turns TF32 off;
+  1. checks the card, prints its name and power limit, checks that
+     `import puflow_torch` turned TF32 off;
   2. builds the kernels from `puflow_torch/csrc` and prints the build time;
   3. compares each kernel with its plain PyTorch version on the card at
      the main path's shapes (256 patches of 256 points, r=4), times both,
@@ -27,8 +32,9 @@ Phases:
   4. runs `upsample_cloud` + `remove_outliers` on 8 clouds in each
      configuration, with every launch count set to 0 just before and read
      just after; checks the output, that each kernel of the path was
-     launched, and that the result agrees with the same pipeline on the
-     plain versions;
+     launched, that the result agrees with the same pipeline on the plain
+     versions, and that the merge's FPS kernel picks the same points as
+     its plain version on the path's own predictions;
   5. times each path per stage with CUDA events at B=8 and B=32, and
      traces one run of each with torch.profiler for the card's idle share
      and its top kernels;
@@ -55,7 +61,16 @@ Phases:
      traces one run of each;
  12. saves a seeded CNF checkpoint and runs `python -m
      puflow_torch.cli.upsample --model cnf` on it;
- 13. prints one JSON line of kernel results and, last, the device line.
+ 13. compares the seeded-FPS kernel with its plain version (equal indices,
+     two runs bit-equal) at the seeded merge's shapes and more, and times
+     its seeding and selection apart;
+ 14. runs the seeded-merge and grouped-union paths at 1 and 32 clouds,
+     and the seeded merge once on the CNF folded model, each as phase 4
+     runs a path;
+ 15. times the merge stage and the whole pipeline at 1 and 32 clouds for
+     the union merge, the seeded merge (auto G and G = 1) and the grouped
+     union merge (G = 16), and runs the upsample CLI with the merge flags;
+ 16. prints one JSON line of kernel results and, last, the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
 refuses to run without it.
@@ -77,8 +92,8 @@ import torch
 
 from puflow_torch import checkpoint
 from puflow_torch.data.synthetic import synthetic_pairs
-from puflow_torch.inference.patch import (normalize_cloud, remove_outliers,
-                                          upsample_cloud)
+from puflow_torch.inference.patch import (auto_merge_groups, normalize_cloud,
+                                          remove_outliers, upsample_cloud)
 from puflow_torch.models import continuous, discrete
 from puflow_torch.models.encoder import INTERP_K, interpolation_apply
 from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
@@ -86,11 +101,16 @@ from puflow_torch.ops import _build
 from puflow_torch.ops import cnf as cnf_ops
 from puflow_torch.ops import encoder as enc_ops
 from puflow_torch.ops import flow as flow_ops
+from puflow_torch.ops import fps as fps_ops
 from puflow_torch.ops import interp as interp_ops
 from puflow_torch.ops.chamfer import chamfer_parts
 from puflow_torch.ops.emd import emd_auction, emd_auction_plain
 from puflow_torch.ops.fps import (farthest_point_sample,
-                                  farthest_point_sample_plain)
+                                  farthest_point_sample_morton,
+                                  farthest_point_sample_plain,
+                                  farthest_point_sample_seeded,
+                                  farthest_point_sample_seeded_morton,
+                                  farthest_point_sample_seeded_plain)
 from puflow_torch.ops.knn import (gather_points, knn_indices, knn_self,
                                   knn_self_plain)
 from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
@@ -136,24 +156,37 @@ KERNELS = {
             "replaces": PALLAS + "emd_pallas.py:149"},
     "cnf_solve": {"route": "cuda", "source": "puflow_torch/csrc/cnf_solve.cu",
                   "replaces": PALLAS + "cnf_pallas.py:372"},
+    "fps_seeded": {"route": "cuda", "source": "puflow_torch/csrc/fps.cu",
+                   "replaces": PALLAS + "fps_pallas.py:165"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
             "encoder": enc_ops.encoder_conditions,
             "interp_head": interp_ops.interp_head, "flow_f": flow_ops.flow_f,
             "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend,
-            "emd": emd_auction, "cnf_solve": cnf_ops.cnf_solve}
+            "emd": emd_auction, "cnf_solve": cnf_ops.cnf_solve,
+            "fps_seeded": farthest_point_sample_seeded}
 # the kernels each configuration's main path must launch
 PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
                     "flow_g_blend"),
          "exact": ("fps", "flow_f", "flow_g"),
          "train": ("emd",),
          "cnf_folded": ("fps", "encoder", "interp_head", "cnf_solve"),
-         "cnf_exact": ("fps", "cnf_solve")}
+         "cnf_exact": ("fps", "cnf_solve"),
+         "seeded_merge": ("fps", "knn_self", "encoder", "interp_head",
+                          "flow_f", "flow_g_blend", "fps_seeded"),
+         "union_groups": ("fps", "knn_self", "encoder", "interp_head",
+                          "flow_f", "flow_g_blend")}
+# the seeded merge once more, behind the CNF folded model
+PATHS["cnf_seeded_merge"] = PATHS["cnf_folded"] + ("fps_seeded",)
+# the merge each path runs (`upsample_cloud` keywords; none: the union)
+MERGES = {"seeded_merge": dict(seeded_merge=True, merge_groups=0),
+          "union_groups": dict(merge_groups=16)}
+MERGES["cnf_seeded_merge"] = MERGES["seeded_merge"]
 # the path whose run gives each kernel's count in the kernel line
 COUNT_FROM = {"fps": "folded", "knn_self": "folded", "encoder": "folded",
               "interp_head": "folded", "flow_f": "folded",
               "flow_g_blend": "folded", "flow_g": "exact", "emd": "train",
-              "cnf_solve": "cnf_folded"}
+              "cnf_solve": "cnf_folded", "fps_seeded": "seeded_merge"}
 KERNEL_OPS = dict(WRAPPERS, knn=knn_indices, cnf_solve_t=cnf_ops.cnf_solve_t)
 PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "knn": knn_indices,
@@ -161,7 +194,8 @@ PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "interp_head": interp_ops.interp_head_plain,
              "flow_f": flow_ops.flow_f_plain, "flow_g": flow_ops.flow_g_plain,
              "flow_g_blend": flow_ops.flow_g_blend_plain,
-             "cnf_solve_t": cnf_ops.cnf_solve_plain}
+             "cnf_solve_t": cnf_ops.cnf_solve_plain,
+             "fps_seeded": farthest_point_sample_seeded_plain}
 CNF_SOLVES = 2 * continuous.NUM_BLOCKS      # block-solves a `sample`
 FIELD_MACS = 3 * 64 + 64 * 64 + 64 * 3      # multiply-adds, row x evaluation
 
@@ -354,8 +388,12 @@ def sample_staged(model, patches, ops, mark):
     return x
 
 
-def pipeline_staged(model, pc, ops=KERNEL_OPS, mark=lambda stage: None):
-    """`upsample_cloud` + `remove_outliers`, written out stage by stage."""
+def pipeline_staged(model, pc, ops=KERNEL_OPS, mark=lambda stage: None,
+                    merge=None):
+    """`upsample_cloud` + `remove_outliers`, written out stage by stage;
+    ``merge`` holds `upsample_cloud`'s merge keywords (none: the union).
+    -> (output, the normalised patches, `merge_select`'s inputs)."""
+    merge = merge or {}
     B = pc.shape[0]
     pc_n, g_centroid, g_furthest = normalize_cloud(pc)
     seed_idx = ops["fps"](pc_n, N_PATCH)
@@ -367,16 +405,37 @@ def pipeline_staged(model, pc, ops=KERNEL_OPS, mark=lambda stage: None):
     mark("patch_knn")
     pred = sample_staged(model, flat_n, ops, mark)
     pred = (pred * furthest + centroids).reshape(B, -1, 3)
-    cov = torch.zeros((B, N_POINTS), dtype=torch.bool, device=pc.device)
-    cov.scatter_(1, idx.reshape(B, -1), True)
-    originals = torch.where(cov[..., None], pc_n, pred[:, :1, :])
-    union = torch.cat([pred, originals], dim=1).contiguous()
-    merged = gather_points(union, ops["fps"](union, NPOINT))
+    merge_in = (pc_n, idx, pred)
+    source, sel = merge_select(*merge_in, ops, merge)
+    merged = gather_points(source, sel)
+    if merge.get("seeded_merge"):
+        merged = torch.cat([pc_n, merged], dim=1)
     merged = merged * g_furthest + g_centroid
     mark("merge_fps")
     out = remove_outliers(merged, pc, N_OUTLIERS)
     mark("outliers")
-    return out, flat_n
+    return out, flat_n, merge_in
+
+
+def merge_select(pc_n, idx, pred, ops, merge):
+    """The merge's FPS as `upsample_cloud` runs it on the normalised cloud
+    ``pc_n``, its patches' point indices ``idx`` and the predictions
+    ``pred``: (the points picked from, the picks)."""
+    groups = merge.get("merge_groups", 0)
+    if merge.get("seeded_merge"):
+        return pred, farthest_point_sample_seeded_morton(
+            pred, pc_n, NPOINT - N_POINTS,
+            groups or auto_merge_groups(pred.shape[1]),
+            sample=ops["fps_seeded"])
+    B = pred.shape[0]
+    cov = torch.zeros((B, N_POINTS), dtype=torch.bool, device=pred.device)
+    cov.scatter_(1, idx.reshape(B, -1), True)
+    originals = torch.where(cov[..., None], pc_n, pred[:, :1, :])
+    union = torch.cat([pred, originals], dim=1).contiguous()
+    if groups > 1:
+        return union, farthest_point_sample_morton(union, NPOINT, groups,
+                                                   sample=ops["fps"])
+    return union, ops["fps"](union, NPOINT)
 
 
 def check_fps(name, xyz, m, results):
@@ -428,8 +487,13 @@ def main_path_patches(batch: int) -> torch.Tensor:
 
 
 def compare_fps(results, rng):
+    # the seed pick, the union merge, and the union's 16 Morton cells
+    # (`--merge_groups 16`) at 1 and at 32 clouds
+    cells = (MERGE_N // 16, -(-NPOINT // 16))              # 2176 -> 514
     for B, N, m, label in ((8, N_POINTS, N_PATCH, "seed pick"),
-                           (8, MERGE_N, NPOINT, "merge")):
+                           (8, MERGE_N, NPOINT, "merge"),
+                           (16, *cells, "Morton cells, 1 cloud"),
+                           (512, *cells, "Morton cells, 32 clouds")):
         grid = rng.randint(0, 11, (B, N, 3)).astype(np.float32)
         check_fps(f"{label} integer grid", torch.from_numpy(grid).cuda(), m,
                   results)
@@ -580,40 +644,49 @@ def solve_steps(stats_log) -> list:
     return steps
 
 
-def phase_main_path(name, model, results):
-    """One configuration's main path on 8 clouds, with its launch counts;
-    `COUNT_FROM` says which path's count goes into the kernel line."""
-    pc = synthetic_clouds(8, SEED)
+def phase_main_path(name, model, results, batch=8):
+    """One path's main path on ``batch`` clouds, with its launch counts:
+    `MERGES` gives its merge, `PATHS` the kernels it must launch,
+    `COUNT_FROM` which path's count goes into the kernel line."""
+    merge = MERGES.get(name, {})
+    kernels = PATHS[name]
+    pc = synthetic_clouds(batch, SEED)
     for fn in WRAPPERS.values():
         fn.launches = 0
     cnf_ops.cnf_solve.stats_log = []
     with torch.no_grad():
-        out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND)
+        out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND,
+                             **merge)
         out = remove_outliers(out, pc, N_OUTLIERS)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in WRAPPERS.items()}
     stats_log, cnf_ops.cnf_solve.stats_log = cnf_ops.cnf_solve.stats_log, None
-    log(f"{name} main path: output {tuple(out.shape)}, launches {launches}")
-    for k in PATHS[name]:
+    log(f"{name} main path, {batch} clouds, merge {merge or 'union'}: "
+        f"output {tuple(out.shape)}, launches {launches}")
+    for k in kernels:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched by the {name} "
                                  "main path")
         if COUNT_FROM[k] == name:
             results[k]["launches"] = launches[k]
-    if "cnf_solve" in PATHS[name]:
+    if "cnf_solve" in kernels:
         if launches["cnf_solve"] != CNF_SOLVES:
             raise AssertionError(f"{launches['cnf_solve']} cnf_solve launches "
                                  f"in one sample, not {CNF_SOLVES}")
         log(f"{name} main path: [attempted, accepted] steps of the "
             f"{CNF_SOLVES} block-solves (f then g): {solve_steps(stats_log)}")
-    if tuple(out.shape) != (8, N_POINTS * UPRATIO, 3):
+    if tuple(out.shape) != (batch, N_POINTS * UPRATIO, 3):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("output has non-finite values")
 
     with torch.no_grad():
-        staged, patches = pipeline_staged(model, pc)
-        plain, _ = pipeline_staged(model, pc, PLAIN_OPS)
+        staged, patches, merge_in = pipeline_staged(model, pc, merge=merge)
+        plain, _, _ = pipeline_staged(model, pc, PLAIN_OPS, merge=merge)
+        # the merge's kernel and its plain version on this path's own
+        # predictions: the same picks
+        _, sel = merge_select(*merge_in, KERNEL_OPS, merge)
+        _, sel_plain = merge_select(*merge_in, PLAIN_OPS, merge)
         one = patches[:N_PATCH].contiguous()
         got = model(one, UPRATIO)
         ref = sample_staged(model, one, PLAIN_OPS, lambda stage: None)
@@ -629,6 +702,12 @@ def phase_main_path(name, model, results):
         f"max_abs_err {err:.3e} (atol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"sample: max_abs_err {err} > 1e-4")
+    differ = int((sel != sel_plain).sum())
+    log(f"{name} merge FPS on the path's own predictions {tuple(sel.shape)},"
+        f" kernel vs plain: {differ} indices differ")
+    if differ:
+        raise AssertionError(f"{name}: the merge's kernel picks {differ} "
+                             "other points than its plain version")
     # the plain pipeline can differ only by FPS near-tie flips that the
     # 1e-6-level model differences cause
     cd = chamfer(out, plain)
@@ -1146,14 +1225,186 @@ def phase_cnf_cli(model):
         log(f"upsample --model cnf wrote {out.shape[0]} finite points")
 
 
+SEEDED_PICKS = NPOINT - N_POINTS                           # 6,168 a cloud
+PRED_N = N_PATCH * PATCH * UPRATIO                          # 32,768
+
+
+def check_fps_seeded(label, xyz, seeds, m):
+    """The seeded-FPS kernel against its plain version: equal indices, and
+    a second run bit-equal to the first."""
+    got = farthest_point_sample_seeded(xyz, seeds, m)
+    again = farthest_point_sample_seeded(xyz, seeds, m)
+    ref = farthest_point_sample_seeded_plain(xyz, seeds, m)
+    torch.cuda.synchronize()
+    bad = (got != ref).any(dim=0).nonzero()
+    if bad.numel():
+        step = int(bad[0])
+        raise AssertionError(
+            f"fps_seeded {label}: indices differ first at step {step}: "
+            f"kernel {got[:, step].tolist()[:8]} plain "
+            f"{ref[:, step].tolist()[:8]}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"fps_seeded {label}: two runs differ")
+    log(f"fps_seeded {label} {tuple(xyz.shape)}, seeds "
+        f"{tuple(seeds.shape)} -> {m}: indices equal, rerun bit-equal")
+
+
+def compare_fps_seeded(results, rng):
+    """`csrc/fps.cu:puflow_fps_seeded` against
+    `farthest_point_sample_seeded_plain`, then its times at the seeded
+    merge's three shapes with seeding and selection apart."""
+    results["fps_seeded"]["max_abs_err"] = 0.0
+    # (label, rows, candidates, seed sets, seeds, picks): the Morton cells
+    # of the seeded merge at auto G = 16 (16 rows a cloud share its seed
+    # set), its G = 1 row, a PU-GAN 5,000-point cloud's union at G = 1
+    # (79,872 candidates: the cache in global scratch), a ragged case
+    shapes = (("G = 16, 1 cloud", 16, 2048, 1, N_POINTS, 386),
+              ("G = 16, 32 clouds", 512, 2048, 32, N_POINTS, 386),
+              ("G = 1, 1 cloud", 1, PRED_N, 1, N_POINTS, SEEDED_PICKS),
+              ("PU-GAN union", 1, 79872, 1, 5000, 300),
+              ("ragged", 3, 150, 3, 33, 20))
+    for label, R, M, Bs, S, m in shapes:
+        for kind, make in (("integer", lambda *sh: rng.randint(0, 11, sh)),
+                           ("float", lambda *sh: rng.rand(*sh))):
+            xyz = torch.from_numpy(make(R, M, 3).astype(np.float32)).cuda()
+            sd = torch.from_numpy(make(Bs, S, 3).astype(np.float32)).cuda()
+            check_fps_seeded(f"{label}, {kind}", xyz, sd, m)
+    # ties: every candidate twice, the seeds among them
+    base = rng.rand(4, 1024, 3).astype(np.float32)
+    dup = torch.from_numpy(np.concatenate([base, base[:, ::-1]], 1)).cuda()
+    check_fps_seeded("duplicates", dup, dup[:, ::64].contiguous(), 1500)
+
+    for label, R, M, Bs, S, m in shapes[:3]:
+        xyz = torch.from_numpy(rng.rand(R, M, 3).astype(np.float32)).cuda()
+        sd = torch.from_numpy(rng.rand(Bs, S, 3).astype(np.float32)).cuda()
+        out = torch.empty((R, m), dtype=torch.int32, device="cuda")
+        mind = torch.empty((R, M), dtype=torch.float32, device="cuda")
+        fps_ops._seeded_launch(xyz, sd, out, mind, phases=1)
+        seeding = time_ms(
+            lambda: fps_ops._seeded_launch(xyz, sd, out, mind, phases=1), 20)
+        # the cache fits in shared memory here: selection leaves mind as is
+        selection = time_ms(
+            lambda: fps_ops._seeded_launch(xyz, sd, out, mind, phases=2), 5)
+        k1 = time_ms(lambda: farthest_point_sample_seeded(xyz, sd, m), 5)
+        p1 = time_ms(lambda: farthest_point_sample_seeded_plain(xyz, sd, m),
+                     1)
+        k2 = time_ms(lambda: farthest_point_sample_seeded(xyz, sd, m), 5)
+        entry = dict(results["fps_seeded"])
+        # bytes: candidates, seeds and picks once; operations: 9 a
+        # candidate-seed pair, 9 a candidate and step
+        set_bound(entry, nbytes(xyz, sd, out), 9 * R * M * S + 9 * R * M * m)
+        log(f"fps_seeded {label} [{R}, {M}], seeds [{Bs}, {S}] -> {m}: "
+            f"kernel {k1:.4f} / {k2:.4f} ms (seeding {seeding:.4f}, "
+            f"selection {selection:.4f}), plain {p1:.4f} ms, bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        if R == 512:     # the kernel line: 32 clouds, bench.py's batch
+            results["fps_seeded"].update(
+                ms=(k1 + k2) / 2, plain_ms=p1, library_ms=None,
+                bound_ms=entry["bound_ms"], bound_by=entry["bound_by"])
+
+
+TIMED_MERGES = (("union (default)", {}),
+                ("seeded, auto G", dict(seeded_merge=True, merge_groups=0)),
+                ("seeded, G = 1", dict(seeded_merge=True, merge_groups=1)),
+                ("union, Morton G = 16", dict(merge_groups=16)))
+
+
+def phase_merge_timing(model, card):
+    """Merge-stage ms and whole-pipeline clouds/s of the folded discrete
+    model for each merge, with CUDA events, median of 3; the Chamfer
+    distance of each opt-in output to the union output is information,
+    not a gate (the weights are seeded)."""
+    for B in (1, 32):
+        pc = synthetic_clouds(B, SEED + 40 + B)
+        union_out = None
+        for label, merge in TIMED_MERGES:
+            merge_ms, totals = [], []
+            with torch.no_grad():
+                out, _, _ = pipeline_staged(model, pc, merge=merge)  # warm-up
+                torch.cuda.synchronize()
+                for _ in range(3):
+                    events = []
+
+                    def mark(stage, events=events):
+                        ev = torch.cuda.Event(enable_timing=True)
+                        ev.record()
+                        events.append((stage, ev))
+
+                    t0 = time.perf_counter()
+                    pipeline_staged(model, pc, mark=mark, merge=merge)
+                    torch.cuda.synchronize()
+                    totals.append(time.perf_counter() - t0)
+                    # from the model's last stage to the merged cloud
+                    at = [k for k, _ in events].index("merge_fps")
+                    merge_ms.append(events[at - 1][1].elapsed_time(
+                        events[at][1]))
+            total = statistics.median(totals)
+            if union_out is None:
+                union_out, cd = out, 0.0
+            else:
+                cd = chamfer(out, union_out)
+            log(f"merge timing B={B} {label}: merge stage "
+                f"{statistics.median(merge_ms):.3f} ms, pipeline "
+                f"{total * 1e3:.2f} ms, {B / total:.2f} clouds/s, chamfer to "
+                f"the union output {cd:.3e} (information) on {card}")
+
+
+def phase_merge_cli(model):
+    """Save the seeded discrete model as `.npz` and run the upsample CLI
+    with the merge flags (side by side); `--seeded_merge --exact` must
+    write the same file as `--exact` alone."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "m.npz")
+        checkpoint.save_checkpoint(ckpt, *checkpoint.to_numpy_tree(model))
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        np.savetxt(os.path.join(src, "cloud.xyz"),
+                   synthetic_clouds(1, SEED + 6)[0].cpu().numpy(), fmt="%.6f")
+        runs = {"seeded": ["--seeded_merge"],
+                "groups": ["--merge_groups", "16"],
+                "exact_seeded": ["--exact", "--seeded_merge"],
+                "exact": ["--exact"]}
+        procs = {}
+        t0 = time.perf_counter()
+        for key, flags in runs.items():
+            cmd = [sys.executable, "-m", "puflow_torch.cli.upsample",
+                   "--source", src, "--target", os.path.join(tmp, key),
+                   "--checkpoint", ckpt, "--device", "cuda", *flags]
+            procs[key] = (cmd, subprocess.Popen(
+                cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        for key, (cmd, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            log(f"upsample CLI ({time.perf_counter() - t0:.1f} s, exit "
+                f"{proc.returncode}): {' '.join(cmd[3:])}: {out.strip()}")
+            if proc.returncode != 0:
+                raise AssertionError(f"upsample CLI {runs[key]} failed:\n"
+                                     + err[-4000:])
+            pts = np.loadtxt(os.path.join(tmp, key, "cloud.xyz"))
+            if pts.shape != (N_POINTS * UPRATIO, 3) or not np.isfinite(
+                    pts).all():
+                raise AssertionError(f"upsample CLI {runs[key]} wrote "
+                                     f"{pts.shape}")
+        texts = {k: Path(tmp, k, "cloud.xyz").read_text()
+                 for k in ("exact", "exact_seeded")}
+        if texts["exact"] != texts["exact_seeded"]:
+            raise AssertionError("--seeded_merge --exact wrote another file "
+                                 "than --exact")
+        log("upsample CLI: --seeded_merge and --merge_groups 16 wrote 8192 "
+            "finite points; --seeded_merge --exact wrote the same file as "
+            "--exact")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
     card = card_line()
     log(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # `import puflow_torch` pins exact float32 (no TF32)
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 is on after import puflow_torch")
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
         f"{torch.backends.cudnn.allow_tf32}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1191,6 +1442,15 @@ def main():
     phase_timing("cnf_folded", cnf_folded, card, batches=(1, 8))
     phase_timing("cnf_exact", cnf_model, card, batches=(8,))
     phase_cnf_cli(cnf_model)
+
+    with torch.no_grad():
+        compare_fps_seeded(results, rng)
+    for name in ("seeded_merge", "union_groups"):
+        for batch in (1, 32):
+            phase_main_path(name, folded, results, batch=batch)
+    phase_main_path("cnf_seeded_merge", cnf_folded, results, batch=1)
+    phase_merge_timing(folded, card)
+    phase_merge_cli(model)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

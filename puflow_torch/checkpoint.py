@@ -74,7 +74,10 @@ def load_npz_checkpoint(path: str):
     return tree["params"], tree["state"]
 
 
-MODELS = {"discrete": DiscreteModel, "cnf": ContinuousModel}
+# "continuous" names the CNF family too: `puflow_tpu.checkpoint` serves
+# every family other than "discrete" as the CNF (`bench.py` passes it)
+MODELS = {"discrete": DiscreteModel, "cnf": ContinuousModel,
+          "continuous": ContinuousModel}
 
 
 def _model_class(model: str):
@@ -114,7 +117,7 @@ def to_numpy_tree(model: DiscreteModel):
 def load_checkpoint(path: str, device="cuda", fold: bool = False,
                     model: str = "discrete") -> DiscreteModel:
     """Load a native ``.npz`` checkpoint of the ``model`` family
-    (``"discrete"`` or ``"cnf"``) onto ``device``. ``fold=True`` folds
+    (``"discrete"``, or ``"cnf"`` / ``"continuous"``) onto ``device``. ``fold=True`` folds
     eval-mode BatchNorm into the convs (`models.fold_bn`; the flow blocks
     of either family pass through), the inference configuration the
     upsample CLI runs by default; do not fold parameters that will be

@@ -1,15 +1,17 @@
 """Whole-cloud upsampling by patch decomposition.
 
-Counterpart of `puflow_tpu.inference.patch`, with its default exact-union
-merge:
+Counterpart of `puflow_tpu.inference.patch`:
 
   1. normalise the cloud to the unit sphere
   2. FPS seed centroids, n_patch = N / patch_size * expand_ratio
   3. k-NN patch extraction (k = patch_size)
   4. per-patch normalise -> model over all patches as one batch ->
      denormalise
-  5. merge: FPS over the union of the predictions and the covered
-     originals, down to npoint
+  5. merge: by default FPS over the union of the predictions and the
+     covered originals, down to npoint; opt-in, as in `puflow_tpu`, the
+     seeded merge (every original emitted, seeded FPS over the
+     predictions, in Morton cells), the grouped union merge (Morton cells
+     of the union) or the voxel pre-reduced union merge
   6. denormalise globally
   7. outlier removal (`remove_outliers`): drop the points farthest
      (nearest-neighbour distance) from the input cloud
@@ -20,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from puflow_torch.ops.chamfer import chamfer_parts
-from puflow_torch.ops.fps import farthest_point_sample
+from puflow_torch.ops.fps import (farthest_point_sample,
+                                  farthest_point_sample_morton,
+                                  farthest_point_sample_seeded_morton)
 from puflow_torch.ops.knn import gather_points, knn_indices
 
 
@@ -53,6 +57,61 @@ def merge_patches(points: torch.Tensor, npoint: int) -> torch.Tensor:
     return gather_points(points, farthest_point_sample(points, npoint))
 
 
+def _voxel_candidates(pts: torch.Tensor, n_cand: int, grid: int,
+                      hash_size: int) -> torch.Tensor:
+    """First-in-voxel candidate indices, ``[B, M, 3] -> [B, n_cand]``.
+
+    Voxel ids hash into a table of ``hash_size`` slots that keeps the
+    lowest point index per slot (collisions merge voxels, dropping a few
+    more candidates); slots beyond the occupied count stay point 0. The
+    hash is `puflow_tpu`'s 32-bit multiplicative one: the product wraps at
+    2^32 before the modulo.
+    """
+    B, M, _ = pts.shape
+    q = torch.clamp(((pts + 1.5) * (grid / 3.0)).to(torch.int64), 0,
+                    grid - 1)
+    vid = (q[..., 0] * grid + q[..., 1]) * grid + q[..., 2]
+    h = ((vid * 2654435761) & 0xFFFFFFFF) % hash_size        # [B, M]
+    arange = torch.arange(M, device=pts.device).expand(B, M)
+    table = torch.full((B, hash_size), M, dtype=torch.int64,
+                       device=pts.device)
+    table.scatter_reduce_(1, h, arange, "amin", include_self=True)
+    first = torch.gather(table, 1, h) == arange               # [B, M]
+    pos = torch.cumsum(first, dim=1) - 1
+    # targets past n_cand go to a spare column that is cut off (JAX's
+    # scatter mode="drop")
+    tgt = torch.where(first & (pos < n_cand), pos, n_cand)
+    out = torch.zeros((B, n_cand + 1), dtype=torch.int64, device=pts.device)
+    out.scatter_(1, tgt, arange)
+    return out[:, :n_cand].to(torch.int32)
+
+
+def merge_patches_approx(points: torch.Tensor, npoint: int, n_cand: int,
+                         grid: int = 256) -> torch.Tensor:
+    """Merge with voxel pre-reduction: one original point per occupied
+    voxel of a ``grid``^3 lattice over [-1.5, 1.5]^3, ``n_cand`` of them,
+    then exact FPS down to ``npoint`` over those candidates."""
+    cand_idx = _voxel_candidates(points, n_cand, grid, 4 * points.shape[1])
+    cand = gather_points(points, cand_idx)
+    return gather_points(cand, farthest_point_sample(cand, npoint))
+
+
+def auto_merge_groups(n_candidates: int) -> int:
+    """Merge-FPS group count for an n-candidate union: exact below 16384
+    candidates, else Morton cells of >= 2048 candidates up to G=16,
+    snapped down to a divisor of the candidate count.
+
+    >>> auto_merge_groups(8192), auto_merge_groups(32768)
+    (1, 16)
+    """
+    if n_candidates < 16384:
+        return 1
+    g = min(16, n_candidates // 2048)
+    while g > 1 and n_candidates % g:
+        g -= 1
+    return g
+
+
 def remove_outliers(sr: torch.Tensor, lr: torch.Tensor,
                     num_outliers: int) -> torch.Tensor:
     """Drop the `num_outliers` sr-points farthest from lr, keeping order.
@@ -72,15 +131,26 @@ def remove_outliers(sr: torch.Tensor, lr: torch.Tensor,
 
 
 def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
-                   patch_size: int = 256,
-                   expand_ratio: float = 4.0) -> torch.Tensor:
+                   patch_size: int = 256, expand_ratio: float = 4.0,
+                   merge_candidates=None, seeded_merge: bool = False,
+                   merge_groups: int = 0) -> torch.Tensor:
     """Upsample whole clouds patch-wise.
 
     Args:
       model: callable ``(patches [M, k, 3], upratio) -> [M, k * upratio, 3]``
-        (a `DiscreteModel`).
+        (a `DiscreteModel` or `ContinuousModel`).
       pc: ``[B, N, 3]`` input clouds.
       npoint: output points per cloud.
+      merge_candidates: voxel pre-reduce the union to this many candidates
+        before its FPS (`merge_patches_approx`).
+      seeded_merge: emit every original and seeded-FPS the remaining
+        ``npoint - N`` from the predictions, in ``merge_groups`` Morton
+        cells (0: `auto_merge_groups`, 1: exact). Ignored when
+        ``npoint <= N``.
+      merge_groups: without ``seeded_merge``, values above 1 run the
+        union's FPS in that many Morton cells.
+
+    The default (all three off) is the exact union merge.
 
     Returns:
       ``[B, npoint, 3]``.
@@ -98,6 +168,13 @@ def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
     pred = pred * furthest + centroids
     pred = pred.reshape(B, -1, C)                          # [B, P*k*r, 3]
 
+    if seeded_merge and npoint > N:
+        G = (merge_groups if merge_groups > 0
+             else auto_merge_groups(pred.shape[1]))
+        sel = farthest_point_sample_seeded_morton(pred, pc_n, npoint - N, G)
+        merged = torch.cat([pc_n, gather_points(pred, sel)], dim=1)
+        return merged * g_furthest + g_centroid
+
     # Exact-union merge: the reference FPS-selects npoint from the union of
     # the predictions and every patch's input copy. Each covered original
     # appears there once per covering patch; FPS selects by coordinates, so
@@ -110,5 +187,11 @@ def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
     cov.scatter_(1, idx.reshape(B, -1), True)
     originals = torch.where(cov[..., None], pc_n, pred[:, :1, :])
     union = torch.cat([pred, originals], dim=1)            # [B, P*k*r+N, 3]
-    merged = merge_patches(union.contiguous(), npoint)
+    if merge_candidates:
+        merged = merge_patches_approx(union, npoint, merge_candidates)
+    elif merge_groups > 1:
+        sel = farthest_point_sample_morton(union, npoint, merge_groups)
+        merged = gather_points(union, sel)
+    else:
+        merged = merge_patches(union.contiguous(), npoint)
     return merged * g_furthest + g_centroid

@@ -14,7 +14,9 @@ from puflow_torch.models.encoder import interpolation_apply
 from puflow_torch.models.fold_bn import fold_bn_inference
 from puflow_torch.ops import cnf, emd, encoder, flow, interp
 from puflow_torch.ops.fps import (farthest_point_sample,
-                                  farthest_point_sample_plain)
+                                  farthest_point_sample_plain,
+                                  farthest_point_sample_seeded,
+                                  farthest_point_sample_seeded_plain)
 from puflow_torch.ops.knn import knn_indices, knn_self, knn_self_plain
 
 pytestmark = pytest.mark.cuda
@@ -24,7 +26,8 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # `import puflow_torch` pins exact float32
+    assert not torch.backends.cuda.matmul.allow_tf32
     return torch.device("cuda")
 
 
@@ -40,6 +43,41 @@ def test_fps_kernel_matches_plain(card, n, m, scratch):
         assert farthest_point_sample.launches == before + 1
         np.testing.assert_array_equal(
             got.cpu().numpy(), farthest_point_sample_plain(x, m).cpu().numpy())
+
+
+# (rows, candidates, seed sets, seeds, picks): the seeded merge's Morton
+# cells at one cloud (auto G = 16: 16 rows share one seed set) and its
+# G = 1 row; a PU-GAN 5,000-point cloud's union (cache in global scratch);
+# a ragged case
+@pytest.mark.parametrize("rows,n,sets,s,m", [
+    (16, 2048, 1, 2048, 386), (1, 32768, 1, 2048, 6168),
+    (1, 79872, 1, 5000, 300), (3, 150, 3, 33, 20)])
+def test_fps_seeded_kernel_matches_plain(card, rows, n, sets, s, m):
+    rng = np.random.RandomState(n)
+    for label, make in (("integer", lambda *sh: rng.randint(0, 11, sh)),
+                        ("float", lambda *sh: rng.rand(*sh))):
+        x = torch.from_numpy(make(rows, n, 3).astype(np.float32)).to(card)
+        sd = torch.from_numpy(make(sets, s, 3).astype(np.float32)).to(card)
+        before = farthest_point_sample_seeded.launches
+        got = farthest_point_sample_seeded(x, sd, m)
+        assert farthest_point_sample_seeded.launches == before + 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            farthest_point_sample_seeded_plain(x, sd, m).cpu().numpy(),
+            err_msg=label)
+        assert torch.equal(got, farthest_point_sample_seeded(x, sd, m))
+
+
+def test_fps_seeded_kernel_ties(card):
+    # every candidate twice and the seeds among them: ties everywhere
+    rng = np.random.RandomState(9)
+    base = rng.rand(2, 700, 3).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([base, base[:, ::-1]], 1)).to(card)
+    sd = x[:, ::50].contiguous()
+    got = farthest_point_sample_seeded(x, sd, 900)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        farthest_point_sample_seeded_plain(x, sd, 900).cpu().numpy())
 
 
 @pytest.mark.parametrize("r", [1, 4, 5])

@@ -50,6 +50,25 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_import_pins_float32_precision():
+    """`import puflow_torch` pins exact float32 matmuls and convolutions
+    (no TF32), as `import puflow_tpu` pins its matmul precision to
+    "highest"; checked in a fresh process that turned TF32 on first."""
+    code = ("import torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = True\n"
+            "torch.backends.cudnn.allow_tf32 = True\n"
+            "torch.set_float32_matmul_precision('high')\n"
+            "import puflow_torch\n"
+            "print(torch.backends.cuda.matmul.allow_tf32,\n"
+            "      torch.backends.cudnn.allow_tf32,\n"
+            "      torch.get_float32_matmul_precision())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "False", "highest"]
+
+
 def test_cuda_request_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -61,6 +80,8 @@ def test_wrappers_raise_on_other_devices():
     meta = torch.empty((1, 8, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         t_fps.farthest_point_sample(meta, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_fps.farthest_point_sample_seeded(meta, meta, 2)
     with pytest.raises(ValueError, match="no kernel"):
         t_flow.flow_f([], meta, [])
     with pytest.raises(ValueError, match="no kernel"):
@@ -180,14 +201,66 @@ def test_cnf_training_is_not_ported():
         t_continuous.f_transform(params, x, [c] * 6)
 
 
-@pytest.mark.parametrize("flags", [["--model", "cnf", "--seeded_merge"],
-                                   ["--seeded_merge"],
-                                   ["--merge_groups", "4"]])
-def test_cli_unported_options_raise(cli_inputs, flags):
+@pytest.fixture(scope="module")
+def cnf_checkpoint(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cnf_cli")
+    params, state = j_continuous.init(jax.random.PRNGKey(0))
+    ckpt = str(tmp / "cnf.npz")
+    save_checkpoint(ckpt, params, state)
+    return ckpt
+
+
+def _run_cli(src, out, ckpt, *flags):
+    t_cli.main(["--source", str(src), "--target", str(out), "--checkpoint",
+                ckpt, "--num_patch", "64", "--device", "cpu", *flags])
+    return (out / "cloud.xyz").read_text()
+
+
+@pytest.mark.parametrize("flags", [["--seeded_merge"],
+                                   ["--merge_groups", "4"],
+                                   ["--model", "cnf", "--seeded_merge"]])
+def test_cli_opt_in_merges_on_cpu(cli_inputs, cnf_checkpoint, flags):
+    """The opt-in merges end to end: 256 points -> 1,024 written, every
+    original among the outputs under the seeded merge."""
     tmp, ckpt, src = cli_inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cli.main(["--source", str(src), "--target", str(tmp / "x"),
-                    "--checkpoint", ckpt, "--device", "cpu", *flags])
+    if "cnf" in flags:
+        ckpt = cnf_checkpoint
+    out = tmp / ("out_" + "_".join(f.strip("-") for f in flags))
+    text = _run_cli(src, out, ckpt, *flags)
+    got = np.loadtxt(text.splitlines())
+    assert got.shape == (256 * 4, 3) and np.isfinite(got).all()
+    if "--seeded_merge" in flags:
+        pts = np.loadtxt(src / "cloud.xyz")
+        d = ((pts[:, None, :] - got[None, :, :]) ** 2).sum(-1).min(1)
+        # originals pass the normalisation round trip and '%.6f'; at most
+        # the 24 outliers removed after the merge can be originals
+        assert (d < 1e-10).sum() >= 256 - 24
+
+
+def test_cli_seeded_merge_is_ignored_with_exact(cli_inputs):
+    """`--seeded_merge --exact` runs the union merge, as `puflow_tpu`'s CLI
+    does: the same file as `--exact` alone."""
+    tmp, ckpt, src = cli_inputs
+    a = _run_cli(src, tmp / "out_exact", ckpt, "--exact")
+    b = _run_cli(src, tmp / "out_exact_seeded", ckpt, "--exact",
+                 "--seeded_merge")
+    assert a == b
+
+
+def test_continuous_names_the_cnf_family(cnf_checkpoint):
+    """`model="continuous"` loads the CNF family, as in `puflow_tpu`."""
+    for fold in (False, True):
+        model = t_checkpoint.load_checkpoint(cnf_checkpoint, "cpu", fold=fold,
+                                             model="continuous")
+        assert isinstance(model, t_continuous.ContinuousModel)
+    params, state = j_continuous.init(jax.random.PRNGKey(0))
+    params, state = (jax.tree.map(np.asarray, params),
+                     jax.tree.map(np.asarray, state))
+    model = t_checkpoint.from_numpy_tree(params, state, "cpu",
+                                         model="continuous")
+    assert isinstance(model, t_continuous.ContinuousModel)
+    with pytest.raises(ValueError, match="unknown model family"):
+        t_checkpoint.load_checkpoint(cnf_checkpoint, "cpu", model="spline")
 
 
 def test_pt_checkpoint_raises(cli_inputs):
