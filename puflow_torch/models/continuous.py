@@ -1,6 +1,6 @@
 """PointInterpFlow (continuous): conditional CNF blocks + latent interpolation.
 
-Counterpart of `puflow_tpu.models.continuous`, inference only:
+Counterpart of `puflow_tpu.models.continuous`:
 
   * the same EdgeConv encoder, interpolation head and merge units as the
     discrete model (`models.discrete.feat_extract`, `models.encoder`);
@@ -17,8 +17,13 @@ per block-solve on the card (`csrc/cnf_solve.cu`, 12 launches a call), and
 with BN-folded params (`models.fold_bn`) the encoder and the interpolation
 head are kernels too (`ops.encoder`, `ops.interp` mode ``latents``).
 `forward(train=False)` adds the NLL through the exact-trace field and the
-plain solver (`models.ode`). Training (the continuous adjoint and its
-kernels) is not ported yet: ``train=True`` raises.
+plain solver (`models.ode`). ``train=True`` (and every
+``differentiable=True`` solve) takes gradients by the continuous adjoint
+(`models.ode.make_adjoint_odeint`): for the shipped field the forward
+solves of f run `ops.cnf.cnf_solve_logp` (the exact-trace log-density
+solve), those of g `ops.cnf.cnf_solve_t`, and every backward solve
+`ops.cnf.cnf_adjoint_bwd`: kernels on the card, 24 launches a loss's
+gradient, their plain versions on the CPU.
 
 Parameters are the JAX package's (params, state) trees, keys unchanged
 (``flow_blocks[i].sqrt_end_time``, ``.layers[j].layer / hyper_gate /
@@ -27,6 +32,7 @@ hyper_bias``), held as `ContinuousModel`'s parameters and buffers.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -41,7 +47,7 @@ from puflow_torch.models.encoder import (feat_merge_init,
                                          feature_extract_init,
                                          interpolation_apply,
                                          interpolation_init)
-from puflow_torch.models.ode import odeint_dopri5
+from puflow_torch.models.ode import make_adjoint_odeint, odeint_dopri5
 from puflow_torch.ops.knn import knn_indices
 from puflow_torch.utils.device import resolve_device
 
@@ -52,10 +58,6 @@ ATOL = RTOL = 1e-5
 # Step budget of the early-exit solves: a safety net well above the steps
 # a block takes at tolerance 1e-5.
 MAX_STEPS_EVAL = 128
-
-_NOT_PORTED = ("the differentiable CNF solves (continuous adjoint, "
-               "`cnf_solve_logp` and `cnf_adjoint_bwd` kernels) are not "
-               "ported yet (ROADMAP.md: CNF training)")
 
 
 # --------------------------------------------------------------------------
@@ -310,6 +312,111 @@ def field_with_hutchinson_div(layers, c: torch.Tensor, e: torch.Tensor,
     return fn
 
 
+def exact_div_field(layer_type: str = "concatsquash",
+                    nonlinearity: str = "tanh"):
+    """`field_with_exact_div` with explicit params ``p = {"layers", "c"}``:
+    ``(p, t, (y, logp)) -> (dy, -div)``, the field the adjoint of the f
+    path differentiates."""
+    def fn(p, t, state):
+        return field_with_exact_div(p["layers"], p["c"], layer_type,
+                                    nonlinearity)(t, state)
+
+    return fn
+
+
+def plain_field(layer_type: str = "concatsquash",
+                nonlinearity: str = "tanh"):
+    """The plain field with explicit params: ``(p, t, y) -> dy``."""
+    def fn(p, t, y):
+        return odenet_apply(p["layers"], t, p["c"], y, layer_type,
+                            nonlinearity)
+
+    return fn
+
+
+# --------------------------------------------------------------------------
+# Continuous adjoints of the two differentiable solves. With ``solves``
+# given the net is the shipped one (`ops.cnf.kernel_takes`): "wrappers"
+# runs its solves through `ops.cnf`'s kernel wrappers (kernels on the card,
+# plain versions on the CPU), "plain" through those plain versions on any
+# device (the reference the kernels are held to). Without, both solves are
+# `models.ode`'s, for every layer type and nonlinearity.
+# --------------------------------------------------------------------------
+def _solve_ops(solves: str):
+    """(log-density solve, plain solve, adjoint backward) of ``solves``."""
+    from puflow_torch.ops import cnf as cnf_ops
+
+    if solves == "plain":
+        return (cnf_ops.cnf_solve_logp_plain, cnf_ops.cnf_solve_plain,
+                cnf_ops.cnf_adjoint_bwd_plain)
+    return cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t, cnf_ops.cnf_adjoint_bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_for(layer_type: str, nonlinearity: str,
+                 solves: str | None = None):
+    """The adjoint of the exact-trace field (the f path): ``solve(p, (y,
+    logp0), t0, t1) -> (y1, logp1)`` with ``p = {"layers", "c"}``."""
+    fwd_solver = bwd_solver = None
+    if solves is not None:
+        solve_logp, _, adjoint_bwd = _solve_ops(solves)
+
+        def fwd_solver(p, y0, t0, t1):
+            y, logp0 = y0
+            return solve_logp(p["layers"], p["c"], y, logp0, t0, t1, RTOL,
+                              ATOL, MAX_STEPS_EVAL)
+
+        def bwd_solver(p, y1, y1_bar, t0, t1):
+            y, logp1 = y1
+            a_y, a_p = y1_bar
+            y0, a0, dc, dlayers, bnd = adjoint_bwd(
+                p["layers"], p["c"], y, a_y, a_p, t0, t1, RTOL, ATOL,
+                MAX_STEPS_EVAL, with_trace=True, logp1=logp1)
+            # the field at both ends is (f, -div), so dL/dt1 = <a1, f1> -
+            # <ap, div1> and dL/dt0 = -(<a0, f0> - <ap, div0>)
+            f1, div1, f0, div0 = bnd
+            t1_bar = torch.sum(a_y * f1) - torch.sum(a_p * div1)
+            t0_bar = -(torch.sum(a0 * f0) - torch.sum(a_p * div0))
+            # the logp channel never feeds the field: its start value is
+            # not needed
+            return ((y0, torch.zeros_like(logp1)), (a0, a_p),
+                    {"layers": dlayers, "c": dc}, t0_bar, t1_bar)
+
+    return make_adjoint_odeint(exact_div_field(layer_type, nonlinearity),
+                               RTOL, ATOL, MAX_STEPS_EVAL,
+                               fwd_solver=fwd_solver, bwd_solver=bwd_solver)
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_plain_for(layer_type: str, nonlinearity: str,
+                       solves: str | None = None):
+    """The adjoint of the plain field (the g path, whose log-density is
+    discarded): ``solve(p, y0, t0, t1) -> y1``. With ``solves`` the
+    conditions ``p["c"]`` may be un-repeated, ``[B, N / r, cdim]``."""
+    fwd_solver = bwd_solver = None
+    if solves is not None:
+        _, solve, adjoint_bwd = _solve_ops(solves)
+
+        def fwd_solver(p, y0, t0, t1):
+            return solve(p["layers"], p["c"], y0, t0, t1, RTOL, ATOL,
+                         MAX_STEPS_EVAL)
+
+        def bwd_solver(p, y1, y1_bar, t0, t1):
+            ap = torch.zeros(y1.shape[:-1] + (1,), dtype=y1.dtype,
+                             device=y1.device)
+            y0, a0, dc, dlayers, bnd = adjoint_bwd(
+                p["layers"], p["c"], y1, y1_bar, ap, t0, t1, RTOL, ATOL,
+                MAX_STEPS_EVAL, with_trace=False)
+            f1, _, f0, _ = bnd
+            t1_bar = torch.sum(y1_bar * f1)
+            t0_bar = -torch.sum(a0 * f0)
+            return y0, a0, {"layers": dlayers, "c": dc}, t0_bar, t1_bar
+
+    return make_adjoint_odeint(plain_field(layer_type, nonlinearity), RTOL,
+                               ATOL, MAX_STEPS_EVAL, fwd_solver=fwd_solver,
+                               bwd_solver=bwd_solver)
+
+
 # --------------------------------------------------------------------------
 # CNF flow block
 # --------------------------------------------------------------------------
@@ -327,16 +434,18 @@ def flow_block_init(generator, cdim: int, idim: int = 3, T: float = T_INIT,
 def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
                differentiable: bool, max_steps: int | None = None,
                layer_type: str = "concatsquash",
-               nonlinearity: str = "tanh", with_logp: bool = True):
+               nonlinearity: str = "tanh", with_logp: bool = True,
+               plain_solves: bool = False):
     """One block-solve -> (y(t1), accumulated delta-logp ``[B, N, 1]``).
 
     ``c`` is ``[B, N, cdim]``, or ``[B, N / r, cdim]`` when each condition
     row serves r consecutive rows of ``y`` (the inverse pass on upsampled
     latents): the kernel path indexes it in place, the others repeat it.
+    ``differentiable`` solves take gradients by the continuous adjoint;
+    for the shipped field their solves go through `ops.cnf`'s wrappers, or
+    with ``plain_solves`` through the wrappers' plain versions on any
+    device.
     """
-    if differentiable:
-        raise NotImplementedError(f"_integrate(differentiable=True): "
-                                  f"{_NOT_PORTED}")
     # ops.cnf builds its plain version from this module's field
     from puflow_torch.ops import cnf as cnf_ops
 
@@ -345,6 +454,24 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
     t0, t1 = (T, zero) if reverse else (zero, T)
     logp0 = torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype, device=y.device)
     steps = max_steps or MAX_STEPS_EVAL
+    if differentiable:
+        # the shared-beta zoo variant and the other layers take the plain
+        # adjoint on every device, as in the JAX package
+        solves = None
+        if (layer_type == "concatsquash" and nonlinearity == "tanh"
+                and cnf_ops.kernel_takes(block["layers"])):
+            solves = "plain" if plain_solves else "wrappers"
+        if solves is None and c.shape[1] != y.shape[1]:
+            c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
+        p = {"layers": block["layers"], "c": c}
+        if not with_logp:
+            # the log-density is discarded (the inverse pass): the adjoint
+            # of the plain field, first order only
+            yf = _adjoint_plain_for(layer_type, nonlinearity, solves)(
+                p, y, t0, t1)
+            return yf, logp0
+        return _adjoint_for(layer_type, nonlinearity, solves)(
+            p, (y, logp0), t0, t1)
     if (not with_logp and layer_type == "concatsquash"
             and nonlinearity == "tanh"
             and cnf_ops.kernel_takes(block["layers"])):
@@ -368,23 +495,27 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
 def flow_block_forward(block, x: torch.Tensor, c: torch.Tensor,
                        differentiable: bool = True,
                        layer_type: str = "concatsquash",
-                       nonlinearity: str = "tanh"):
+                       nonlinearity: str = "tanh",
+                       plain_solves: bool = False):
     """x -> z with the accumulated delta-logp summed per cloud."""
     z, logp = _integrate(block, x, c, reverse=False,
                          differentiable=differentiable,
-                         layer_type=layer_type, nonlinearity=nonlinearity)
+                         layer_type=layer_type, nonlinearity=nonlinearity,
+                         plain_solves=plain_solves)
     return z, torch.sum(logp, dim=(1, 2))
 
 
 def flow_block_inverse(block, z: torch.Tensor, c: torch.Tensor,
                        differentiable: bool = False,
                        layer_type: str = "concatsquash",
-                       nonlinearity: str = "tanh") -> torch.Tensor:
+                       nonlinearity: str = "tanh",
+                       plain_solves: bool = False) -> torch.Tensor:
     """z -> x; the inverse pass never consumes the log-density channel, so
     it integrates the plain field."""
     x, _ = _integrate(block, z, c, reverse=True,
                       differentiable=differentiable, layer_type=layer_type,
-                      nonlinearity=nonlinearity, with_logp=False)
+                      nonlinearity=nonlinearity, with_logp=False,
+                      plain_solves=plain_solves)
     return x
 
 
@@ -479,8 +610,8 @@ def sequential_flow_apply(chain, chain_state, x: torch.Tensor, c=None,
     """Run a `build_model` chain: forward applies the layers in order,
     reverse applies them backwards with each layer inverted; logpx
     accumulates additively through CNFs and moving-BNs alike. Returns
-    ``(x, logpx', new_state)``. ``train=True`` through a CNF block needs
-    the differentiable solves, which are not ported yet."""
+    ``(x, logpx', new_state)``; ``train=True`` solves each CNF block with
+    the continuous adjoint."""
     inds = range(len(chain) - 1, -1, -1) if reverse else range(len(chain))
     new_state = list(chain_state)
     lp = (torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
@@ -538,7 +669,7 @@ def init(generator: torch.Generator, device="cuda"):
 
 
 def f_transform(params, x: torch.Tensor, cs, differentiable: bool = True,
-                need_logp: bool = True):
+                need_logp: bool = True, plain_solves: bool = False):
     """Points -> (latents, total delta-logp per cloud; zero when
     ``need_logp`` is off, where the plain field is integrated)."""
     log_det = torch.zeros((x.shape[0],), dtype=torch.float32,
@@ -548,13 +679,15 @@ def f_transform(params, x: torch.Tensor, cs, differentiable: bool = True,
             x, _ = _integrate(bp, x, c, reverse=False, differentiable=False,
                               with_logp=False)
             continue
-        x, ld = flow_block_forward(bp, x, c, differentiable)
+        x, ld = flow_block_forward(bp, x, c, differentiable,
+                                   plain_solves=plain_solves)
         log_det = log_det + ld
     return x, log_det
 
 
 def g_transform(params, z: torch.Tensor, cs, upratio: int,
-                differentiable: bool = False) -> torch.Tensor:
+                differentiable: bool = False,
+                plain_solves: bool = False) -> torch.Tensor:
     """Latents ``[B, N, C, r]`` -> points ``[B, N * r, C]``, point-major,
     with the un-repeated conditions: each condition row serves its point's
     r consecutive rows."""
@@ -564,7 +697,7 @@ def g_transform(params, z: torch.Tensor, cs, upratio: int,
     z = z.transpose(2, 3).reshape(B, N * r, C)
     for i in reversed(range(len(params["flow_blocks"]))):
         z = flow_block_inverse(params["flow_blocks"][i], z, cs[i],
-                               differentiable)
+                               differentiable, plain_solves=plain_solves)
     return z
 
 
@@ -573,23 +706,29 @@ def _bn_state(state, key: str):
 
 
 def forward(params, state, xyz: torch.Tensor, upratio: int,
-            train: bool = False):
+            train: bool = False, plain_solves: bool = False):
     """``[B, N, 3] -> ([B, N * r, 3], scalar NLL, new state)``; the NLL is
-    ``-mean(logp_z - log_det)`` through the exact-trace field and the
-    plain solver. Inference only."""
-    if train:
-        raise NotImplementedError(f"continuous.forward(train=True): "
-                                  f"{_NOT_PORTED}")
+    ``-mean(logp_z - log_det)`` through the exact-trace field.
+
+    ``train=False``: the plain solver, no gradients. ``train=True``: BN on
+    batch statistics (the new state carries the moved running statistics)
+    and differentiable solves by the continuous adjoint, six f solves with
+    the log-density and six g solves without. ``plain_solves`` runs those
+    solves on the plain versions of `ops.cnf`'s kernels on any device: the
+    reference the kernels are held to.
+    """
     knn_idx = knn_indices(xyz, xyz, _discrete.NUM_NEIGHBORS)
-    cs, feat_s = _discrete.feat_extract(params, state, xyz, knn_idx)
-    z, log_det = f_transform(params, xyz, cs, differentiable=False)
+    cs, feat_s = _discrete.feat_extract(params, state, xyz, knn_idx, train)
+    z, log_det = f_transform(params, xyz, cs, differentiable=train,
+                             plain_solves=plain_solves)
     logp_z = standard_gaussian_logp(z)
     logp_x = -torch.mean(logp_z - log_det)
     # K=16 sorted -> its first 8 columns ARE the K=8 graph
     fz, interp_s = interpolation_apply(
         params["interp"], _bn_state(state, "interp"), z.contiguous(), xyz,
-        upratio, knn_idx=knn_idx)
-    x = g_transform(params, fz, cs, upratio)
+        upratio, train, knn_idx=knn_idx)
+    x = g_transform(params, fz, cs, upratio, differentiable=train,
+                    plain_solves=plain_solves)
     new_state = None if state is None else {"interp": interp_s,
                                             "feat_convs": feat_s}
     return x, logp_x, new_state

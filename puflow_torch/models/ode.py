@@ -1,29 +1,32 @@
 """Adaptive Dormand-Prince (dopri5) ODE integration as plain tensor code.
 
-Counterpart of `puflow_tpu.models.ode.odeint_dopri5`, the early-exit
-loop (``differentiable=False``):
+Counterpart of `puflow_tpu.models.ode`:
 
   * classic DP(4)5 tableau with FSAL, error = RK5 - RK4 embedded estimate,
     elementwise tolerance ``atol + rtol * max(|y|, |y_new|)``, RMS error
-    norm over the whole state (every leaf of a tuple state together);
+    norm over the whole state (every leaf of a pytree state together);
   * step-size controller ``h *= clip(0.9 * err^(-1/5), 0.1, 10)``, first
     step ``span / 16``;
   * at most ``max_steps`` attempts, accepted or rejected; an unconverged
-    solve keeps its last state.
+    solve keeps its last state;
+  * two drivers sharing the step function: ``differentiable=True``, a loop
+    of exactly ``max_steps`` masked steps that autograd differentiates
+    (no host read), and ``differentiable=False``, the early-exit loop;
+  * `make_adjoint_odeint`: gradients by the continuous adjoint, the
+    augmented system solved backward with the early-exit driver.
 
 Integration runs backward when ``t1 < t0``. The controller's scalars are
 0-dim float32 tensors on the state's device, so the arithmetic is the JAX
-solver's; the loop reads one flag pair from the device per step, which is
-what makes this the plain version: `ops.cnf` runs the same solve for the
-shipped field as one kernel with no host read. The masked fixed-trip
-loop and the continuous adjoint (`make_adjoint_odeint`) are not ported
-yet.
+solver's; the early-exit loop reads one flag pair from the device per
+step, which is what makes it the plain version: `ops.cnf` runs the same
+solves for the shipped field as kernels with no host read.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 # Dormand-Prince coefficients.
 _C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
@@ -83,37 +86,64 @@ def _dp_step(func, t, y, h, k1):
     return y5, err, ks[6]
 
 
+def _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol, max_steps):
+    """The masked fixed-trip driver: ``max_steps`` steps, each computed and
+    then kept only while the solve is not done, so that the graph is the
+    same whatever the data and autograd differentiates it."""
+    t, n = t0, torch.zeros((), dtype=torch.int32, device=t0.device)
+    done = span <= 1e-12
+    for _ in range(max_steps):
+        remaining = t1 - t
+        h_c = torch.where(h.abs() > remaining.abs(), remaining, h)
+        y5, err, k7 = _dp_step(field, t, y, h_c, k1)
+        ratio = _error_ratio(err, y, y5, rtol, atol)
+        accept = ratio <= 1.0
+        # the floor keeps err == 0 (a step of size 0 once done) from
+        # giving 0^(-1/5) = inf and NaN gradients
+        factor = torch.clamp(
+            _SAFETY * torch.clamp_min(ratio, 1e-10) ** (-1.0 / _ORDER),
+            _MIN_FACTOR, _MAX_FACTOR)
+        new_h = h_c * factor
+        new_h = torch.where(new_h.abs() < 1e-12, h_c, new_h)
+        t_n = torch.where(accept, t + h_c, t)
+        y_n = [torch.where(accept, b, a) for a, b in zip(y, y5)]
+        k1_n = [torch.where(accept, b, a) for a, b in zip(k1, k7)]
+        done_n = torch.abs(t_n - t0) >= span - 1e-9
+        t = torch.where(done, t, t_n)
+        h = torch.where(done, h, new_h)
+        y = [torch.where(done, a, b) for a, b in zip(y, y_n)]
+        k1 = [torch.where(done, a, b) for a, b in zip(k1, k1_n)]
+        n = torch.where(done, n, n + 1)
+        done = done | done_n
+    return y, n
+
+
 def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
                   max_steps: int = 128, differentiable: bool = True,
                   return_stats: bool = False):
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1.
 
     Args:
-      func: ``(t, y) -> dy`` with y a tensor, or a tuple of tensors when
-        ``y0`` is one.
-      y0: initial state, a tensor or a tuple of tensors.
+      func: ``(t, y) -> dy`` with y in the structure of ``y0``.
+      y0: initial state, a tensor or a pytree (tuples, lists, dicts) of
+        tensors.
       t0, t1: floats or 0-dim tensors; ``t1 < t0`` integrates backward.
-      differentiable: only ``False`` (the early-exit loop) is ported; the
-        default, as in the JAX package, is the masked fixed-trip loop.
-      return_stats: also return ``{"steps": attempts, "accepted": accepted
-        steps, "nfe": 1 + 6 * attempts}`` as Python ints.
+      differentiable: the masked fixed-trip loop, which autograd
+        differentiates (gradients reach ``y0``, ``t0``, ``t1`` and whatever
+        ``func`` closes over), or the early-exit loop.
+      return_stats: also return ``{"steps": attempts, "nfe": 1 + 6 *
+        attempts}`` as Python ints, and ``"accepted"`` from the early-exit
+        loop.
 
     Returns:
       ``y(t1)`` in the structure of ``y0`` (the last state reached if
       ``max_steps`` attempts did not get there).
     """
-    if differentiable:
-        raise NotImplementedError(
-            "odeint_dopri5(differentiable=True): the masked fixed-trip "
-            "loop and the continuous adjoint are not ported yet "
-            "(ROADMAP.md: CNF training)")
-    single = isinstance(y0, torch.Tensor)
-    y = [y0] if single else list(y0)
+    y, spec = tree_flatten(y0)
     dev = y[0].device
 
     def field(t, leaves):
-        out = func(t, leaves[0] if single else tuple(leaves))
-        return [out] if single else list(out)
+        return tree_flatten(func(t, tree_unflatten(leaves, spec)))[0]
 
     t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
     t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
@@ -121,6 +151,14 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
     span = torch.abs(t1 - t0)
     t, h = t0, direction * span / 16.0  # simple, robust initial step
     k1 = field(t0, y)
+    if differentiable:
+        y, n = _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol,
+                            max_steps)
+        out = tree_unflatten(y, spec)
+        if return_stats:
+            n = int(n)
+            return out, {"steps": n, "nfe": 1 + 6 * n}
+        return out
     done = bool(span <= 1e-12)
     n = accepted = 0
     while not done and n < max_steps:
@@ -142,7 +180,151 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
             t, y, k1 = t_n, y5, k7
             accepted += 1
         n += 1
-    out = y[0] if single else tuple(y)
+    out = tree_unflatten(y, spec)
     if return_stats:
         return out, {"steps": n, "accepted": accepted, "nfe": 1 + 6 * n}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Continuous adjoint: gradients by integrating the augmented system backward
+# with the early-exit driver, so no solver step enters the autograd graph.
+# ---------------------------------------------------------------------------
+def _vdot(a, b) -> torch.Tensor:
+    return sum(torch.sum(x * y) for x, y in zip(tree_flatten(a)[0],
+                                                 tree_flatten(b)[0]))
+
+
+def adjoint_backward(func, params, y1, y1_bar, t1, t0, rtol: float = 1e-5,
+                     atol: float = 1e-5, max_steps: int = 128,
+                     return_stats: bool = False):
+    """Solve ``d/dt [y, a, g] = [f, -a^T df/dy, -a^T df/dparams]`` from t1
+    back to t0 with the early-exit driver, one `torch.func.vjp` of
+    ``func(params, t, y)`` per field evaluation.
+
+    Returns ``(y0, a0, g)``: the reconstructed start state, the cotangent
+    of ``y0`` and that of ``params`` (both in their structures), and with
+    ``return_stats`` the driver's stats.
+    """
+    params = tree_map(torch.Tensor.detach, params)
+
+    def aug_field(t, state):
+        y, a, _ = state
+        dy, vjp_fn = torch.func.vjp(lambda pp, yy: func(pp, t, yy), params,
+                                    y)
+        p_bar, y_bar = vjp_fn(a)
+        return dy, tree_map(torch.neg, y_bar), tree_map(torch.neg, p_bar)
+
+    g0 = tree_map(torch.zeros_like, params)
+    out = odeint_dopri5(aug_field, (y1, y1_bar, g0), t1, t0, rtol, atol,
+                        max_steps, differentiable=False,
+                        return_stats=return_stats)
+    if return_stats:
+        (y0, a0, g), stats = out
+        return (y0, a0, g), stats
+    return out
+
+
+class _AdjointSolve(torch.autograd.Function):
+    """The solve of `make_adjoint_odeint` on flat leaves: ``(solver, t0, t1,
+    *params, *y0) -> y(t1)`` leaves."""
+
+    @staticmethod
+    def forward(ctx, solver, t0, t1, *leaves):
+        params, y0 = solver.split(leaves)
+        y1 = solver.forward_solve(params, y0, t0, t1)
+        y1_leaves = tree_flatten(y1)[0]
+        ctx.solver = solver
+        ctx.save_for_backward(t0, t1, *leaves[:solver.n_params], *y1_leaves)
+        return tuple(y1_leaves)
+
+    @staticmethod
+    def backward(ctx, *y1_bar):
+        solver = ctx.solver
+        t0, t1, *saved = ctx.saved_tensors
+        params = tree_unflatten(saved[:solver.n_params], solver.p_spec)
+        y1 = tree_unflatten(saved[solver.n_params:], solver.y_spec)
+        y1_bar = tree_unflatten(list(y1_bar), solver.y_spec)
+        g, a0, t0_bar, t1_bar = solver.backward_solve(params, y1, y1_bar,
+                                                      t0, t1)
+        return (None, t0_bar.reshape(t0.shape), t1_bar.reshape(t1.shape),
+                *tree_flatten(g)[0], *tree_flatten(a0)[0])
+
+
+class _AdjointSolver:
+    """What one call of a `make_adjoint_odeint` solve needs to know."""
+
+    def __init__(self, func, rtol, atol, max_steps, fwd_solver, bwd_solver,
+                 p_spec, y_spec, n_params):
+        self.func, self.rtol, self.atol = func, rtol, atol
+        self.max_steps = max_steps
+        self.fwd_solver, self.bwd_solver = fwd_solver, bwd_solver
+        self.p_spec, self.y_spec, self.n_params = p_spec, y_spec, n_params
+
+    def split(self, leaves):
+        return (tree_unflatten(list(leaves[:self.n_params]), self.p_spec),
+                tree_unflatten(list(leaves[self.n_params:]), self.y_spec))
+
+    def forward_solve(self, params, y0, t0, t1):
+        if self.fwd_solver is not None:
+            y1 = self.fwd_solver(params, y0, t0, t1)
+            if y1 is not None:
+                return y1
+        return odeint_dopri5(lambda t, y: self.func(params, t, y), y0, t0,
+                             t1, self.rtol, self.atol, self.max_steps,
+                             differentiable=False)
+
+    def backward_solve(self, params, y1, y1_bar, t0, t1):
+        """-> (params cotangent, y0 cotangent, t0 cotangent, t1 cotangent)."""
+        if self.bwd_solver is not None:
+            fused = self.bwd_solver(params, y1, y1_bar, t0, t1)
+            if fused is not None:
+                if len(fused) == 5:
+                    # the solver gave the boundary cotangents too
+                    _, a0, g, t0_bar, t1_bar = fused
+                    return g, a0, t0_bar, t1_bar
+                y0, a0, g = fused
+                t1_bar = _vdot(y1_bar, self.func(params, t1, y1))
+                t0_bar = -_vdot(a0, self.func(params, t0, y0))
+                return g, a0, t0_bar, t1_bar
+        with torch.no_grad():
+            t1_bar = _vdot(y1_bar, self.func(params, t1, y1))
+        y0, a0, g = adjoint_backward(self.func, params, y1, y1_bar, t1, t0,
+                                     self.rtol, self.atol, self.max_steps)
+        with torch.no_grad():
+            t0_bar = -_vdot(a0, self.func(params, t0, y0))
+        return g, a0, t0_bar, t1_bar
+
+
+def make_adjoint_odeint(func, rtol: float = 1e-5, atol: float = 1e-5,
+                        max_steps: int = 128, fwd_solver=None,
+                        bwd_solver=None):
+    """Build ``solve(params, y0, t0, t1) -> y(t1)`` with adjoint gradients.
+
+    ``func(params, t, y) -> dy`` where ``params`` and ``y`` are pytrees of
+    tensors. Gradients reach ``params``, ``y0``, ``t0`` and ``t1`` (a
+    CNF's trainable end time ``T = sqrt_end_time^2`` differentiates
+    through them): the backward pass solves the augmented system with
+    `adjoint_backward` from t1 to t0, with the boundary terms
+    ``dL/dt1 = a(t1) . f(t1, y1)`` and ``dL/dt0 = -a(t0) . f(t0, y0)``.
+
+    ``fwd_solver(params, y0, t0, t1) -> y1`` may replace the forward
+    integration (for example the whole-solve kernel of `ops.cnf`); the
+    backward re-solves from its y1, so it needs no gradient of its own.
+    ``bwd_solver(params, y1, y1_bar, t0, t1)`` may replace the backward
+    integration and return ``(y0, a0, g)`` or ``(y0, a0, g, t0_bar,
+    t1_bar)``. Either may return ``None``: that call then takes the
+    plain solve.
+    """
+    def solve(params, y0, t0, t1):
+        p_leaves, p_spec = tree_flatten(params)
+        y_leaves, y_spec = tree_flatten(y0)
+        dev = y_leaves[0].device
+        t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+        t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+        solver = _AdjointSolver(func, rtol, atol, max_steps, fwd_solver,
+                                bwd_solver, p_spec, y_spec, len(p_leaves))
+        out = _AdjointSolve.apply(solver, t0, t1, *p_leaves, *y_leaves)
+        return tree_unflatten(list(out), y_spec)
+
+    return solve

@@ -1,8 +1,19 @@
-"""Whole-solve dopri5 of one CNF block: the CUDA kernel and its plain version.
+"""Whole-solve dopri5 of one CNF block: the CUDA kernels and their plain versions.
 
-Counterpart of the TPU kernels `ops/pallas/cnf_pallas.py:cnf_solve_pallas`
-and `cnf_solve_pallas_t` (here one kernel, `csrc/cnf_solve.cu`): the
-adaptive Dormand-Prince integration of the plain (divergence-free)
+Three kernels, each with its plain version beside it:
+
+  * `cnf_solve` / `cnf_solve_t` (`csrc/cnf_solve.cu`), counterpart of the
+    TPU kernels `ops/pallas/cnf_pallas.py:cnf_solve_pallas` and
+    `cnf_solve_pallas_t`;
+  * `cnf_solve_logp` (`csrc/cnf_logp.cu`), counterpart of
+    `cnf_pallas.py:cnf_solve_logp_pallas`: the same solve of the field
+    with its exact-trace log-density channel, the forward solve of the f
+    path's adjoint in training;
+  * `cnf_adjoint_bwd` (`csrc/cnf_adjoint.cu`), counterpart of
+    `ops/pallas/cnf_adjoint_pallas.py:cnf_adjoint_bwd_pallas`: the backward
+    solve of the continuous adjoint, with or without the trace.
+
+`cnf_solve` is the adaptive Dormand-Prince integration of the plain (divergence-free)
 ConcatSquashLinear + tanh field 3 -> 64 -> 64 -> 3 for every row of
 ``y [B, N, 3]`` from t0 to t1 in either direction, with one step size
 shared by every row of the call (RMS error norm over all rows), FSAL, at
@@ -24,8 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from puflow_torch.models.continuous import field_plain_csl
-from puflow_torch.models.ode import odeint_dopri5
+from puflow_torch.models.continuous import (exact_div_field, field_plain_csl,
+                                            field_with_exact_div, plain_field)
+from puflow_torch.models.ode import adjoint_backward, odeint_dopri5
 from puflow_torch.ops import _build
 
 IDIM, HDIM = 3, 64                 # the field the kernel is built for
@@ -204,3 +216,285 @@ def cnf_solve(layers, c: torch.Tensor, y: torch.Tensor, T,
 # then receives each launch's stats tensor (on the device, not read here).
 cnf_solve.launches = 0
 cnf_solve.stats_log = None
+
+
+# --------------------------------------------------------------------------
+# The log-density solve
+# --------------------------------------------------------------------------
+def _repeat(c: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The conditions with each row repeated for the r rows of y it
+    serves."""
+    r = y.shape[1] // c.shape[1]
+    return c if r == 1 else torch.repeat_interleave(c, r, dim=1)
+
+
+def cnf_solve_logp_plain(layers, c: torch.Tensor, y: torch.Tensor,
+                         logp0: torch.Tensor, t0, t1, rtol: float = 1e-5,
+                         atol: float = 1e-5, max_steps: int = 128,
+                         return_stats: bool = False):
+    """The log-density solve as tensor ops on any device: `odeint_dopri5`
+    on `field_with_exact_div`, state ``(y, logp)``, one error norm over
+    both. With ``return_stats`` also ``{"steps", "accepted", "nfe"}``."""
+    return odeint_dopri5(field_with_exact_div(layers, _repeat(c, y)),
+                         (y, logp0), t0, t1, rtol, atol, max_steps,
+                         differentiable=False, return_stats=return_stats)
+
+
+def _t01(t0, t1, dev) -> torch.Tensor:
+    return torch.stack([
+        torch.as_tensor(t0, dtype=torch.float32, device=dev).reshape(()),
+        torch.as_tensor(t1, dtype=torch.float32, device=dev).reshape(())])
+
+
+def _on_card(name: str, layers, dev, *tensors) -> None:
+    if any(t.dtype != torch.float32 or t.device != dev for t in tensors):
+        raise ValueError(f"{name}: the kernel takes float32 tensors on one "
+                         "device")
+    if layers[0]["layer"]["w"].device != dev:
+        raise ValueError(f"{name}: the layers are not on {dev}")
+
+
+def _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol, atol, max_steps):
+    """Launch `csrc/cnf_logp.cu` -> (y(t1), logp(t1), stats int32 [2] on
+    the device)."""
+    dev = y.device
+    _on_card("cnf_solve_logp", layers, dev, c, y, logp0)
+    y = y.contiguous()
+    logp0 = logp0.contiguous()
+    n_rows = y.shape[0] * y.shape[1]
+    out_y, out_lp = torch.empty_like(y), torch.empty_like(logp0)
+    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    if n_rows == 0:
+        return out_y, out_lp, stats
+    weights, proj_w, proj_b = _packed(layers)
+    proj = torch.addmm(proj_b, c.reshape(-1, c.shape[-1]), proj_w)
+    state = torch.empty((16 * n_rows,), dtype=torch.float32, device=dev)
+    partials = torch.empty((2 * _MAX_GRID,), dtype=torch.float64, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.puflow_cnf_solve_logp(
+            y.data_ptr(), logp0.data_ptr(), proj.data_ptr(),
+            weights.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r,
+            float(rtol), float(atol), int(max_steps), state.data_ptr(),
+            partials.data_ptr(), _MAX_GRID, out_y.data_ptr(),
+            out_lp.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))
+    _build.check(code, "puflow_cnf_solve_logp")
+    cnf_solve_logp.launches += 1
+    if cnf_solve_logp.stats_log is not None:
+        cnf_solve_logp.stats_log.append(stats)
+    return out_y, out_lp, stats
+
+
+def cnf_solve_logp(layers, c: torch.Tensor, y: torch.Tensor,
+                   logp0: torch.Tensor, t0, t1, rtol: float = 1e-5,
+                   atol: float = 1e-5, max_steps: int = 128,
+                   return_stats: bool = False):
+    """Integrate the block's field with its exact-trace log-density
+    channel, ``d(y, logp)/dt = (f, -div f)``, from t0 to t1: the CUDA
+    kernel for CUDA tensors, `cnf_solve_logp_plain` for CPU tensors.
+
+    Args:
+      layers: the block's three ConcatSquashLinear param dicts.
+      c: conditions ``[B, N / r, cdim]``, r >= 1.
+      y, logp0: state ``[B, N, 3]`` and ``[B, N, 1]``.
+      return_stats: also return the step counts, as `cnf_solve_t` does.
+
+    Returns:
+      ``(y(t1), logp(t1))``.
+    """
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cnf_solve_logp: no kernel for {y.device}")
+    r = _check("cnf_solve_logp", layers, c, y)
+    if logp0.shape != y.shape[:-1] + (1,):
+        raise ValueError(f"cnf_solve_logp: logp0 {tuple(logp0.shape)} is not "
+                         f"[B, N, 1] of y {tuple(y.shape)}")
+    if y.device.type == "cpu":
+        return cnf_solve_logp_plain(layers, c, y, logp0, t0, t1, rtol, atol,
+                                    max_steps, return_stats)
+    out_y, out_lp, stats = _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol,
+                                        atol, max_steps)
+    return ((out_y, out_lp), stats) if return_stats else (out_y, out_lp)
+
+
+cnf_solve_logp.launches = 0
+cnf_solve_logp.stats_log = None
+
+
+# --------------------------------------------------------------------------
+# The backward solve of the continuous adjoint
+# --------------------------------------------------------------------------
+def _like(layers, grads):
+    """Per-layer gradient dicts in the key order of ``layers``, so that the
+    gradient tree flattens as the parameter tree does."""
+    return [{k: {kk: g[k][kk] for kk in p[k]} for k in p}
+            for p, g in zip(layers, grads)]
+
+
+def _sum_repeats(dc: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The cotangent of repeated conditions summed back onto ``c``'s rows
+    (the backward of `_repeat`)."""
+    B, n, cdim = c.shape
+    return dc.reshape(B, n, -1, cdim).sum(dim=2)
+
+
+def cnf_adjoint_bwd_plain(layers, c: torch.Tensor, y1: torch.Tensor,
+                          a1: torch.Tensor, ap: torch.Tensor, t0, t1,
+                          rtol: float = 1e-5, atol: float = 1e-5,
+                          max_steps: int = 128, with_trace: bool = True,
+                          logp1: torch.Tensor | None = None,
+                          return_stats: bool = False):
+    """The backward solve as tensor ops on any device: `adjoint_backward`
+    of the exact-trace field (state ``((y, logp), (a, ap), {"layers",
+    "c"})``) or, without the trace, of the plain field (state ``(y, a,
+    {"layers", "c"})``), from t1 to t0, the conditions repeated where they
+    serve r rows, as `make_adjoint_odeint`'s backward solves them. ``logp1``
+    (zeros if None) enters only the error norm.
+
+    Returns ``(y0, a0, dc, dlayers, (f1, div1, f0, div0))``: the start
+    state, its cotangent, the cotangent of ``c`` (summed over repeats),
+    that of each layer's parameters, and the field and its trace at both
+    ends (the trace zero without ``with_trace``); with ``return_stats``
+    also the driver's stats.
+    """
+    p = {"layers": layers, "c": _repeat(c, y1)}
+    zeros = torch.zeros(y1.shape[:-1] + (1,), dtype=y1.dtype,
+                        device=y1.device)
+    if with_trace:
+        func = exact_div_field()
+        state1 = (y1, zeros if logp1 is None else logp1)
+        bar1 = (a1, ap)
+    else:
+        func, state1, bar1 = plain_field(), y1, a1
+    out = adjoint_backward(func, p, state1, bar1, t1, t0, rtol, atol,
+                           max_steps, return_stats=True)
+    (state0, bar0, g), stats = out
+    with torch.no_grad():
+        f1, f0 = func(p, t1, state1), func(p, t0, state0)
+    if with_trace:
+        y0, a0 = state0[0], bar0[0]
+        bnd = (f1[0], -f1[1], f0[0], -f0[1])
+    else:
+        y0, a0 = state0, bar0
+        bnd = (f1, zeros, f0, zeros)
+    res = (y0, a0, _sum_repeats(g["c"], c), _like(layers, g["layers"]), bnd)
+    return res + (stats,) if return_stats else res
+
+
+# the packed gradient `csrc/cnf_adjoint.cu` writes: per layer W [in, out],
+# then db, dgate_t, dbias_t, dgate_b [out] each (5,004 floats), then the
+# gradient of the projection matrix `_pack` makes, [cdim, 264] (its last
+# two columns padding)
+_G_OWN = 5004
+_LD_PROJ = 264
+_ROW_FLOATS = 32 + 2 * _LD_PROJ      # per row: y, a, FSAL stages, q
+
+
+def _unpack_grads(layers, g: torch.Tensor, cdim: int):
+    """The kernel's packed gradient -> one dict per layer, the params'
+    shapes."""
+    gc = g[_G_OWN:].view(cdim, _LD_PROJ)
+    grads, off, col = [], 0, 0
+    for p in layers:
+        din, dout = p["layer"]["w"].shape
+        w = g[off:off + din * dout].view(din, dout)
+        off += din * dout
+        db, dgt, dbt, dgb = g[off:off + 4 * dout].view(4, dout)
+        off += 4 * dout
+        gate_c, bias_c = gc[:, col:col + dout], gc[:, col + dout:col + 2 * dout]
+        col += 2 * dout
+        grads.append({
+            "layer": {"w": w, "b": db},
+            "hyper_gate": {"w": torch.cat([dgt[None], gate_c]), "b": dgb},
+            "hyper_bias": {"w": torch.cat([dbt[None], bias_c])}})
+    return _like(layers, grads)
+
+
+def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
+                    max_steps, with_trace):
+    """Launch `csrc/cnf_adjoint.cu` -> (y0, a0, dc, dlayers, bnd, stats
+    int32 [2] on the device)."""
+    dev = y1.device
+    if logp1 is None:
+        logp1 = torch.zeros_like(ap)
+    _on_card("cnf_adjoint_bwd", layers, dev, c, y1, a1, ap, logp1)
+    B, N, _ = y1.shape
+    n_rows, cdim = B * N, c.shape[-1]
+    y1, a1, ap, logp1 = (t.contiguous() for t in (y1, a1, ap, logp1))
+    c2 = c.reshape(-1, cdim).contiguous()
+    weights, proj_w, proj_b = _packed(layers)
+    proj = torch.addmm(proj_b, c2, proj_w)
+    wct = proj_w.t().contiguous()                       # [262, cdim]
+    ng = _G_OWN + cdim * _LD_PROJ
+    grid = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = torch.empty((n_rows * (_ROW_FLOATS + 2 * cdim),), **f32)
+    per_grid = torch.empty((grid * (2 * ng + 2 * _G_OWN) + 2 * ng,), **f32)
+    partials = torch.empty((4 * grid,), dtype=torch.float64, device=dev)
+    y0, a0 = torch.empty_like(y1), torch.empty_like(a1)
+    dc = torch.empty((B, N, cdim), **f32)
+    g = torch.empty((ng,), **f32)
+    bnd = torch.empty((B, N, 8), **f32)
+    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.puflow_cnf_adjoint(
+            y1.data_ptr(), logp1.data_ptr(), a1.data_ptr(), ap.data_ptr(),
+            c2.data_ptr(), proj.data_ptr(), weights.data_ptr(),
+            wct.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r, cdim,
+            int(with_trace), float(rtol), float(atol), int(max_steps),
+            rows.data_ptr(), per_grid.data_ptr(), partials.data_ptr(), grid,
+            y0.data_ptr(), a0.data_ptr(), dc.data_ptr(), g.data_ptr(),
+            bnd.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))
+    _build.check(code, "puflow_cnf_adjoint")
+    cnf_adjoint_bwd.launches += 1
+    if cnf_adjoint_bwd.stats_log is not None:
+        cnf_adjoint_bwd.stats_log.append(stats)
+    bnd = (bnd[..., 0:3], bnd[..., 3:4], bnd[..., 4:7], bnd[..., 7:8])
+    return (y0, a0, _sum_repeats(dc, c), _unpack_grads(layers, g, cdim), bnd,
+            stats)
+
+
+def cnf_adjoint_bwd(layers, c: torch.Tensor, y1: torch.Tensor,
+                    a1: torch.Tensor, ap: torch.Tensor, t0, t1,
+                    rtol: float = 1e-5, atol: float = 1e-5,
+                    max_steps: int = 128, with_trace: bool = True,
+                    logp1: torch.Tensor | None = None,
+                    return_stats: bool = False):
+    """The backward solve of one block's continuous adjoint from t1 to t0:
+    the CUDA kernel for CUDA tensors, `cnf_adjoint_bwd_plain` for CPU
+    tensors.
+
+    Args:
+      layers: the block's three ConcatSquashLinear param dicts.
+      c: conditions ``[B, N / r, cdim]``, r >= 1.
+      y1, a1: the end state ``[B, N, 3]`` and its cotangent.
+      ap: the cotangent of the log-density ``[B, N, 1]``, constant along
+        the solve (zeros without the trace).
+      with_trace: the exact-trace field (the f path); without, the plain
+        field (the g path, whose log-density is discarded).
+      logp1: the log-density at t1 (``with_trace`` only; zeros if None),
+        which enters only the error norm.
+      return_stats: also return the step counts, as `cnf_solve_t` does.
+
+    Returns:
+      ``(y0, a0, dc, dlayers, (f1, div1, f0, div0))`` as
+      `cnf_adjoint_bwd_plain`.
+    """
+    if y1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cnf_adjoint_bwd: no kernel for {y1.device}")
+    r = _check("cnf_adjoint_bwd", layers, c, y1)
+    if a1.shape != y1.shape or ap.shape != y1.shape[:-1] + (1,):
+        raise ValueError(f"cnf_adjoint_bwd: cotangents {tuple(a1.shape)}, "
+                         f"{tuple(ap.shape)} do not match y1 "
+                         f"{tuple(y1.shape)}")
+    if y1.device.type == "cpu":
+        return cnf_adjoint_bwd_plain(layers, c, y1, a1, ap, t0, t1, rtol,
+                                     atol, max_steps, with_trace, logp1,
+                                     return_stats)
+    *out, stats = _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r,
+                                  rtol, atol, max_steps, with_trace)
+    return (*out, stats) if return_stats else tuple(out)
+
+
+cnf_adjoint_bwd.launches = 0
+cnf_adjoint_bwd.stats_log = None

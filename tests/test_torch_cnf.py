@@ -275,8 +275,10 @@ def test_flow_block_forward_inverse_match_jax(block32):
     np.testing.assert_allclose(gx.numpy(), np.asarray(rx), atol=5e-6)
     # round trip at the solver's tolerance (tests/test_cnf.py: 5e-4)
     np.testing.assert_allclose(gx.numpy(), y, atol=5e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cont.flow_block_forward(tb, ty, tc)       # differentiable=True
+    # differentiable=True: on CPU tensors the adjoint's forward is the
+    # plain log-density solve, the very solve of differentiable=False
+    dz, dlogp = t_cont.flow_block_forward(tb, ty, tc)
+    assert torch.equal(dz, gz) and torch.equal(dlogp, glogp)
 
 
 def test_count_nfe_and_total_time_match_jax(block32):
@@ -381,16 +383,20 @@ def test_sequential_flow_with_batch_norm_matches_jax(reverse):
     np.testing.assert_allclose(gx.numpy(), np.asarray(rx), atol=1e-5)
     np.testing.assert_allclose(glp.numpy(), np.asarray(rlp), atol=1e-4)
     assert len(gs) == len(chain)
-    # the port builds the same chain, and training through it is not ported
+    # the port builds the same chain, and trains through it: gradients
+    # reach every CNF block's end time
     b_chain, b_state = t_cont.build_model(
         torch.Generator().manual_seed(0), 3, (64, 64), 8, 2, True, t_cfg,
         device="cpu")
     assert [k for k, _ in b_chain] == [k for k, _ in chain]
     assert [s is None for s in b_state] == [s is None for s in chain_state]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cont.sequential_flow_apply(b_chain, b_state, torch.from_numpy(x),
-                                     torch.from_numpy(c), train=True,
-                                     cfg=t_cfg)
+    ends = [p["sqrt_end_time"].requires_grad_()
+            for k, p in b_chain if k == "cnf"]
+    tx, tlp, _ = t_cont.sequential_flow_apply(
+        b_chain, b_state, torch.from_numpy(x), torch.from_numpy(c),
+        reverse=reverse, train=True, cfg=t_cfg)
+    grads = torch.autograd.grad(torch.sum(tx ** 2) + torch.sum(tlp), ends)
+    assert all(bool(torch.isfinite(g)) and float(g) != 0.0 for g in grads)
     # an unconditional chain takes no condition
     u_chain, u_state = t_cont.build_model(
         torch.Generator().manual_seed(0), 3, (64, 64), 8, 1, False,
@@ -487,8 +493,13 @@ def test_forward_eval_matches_jax(case, folded):
     np.testing.assert_allclose(gx.numpy(), np.asarray(rx), atol=1e-4)
     np.testing.assert_allclose(float(gnll), float(rnll), rtol=1e-5)
     assert set(new_state) == {"interp", "feat_convs"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cont.forward(tp, case["ts"], case["xt"], R, train=True)
+    # train=True (BN on batch statistics, differentiable solves) runs on
+    # the CPU; the unfolded trees, since training keeps BN
+    with torch.no_grad():
+        tx, tnll, t_state = t_cont.forward(case["tp"], case["ts"], case["xt"],
+                                           R, train=True)
+    assert tx.shape == (B, N * R, 3) and bool(torch.isfinite(tx).all())
+    assert bool(torch.isfinite(tnll)) and set(t_state) == set(new_state)
 
 
 def test_f_g_transform_match_jax(case):

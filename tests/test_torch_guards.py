@@ -186,19 +186,54 @@ def test_cnf_entry_points_default_to_the_card(tmp_path):
 
 
 def test_cnf_training_is_not_ported():
-    """The differentiable CNF solves are not ported yet: every
-    way into them raises and names ROADMAP.md."""
+    """The three ways into the differentiable CNF solves (the name is from
+    before they were ported) run on the CPU with finite gradients; the
+    same model asked for on the card raises on a host without one."""
     params, state = t_continuous.init(torch.Generator().manual_seed(0),
                                       device="cpu")
-    x = torch.zeros((1, 16, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_continuous.forward(params, state, x, 4, train=True)
-    c = torch.zeros((1, 16, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_continuous.flow_block_inverse(params["flow_blocks"][0], x, c,
-                                        differentiable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_continuous.f_transform(params, x, [c] * 6)
+    for p in params["flow_blocks"]:
+        p["sqrt_end_time"].requires_grad_()
+    ends = [p["sqrt_end_time"] for p in params["flow_blocks"]]
+    x = torch.randn((1, 16, 3), generator=torch.Generator().manual_seed(1))
+    dense, nll, _ = t_continuous.forward(params, state, x, 4, train=True)
+    grads = torch.autograd.grad(nll + torch.mean(dense ** 2), ends)
+    assert all(bool(torch.isfinite(g)) for g in grads)
+    c = torch.randn((1, 16, 32), generator=torch.Generator().manual_seed(2))
+    out = t_continuous.flow_block_inverse(params["flow_blocks"][0], x, c,
+                                          differentiable=True)
+    (grad,) = torch.autograd.grad(torch.sum(out ** 2), ends[0])
+    assert bool(torch.isfinite(grad))
+    gen = torch.Generator().manual_seed(3)
+    cs = [torch.randn((1, 16, w), generator=gen)
+          for w in t_discrete.COND_CHANNELS]
+    z, log_det = t_continuous.f_transform(params, x, cs)
+    grads = torch.autograd.grad(torch.sum(z ** 2) + log_det.sum(), ends)
+    assert all(bool(torch.isfinite(g)) for g in grads)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            t_continuous.init(torch.Generator().manual_seed(0))
+
+
+def test_training_kernel_wrappers_guard():
+    """The wrappers of the two training kernels raise for a device that is
+    neither the CPU nor CUDA, and importing them builds nothing."""
+    meta = torch.empty((1, 8, 3), device="meta")
+    cond = torch.empty((1, 8, 32), device="meta")
+    one = torch.empty((1, 8, 1), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        t_cnf.cnf_solve_logp([], cond, meta, one, 0.0, 0.5)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_cnf.cnf_adjoint_bwd([], cond, meta, meta, one, 0.0, 0.5)
+    code = ("from puflow_torch.ops import _build\n"
+            "def refuse():\n"
+            "    raise SystemExit('a kernel was built at import')\n"
+            "_build.build = _build.library = refuse\n"
+            "import puflow_torch.ops.cnf, puflow_torch.models.continuous\n"
+            "print('imported')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "imported"
 
 
 @pytest.fixture(scope="module")
