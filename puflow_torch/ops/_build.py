@@ -48,6 +48,11 @@ _SIGNATURES = {
     "puflow_emd_auction": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P],
     "puflow_cnf_solve": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _I, _P,
                          _P, _P],
+    "puflow_cnf_solve_logp": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
+                              _I, _P, _P, _P, _P],
+    "puflow_cnf_adjoint": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _P],
 }
 
 

@@ -370,3 +370,123 @@ def test_cnf_sample_launches_twelve_solves(card, fold):
     cpu_model = checkpoint.from_numpy_tree(params, state, "cpu", model="cnf")
     ref = cpu_model(x.cpu(), 4)
     assert float((got.cpu() - ref).abs().max()) < 1e-4
+
+
+def _rk4_logp_float64(layers, c, y, logp, t0, t1, steps):
+    """Classical RK4 of (y, logp) on the exact-trace field in float64."""
+    layers = [{k: {kk: t.double() for kk, t in v.items()}
+               for k, v in p.items()} for p in layers]
+    c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
+    f = continuous.field_with_exact_div(layers, c.double())
+    s, h = (y.double(), logp.double()), (t1 - t0) / steps
+
+    def axpy(a, x, z):
+        return tuple(u + a * v for u, v in zip(x, z))
+
+    for i in range(steps):
+        t = t0 + i * h
+        k1 = f(t, s)
+        k2 = f(t + h / 2, axpy(h / 2, s, k1))
+        k3 = f(t + h / 2, axpy(h / 2, s, k2))
+        k4 = f(t + h, axpy(h, s, k3))
+        s = tuple(u + (h / 6) * (a + 2 * b + 2 * cc + d)
+                  for u, a, b, cc, d in zip(s, k1, k2, k3, k4))
+    return s
+
+
+@pytest.mark.parametrize("b,n,r,cdim", [(2, 100, 1, 32), (32, 256, 1, 128),
+                                        (3, 333, 1, 64), (5, 231, 3, 128)])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("time_scale,tol", [(0.0, 5e-6), (20.0, 5e-5)])
+def test_cnf_solve_logp_kernel_matches_plain(card, b, n, r, cdim, reverse,
+                                             time_scale, tol):
+    """The log-density solve kernel against `cnf_solve_logp_plain`: equal
+    step counts, two runs bit-equal, y and logp within 5e-6 at seeded
+    weights (every step size set by a clip) and 5e-5 with time rows of
+    scale 20, where both are held against a float64 RK4 solve as in
+    `test_cnf_solve_kernel_matches_plain`. 333 and 231 rows a cloud leave
+    a partial last tile."""
+    layers = _cnf_layers(card, cdim, b + n, time_scale)
+    rng = np.random.RandomState(n + cdim)
+    c = torch.from_numpy((rng.randn(b, n // r, cdim) * 0.3)
+                         .astype(np.float32)).to(card)
+    y = torch.from_numpy((rng.randn(b, n, 3) * 0.5).astype(np.float32))
+    logp = torch.from_numpy((rng.randn(b, n, 1) * 0.1).astype(np.float32))
+    y, logp = y.to(card), logp.to(card)
+    T = torch.tensor(0.36, device=card)
+    zero = torch.zeros_like(T)
+    t0, t1 = (T, zero) if reverse else (zero, T)
+    before = cnf.cnf_solve_logp.launches
+    got, stats = cnf.cnf_solve_logp(layers, c, y, logp, t0, t1,
+                                    return_stats=True)
+    again = cnf.cnf_solve_logp(layers, c, y, logp, t0, t1)
+    assert cnf.cnf_solve_logp.launches == before + 2
+    ref, ref_stats = cnf.cnf_solve_logp_plain(layers, c, y, logp, t0, t1,
+                                              return_stats=True)
+    assert stats.tolist() == [ref_stats["steps"], ref_stats["accepted"]]
+    for g, a, f in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert float((g - f).abs().max()) < tol
+    if time_scale:
+        truth = _rk4_logp_float64(layers, c, y, logp, float(t0), float(t1),
+                                  512)
+        err_kernel = max(float((g.double() - w).abs().max())
+                         for g, w in zip(got, truth))
+        err_plain = max(float((f.double() - w).abs().max())
+                        for f, w in zip(ref, truth))
+        assert err_kernel <= 1.25 * err_plain + 1e-6
+
+
+def _maxrel(a, b) -> float:
+    return float((a - b).abs().max() / (b.abs().max() + 1e-8))
+
+
+@pytest.mark.parametrize("with_trace", [False, True])
+@pytest.mark.parametrize("b,n,r,cdim,time_scale", [
+    (1, 60, 1, 32, 0.0), (2, 333, 1, 128, 20.0), (4, 231, 3, 64, 20.0),
+    (8, 256, 4, 128, 0.0)])
+def test_cnf_adjoint_kernel_matches_plain(card, with_trace, b, n, r, cdim,
+                                          time_scale):
+    """The adjoint's backward-solve kernel against `cnf_adjoint_bwd_plain`
+    with and without the trace: equal step counts, two runs bit-equal, y0,
+    a0, dc and every parameter gradient within 2e-3 max-relative (the JAX
+    package's gate for its kernel, tests/test_cnf.py:216-336), the field
+    and its trace at t1 within 5e-5. 333 and 231 rows a cloud leave a
+    partial tile; r > 1 indexes the conditions in place."""
+    layers = _cnf_layers(card, cdim, b + n, time_scale)
+    rng = np.random.RandomState(n + cdim + 1)
+
+    def rand(*shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32)).to(card)
+
+    c = rand(b, n // r, cdim, scale=0.3)
+    y1, a1 = rand(b, n, 3, scale=0.5), rand(b, n, 3, scale=0.3)
+    ap = rand(b, n, 1, scale=0.3) if with_trace else torch.zeros(
+        (b, n, 1), device=card)
+    logp1 = rand(b, n, 1, scale=0.1) if with_trace else None
+    args = (layers, c, y1, a1, ap, 0.0, 0.36)
+    kw = dict(with_trace=with_trace, logp1=logp1)
+    before = cnf.cnf_adjoint_bwd.launches
+    got = cnf.cnf_adjoint_bwd(*args, **kw, return_stats=True)
+    again = cnf.cnf_adjoint_bwd(*args, **kw)
+    assert cnf.cnf_adjoint_bwd.launches == before + 2
+    ref = cnf.cnf_adjoint_bwd_plain(*args, **kw, return_stats=True)
+    stats, ref_stats = got[-1].tolist(), ref[-1]
+    assert stats == [ref_stats["steps"], ref_stats["accepted"]]
+    got_leaves = [*got[:3], *[t for p in got[3] for v in p.values()
+                              for t in v.values()]]
+    ref_leaves = [*ref[:3], *[t for p in ref[3] for v in p.values()
+                              for t in v.values()]]
+    again_leaves = [*again[:3], *[t for p in again[3] for v in p.values()
+                                  for t in v.values()]]
+    for g, a, f in zip(got_leaves, again_leaves, ref_leaves):
+        assert g.shape == f.shape
+        assert torch.equal(g, a)
+        assert _maxrel(g, f) < 2e-3
+    f1, div1 = got[4][:2]
+    assert _maxrel(f1, ref[4][0]) < 5e-5
+    if with_trace:
+        assert _maxrel(div1, ref[4][1]) < 5e-5
+    else:
+        assert float(div1.abs().max()) == 0.0
