@@ -21,7 +21,13 @@ Last it runs the opt-in merges of the folded discrete model: the
 seeded merge (`--seeded_merge`: every original emitted, the rest picked by
 the hand-written seeded-FPS kernel over 16 Morton cells a cloud) and the
 grouped union merge (`--merge_groups 16`: the FPS kernel over 16 Morton
-cells of the union). Phases:
+cells of the union). Last it takes one training loss's gradients through
+the full-width CNF model (`continuous.forward(train=True)` at batch 32,
+256 -> 1024 points, loss 1e-4 NLL + 5e-2 EMD): the six forward solves of f
+run the hand-written log-density solve kernel, the six of g the
+whole-solve kernel, and the twelve backward solves of the continuous
+adjoint the hand-written adjoint kernel, with and without the trace.
+Phases:
 
   1. checks the card, prints its name and power limit, checks that
      `import puflow_torch` turned TF32 off;
@@ -70,7 +76,19 @@ cells of the union). Phases:
  15. times the merge stage and the whole pipeline at 1 and 32 clouds for
      the union merge, the seeded merge (auto G and G = 1) and the grouped
      union merge (G = 16), and runs the upsample CLI with the merge flags;
- 16. prints one JSON line of kernel results and, last, the device line.
+ 16. compares the log-density solve kernel and the adjoint kernel (with and
+     without the trace) with their plain versions at the training path's
+     shapes (R = 8,192 for f, R = 32,768 with the conditions of 8,192
+     points for g; condition widths 32 and 128; seeded and perturbed
+     weights): equal step counts, two runs bit-equal, the JAX package's
+     gates, times and bounds;
+ 17. runs the CNF gradient path (`cnf_grad`) at seeded weights with the
+     launch counts set to 0 before and read after (6 log-density solves,
+     6 plain solves, 12 adjoint solves, 1 EMD a loss; no solve at the step
+     limit; finite gradients), holds the gradients of a smooth loss on the
+     kernels to those on the plain versions, times the loss's forward and
+     backward on both, and traces one run for the card's idle share;
+ 18. prints one JSON line of kernel results and, last, the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
 refuses to run without it.
@@ -89,6 +107,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from puflow_torch import checkpoint
 from puflow_torch.data.synthetic import synthetic_pairs
@@ -158,13 +177,21 @@ KERNELS = {
                   "replaces": PALLAS + "cnf_pallas.py:372"},
     "fps_seeded": {"route": "cuda", "source": "puflow_torch/csrc/fps.cu",
                    "replaces": PALLAS + "fps_pallas.py:165"},
+    "cnf_solve_logp": {"route": "cuda",
+                       "source": "puflow_torch/csrc/cnf_logp.cu",
+                       "replaces": PALLAS + "cnf_pallas.py:281"},
+    "cnf_adjoint_bwd": {"route": "cuda",
+                        "source": "puflow_torch/csrc/cnf_adjoint.cu",
+                        "replaces": PALLAS + "cnf_adjoint_pallas.py:378"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
             "encoder": enc_ops.encoder_conditions,
             "interp_head": interp_ops.interp_head, "flow_f": flow_ops.flow_f,
             "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend,
             "emd": emd_auction, "cnf_solve": cnf_ops.cnf_solve,
-            "fps_seeded": farthest_point_sample_seeded}
+            "fps_seeded": farthest_point_sample_seeded,
+            "cnf_solve_logp": cnf_ops.cnf_solve_logp,
+            "cnf_adjoint_bwd": cnf_ops.cnf_adjoint_bwd}
 # the kernels each configuration's main path must launch
 PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
                     "flow_g_blend"),
@@ -175,7 +202,9 @@ PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
          "seeded_merge": ("fps", "knn_self", "encoder", "interp_head",
                           "flow_f", "flow_g_blend", "fps_seeded"),
          "union_groups": ("fps", "knn_self", "encoder", "interp_head",
-                          "flow_f", "flow_g_blend")}
+                          "flow_f", "flow_g_blend"),
+         "cnf_grad": ("cnf_solve_logp", "cnf_solve", "cnf_adjoint_bwd",
+                      "emd")}
 # the seeded merge once more, behind the CNF folded model
 PATHS["cnf_seeded_merge"] = PATHS["cnf_folded"] + ("fps_seeded",)
 # the merge each path runs (`upsample_cloud` keywords; none: the union)
@@ -186,7 +215,8 @@ MERGES["cnf_seeded_merge"] = MERGES["seeded_merge"]
 COUNT_FROM = {"fps": "folded", "knn_self": "folded", "encoder": "folded",
               "interp_head": "folded", "flow_f": "folded",
               "flow_g_blend": "folded", "flow_g": "exact", "emd": "train",
-              "cnf_solve": "cnf_folded", "fps_seeded": "seeded_merge"}
+              "cnf_solve": "cnf_folded", "fps_seeded": "seeded_merge",
+              "cnf_solve_logp": "cnf_grad", "cnf_adjoint_bwd": "cnf_grad"}
 KERNEL_OPS = dict(WRAPPERS, knn=knn_indices, cnf_solve_t=cnf_ops.cnf_solve_t)
 PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "knn": knn_indices,
@@ -198,6 +228,19 @@ PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "fps_seeded": farthest_point_sample_seeded_plain}
 CNF_SOLVES = 2 * continuous.NUM_BLOCKS      # block-solves a `sample`
 FIELD_MACS = 3 * 64 + 64 * 64 + 64 * 3      # multiply-adds, row x evaluation
+# the three tangent chains of the exact trace: v2 = u1 W2 for each, and
+# the diagonal of v3
+TANGENT_MACS = 3 * 64 * 64 + 3 * 64
+# the vjp of the field: dh W^T of the three layers and the gradients of
+# the three weight matrices; with the trace also the tangents' cv2 W2^T and
+# the weight gradients of the three tangents through W2 and W3
+VJP_MACS = 2 * FIELD_MACS
+VJP_TRACE_MACS = 3 * 64 * 64 + 3 * 64 * 64 + 64
+# the training loss's launches of each kernel (6 blocks: f forward solves,
+# g forward solves, their 12 backward solves, the EMD)
+GRAD_LAUNCHES = {"cnf_solve_logp": continuous.NUM_BLOCKS,
+                 "cnf_solve": continuous.NUM_BLOCKS,
+                 "cnf_adjoint_bwd": 2 * continuous.NUM_BLOCKS, "emd": 1}
 
 
 def log(*args):
@@ -464,12 +507,13 @@ def check_close(results, name, got, ref, tol):
         results[name].get("max_abs_err", 0.0), err)
 
 
-def time_pair(results, name, kernel, plain, reps=10):
+def time_pair(results, name, kernel, plain, reps=10, plain_reps=None):
     """plain, kernel, kernel, plain: compare within one call."""
-    p1 = time_ms(plain, reps)
+    plain_reps = plain_reps or reps
+    p1 = time_ms(plain, plain_reps)
     k1 = time_ms(kernel, reps)
     k2 = time_ms(kernel, reps)
-    p2 = time_ms(plain, reps)
+    p2 = time_ms(plain, plain_reps)
     e = results[name]
     e.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None)
     log(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
@@ -1034,15 +1078,8 @@ def rk4_witness(layers, c, y, t0, t1, steps: int) -> torch.Tensor:
     solver: classical RK4 on `field_plain_csl` in float64 with ``steps``
     equal steps and the time kept on the host. Its own error is read from
     the same solve with half the steps."""
-    def to64(tree):
-        if isinstance(tree, dict):
-            return {k: to64(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [to64(v) for v in tree]
-        return tree.double()
-
     c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
-    f = continuous.field_plain_csl(to64(layers), c.double())
+    f = continuous.field_plain_csl(_to64(layers), c.double())
     y, t0, t1 = y.double(), float(t0), float(t1)
     h = (t1 - t0) / steps
     for i in range(steps):
@@ -1055,30 +1092,32 @@ def rk4_witness(layers, c, y, t0, t1, steps: int) -> torch.Tensor:
     return y
 
 
-def witness_check(args, got, ref):
-    """Hold kernel and plain version against `rk4_witness`. Where a step
+def witness_check(args, got, ref, witness=None, steps=WITNESS_STEPS,
+                  name="cnf_solve"):
+    """Hold kernel and plain version against `rk4_witness` (or
+    ``witness``, with ``steps`` steps). Where a step
     size follows the error estimate the two differ by more than rounding;
     that is the solver's tolerance at work only if both lie about as far
     from the witness, farther than they lie from each other. So the
     kernel's error may be at most 1.25 times the plain version's, and
     their difference at most half of the larger error (1e-6 of rounding
     allowed in both)."""
-    fine = rk4_witness(*args, steps=WITNESS_STEPS)
-    own = float((fine - rk4_witness(*args, steps=WITNESS_STEPS // 2))
-                .abs().max())
+    witness = witness or rk4_witness
+    fine = witness(*args, steps=steps)
+    own = float((fine - witness(*args, steps=steps // 2)).abs().max())
     err_k = float((got.double() - fine).abs().max())
     err_p = float((ref.double() - fine).abs().max())
     diff = float((got - ref).abs().max())
-    log(f"  against float64 RK4 of {WITNESS_STEPS} steps (its own error "
+    log(f"  against float64 RK4 of {steps} steps (its own error "
         f"{own:.3e}): kernel {err_k:.3e}, plain {err_p:.3e}, kernel "
         f"against plain {diff:.3e}")
     if not own < 1e-7:
-        raise AssertionError("cnf_solve: the RK4 witness has not converged")
+        raise AssertionError(f"{name}: the RK4 witness has not converged")
     if not err_k <= 1.25 * err_p + 1e-6:
-        raise AssertionError("cnf_solve: the kernel lies farther from the "
+        raise AssertionError(f"{name}: the kernel lies farther from the "
                              "float64 witness than the plain version")
     if not diff <= 0.5 * max(err_k, err_p) + 1e-6:
-        raise AssertionError("cnf_solve: kernel and plain version differ by "
+        raise AssertionError(f"{name}: kernel and plain version differ by "
                              "more than the solve's own error explains")
 
 
@@ -1395,6 +1434,370 @@ def phase_merge_cli(model):
             "--exact")
 
 
+def _to64(tree):
+    if isinstance(tree, dict):
+        return {k: _to64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to64(v) for v in tree]
+    return tree.double()
+
+
+def rk4_witness_logp(layers, c, y, logp, t0, t1, steps: int) -> torch.Tensor:
+    """`rk4_witness` of the log-density solve: classical RK4 of (y, logp)
+    on `field_with_exact_div` in float64, returned as one tensor [.., 4]."""
+    c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
+    f = continuous.field_with_exact_div(_to64(layers), c.double())
+    s, t0, t1 = (y.double(), logp.double()), float(t0), float(t1)
+    h = (t1 - t0) / steps
+
+    def axpy(a, x, z):
+        return tuple(u + a * v for u, v in zip(x, z))
+
+    for i in range(steps):
+        t = t0 + i * h
+        k1 = f(t, s)
+        k2 = f(t + h / 2, axpy(h / 2, s, k1))
+        k3 = f(t + h / 2, axpy(h / 2, s, k2))
+        k4 = f(t + h, axpy(h, s, k3))
+        s = tuple(u + (h / 6) * (a + 2 * b + 2 * cc + d)
+                  for u, a, b, cc, d in zip(s, k1, k2, k3, k4))
+    return torch.cat(s, dim=-1)
+
+
+def maxrel(a, b) -> float:
+    return float((a - b).abs().max() / (b.abs().max() + 1e-8))
+
+
+def seeded_cnf_model():
+    """The full-width CNF model at its seeded initial weights, on the
+    card."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    return checkpoint.from_numpy_tree(*checkpoint.to_numpy_tree(
+        continuous.ContinuousModel(*continuous.init(gen, device="cpu"))),
+        "cuda", model="cnf")
+
+
+def training_solve_inputs(model):
+    """The training path's block-solve inputs on 32 main-path patches: the
+    unfolded CNF model's conditions, latents of the g path (R = 32,768), and
+    the seeded and the perturbed blocks."""
+    params, state = model.trees()
+    x = main_path_patches(1)                       # [32, 256, 3]: R = 8,192
+    cs = enc_ops.encoder_conditions_plain(params, x, knn_indices(x, x, K),
+                                          state)
+    rng = np.random.RandomState(SEED + 6)
+    B, n = x.shape[:2]
+    latents = torch.from_numpy(
+        (rng.randn(B, n * UPRATIO, 3) * 0.5).astype(np.float32)).cuda()
+    seeded = seeded_cnf_model().trees()[0]["flow_blocks"]
+    return x, cs, latents, (("seeded", seeded),
+                            ("perturbed", params["flow_blocks"]))
+
+
+def compare_cnf_logp(model, results):
+    """The log-density solve kernel against `cnf_solve_logp_plain` at the
+    f path's shape (R = 8,192) in both directions, condition widths 32 and
+    128: 5e-6 at seeded weights, where every step size is set by a clip;
+    `SOLVER_TOL` and `witness_check` (on y and logp) at perturbed ones.
+    Step counts equal and two kernel runs bit-equal everywhere."""
+    x, cs, _, weights = training_solve_inputs(model)
+    rng = np.random.RandomState(SEED + 7)
+    logp0 = torch.from_numpy((rng.randn(*x.shape[:2], 1) * 0.1)
+                             .astype(np.float32)).cuda()
+    for label, blocks in weights:
+        tol = 5e-6 if label == "seeded" else SOLVER_TOL
+        for block in (0, 3):                       # condition widths 32, 128
+            bp = blocks[block]
+            T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
+            zero = torch.zeros_like(T)
+            for t0, t1 in ((zero, T), (T, zero)):
+                args = (bp["layers"], cs[block], x, logp0, t0, t1)
+                (gy, glp), stats = cnf_ops.cnf_solve_logp(*args,
+                                                          return_stats=True)
+                again = torch.cat(cnf_ops.cnf_solve_logp(*args), -1)
+                (ry, rlp), ref_stats = cnf_ops.cnf_solve_logp_plain(
+                    *args, return_stats=True)
+                got, ref = torch.cat([gy, glp], -1), torch.cat([ry, rlp], -1)
+                torch.cuda.synchronize()
+                steps = stats.tolist()
+                log(f"cnf_solve_logp {label} weights, cdim "
+                    f"{cs[block].shape[-1]}, R = 8,192, "
+                    f"{'0 -> T' if float(t1) > float(t0) else 'T -> 0'}: "
+                    f"steps kernel {steps}, plain {ref_stats}")
+                if steps != [ref_stats["steps"], ref_stats["accepted"]]:
+                    raise AssertionError("cnf_solve_logp: the kernel's step "
+                                         "counts differ from the plain "
+                                         "version's")
+                if steps[0] >= continuous.MAX_STEPS_EVAL:
+                    raise AssertionError("cnf_solve_logp: step budget used up")
+                if not torch.equal(got, again):
+                    raise AssertionError("cnf_solve_logp: two runs of the "
+                                         "kernel are not bit-equal")
+                check_close(results, "cnf_solve_logp", got, ref, tol)
+                if label == "perturbed":
+                    witness_check(args, got, ref, rk4_witness_logp,
+                                  WITNESS_STEPS // 2, "cnf_solve_logp")
+
+    # times and the bound, f direction at cdim 128: y and logp in and out,
+    # the conditions, the layers; 1 + 6 field evaluations with the three
+    # tangent chains a step attempted on every row, and the projections
+    bp = weights[1][1][3]
+    T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
+    args = (bp["layers"], cs[3], x, logp0, torch.zeros_like(T), T)
+    _, stats = cnf_ops.cnf_solve_logp(*args, return_stats=True)
+    attempted = stats.tolist()[0]
+    rows = x.shape[0] * x.shape[1]
+    set_bound(results["cnf_solve_logp"],
+              2 * nbytes(x, logp0) + nbytes(cs[3]) + tree_bytes(bp["layers"])
+              + 8,
+              2 * (rows * (FIELD_MACS + TANGENT_MACS) * (1 + 6 * attempted)
+                   + rows * cs[3].shape[-1] * (4 * 64 + 6)))
+    log(f"cnf_solve_logp f, R = 8,192, cdim 128: {attempted} steps "
+        f"attempted, {1 + 6 * attempted} field evaluations a row")
+    time_pair(results, "cnf_solve_logp",
+              lambda: cnf_ops.cnf_solve_logp(*args),
+              lambda: cnf_ops.cnf_solve_logp_plain(*args), reps=5,
+              plain_reps=1)
+
+
+def adjoint_leaves(out) -> list:
+    """(name, tensor) of y0, a0, dc and every parameter gradient."""
+    y0, a0, dc, dlayers = out[:4]
+    return [("y0", y0), ("a0", a0), ("dc", dc)] + [
+        (f"layer{i}.{k}.{kk}", t) for i, p in enumerate(dlayers)
+        for k, v in p.items() for kk, t in v.items()]
+
+
+def compare_cnf_adjoint(model, results):
+    """The adjoint kernel against `cnf_adjoint_bwd_plain` at the training
+    path's shapes: with the trace for f (R = 8,192), without for g
+    (R = 32,768, each condition row serving 4 rows), condition widths 32
+    and 128, seeded and perturbed blocks. Gates: the JAX package's for its
+    kernel (tests/test_cnf.py:216-336), 2e-3 max-relative on y0, a0, dc
+    and every parameter gradient, 5e-5 on the field and its trace at t1;
+    equal step counts, two kernel runs bit-equal."""
+    x, cs, latents, weights = training_solve_inputs(model)
+    rng = np.random.RandomState(SEED + 8)
+
+    def rand(shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32)).cuda()
+
+    def case(blocks, block, path):
+        """(args, keywords) of one backward solve of the path."""
+        bp = blocks[block]
+        T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
+        zero = torch.zeros_like(T)
+        y1 = x if path == "f" else latents
+        a1 = rand(y1.shape, 0.3)
+        if path == "f":          # forward 0 -> T, so backward T -> 0
+            ap = rand(y1.shape[:2] + (1,), 0.3)
+            kw = dict(with_trace=True, logp1=rand(y1.shape[:2] + (1,), 0.1))
+            t0, t1 = zero, T
+        else:                    # forward T -> 0, backward 0 -> T
+            ap = torch.zeros(y1.shape[:2] + (1,), device=y1.device)
+            kw = dict(with_trace=False)
+            t0, t1 = T, zero
+        return (bp["layers"], cs[block], y1, a1, ap, t0, t1), kw
+
+    for label, blocks in weights:
+        for path in ("f", "g"):
+            for block in (0, 3):
+                args, kw = case(blocks, block, path)
+                got = cnf_ops.cnf_adjoint_bwd(*args, **kw, return_stats=True)
+                again = cnf_ops.cnf_adjoint_bwd(*args, **kw)
+                ref = cnf_ops.cnf_adjoint_bwd_plain(*args, **kw,
+                                                    return_stats=True)
+                torch.cuda.synchronize()
+                steps, ref_stats = got[-1].tolist(), ref[-1]
+                rows = args[2].shape[0] * args[2].shape[1]
+                log(f"cnf_adjoint_bwd {label} weights, {path} path "
+                    f"(trace {kw['with_trace']}), cdim "
+                    f"{cs[block].shape[-1]}, R = {rows}: steps kernel "
+                    f"{steps}, plain {ref_stats}")
+                if steps != [ref_stats["steps"], ref_stats["accepted"]]:
+                    raise AssertionError("cnf_adjoint_bwd: the kernel's step "
+                                         "counts differ from the plain "
+                                         "version's")
+                if steps[0] >= continuous.MAX_STEPS_EVAL:
+                    raise AssertionError("cnf_adjoint_bwd: step budget used "
+                                         "up")
+                worst = ("", 0.0)
+                for (name, g), (_, a), (_, r) in zip(adjoint_leaves(got),
+                                                     adjoint_leaves(again),
+                                                     adjoint_leaves(ref)):
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"cnf_adjoint_bwd {name}: two "
+                                             "kernel runs are not bit-equal")
+                    rel = maxrel(g, r)
+                    if not rel < 2e-3:
+                        raise AssertionError(f"cnf_adjoint_bwd {name}: "
+                                             f"max-relative {rel} >= 2e-3")
+                    worst = max(worst, (name, rel), key=lambda w: w[1])
+                    e = results["cnf_adjoint_bwd"]
+                    e["max_abs_err"] = max(e.get("max_abs_err", 0.0),
+                                           float((g - r).abs().max()))
+                f1, div1 = got[4][:2]
+                rel_f1 = maxrel(f1, ref[4][0])
+                rel_div1 = maxrel(div1, ref[4][1]) if kw["with_trace"] else 0.0
+                log(f"  worst max-relative {worst[1]:.3e} ({worst[0]}; gate "
+                    f"2e-3); f1 {rel_f1:.3e}, div1 {rel_div1:.3e} (gate 5e-5)")
+                if not (rel_f1 < 5e-5 and rel_div1 < 5e-5):
+                    raise AssertionError("cnf_adjoint_bwd: the boundary "
+                                         "fields differ from the plain "
+                                         "version's")
+
+    # times and the bound at cdim 128, perturbed: the inputs and outputs
+    # once; 1 + 6 augmented-field evaluations a step attempted on every row
+    # (the field, with the trace its tangent chains, and the vjp), the two
+    # products of the projections' cotangents once a step, one more field
+    # evaluation at t0, and the projections. The kernel line keeps the f
+    # path, with the trace.
+    for path in ("g", "f"):
+        args, kw = case(weights[1][1], 3, path)
+        trace = kw["with_trace"]
+        out = cnf_ops.cnf_adjoint_bwd(*args, **kw, return_stats=True)
+        attempted = out[-1].tolist()[0]
+        y1, cdim = args[2], args[1].shape[-1]
+        rows = y1.shape[0] * y1.shape[1]
+        per_eval = FIELD_MACS + VJP_MACS + (
+            TANGENT_MACS + VJP_TRACE_MACS if trace else 0)
+        macs = (rows * ((1 + 6 * attempted) * per_eval
+                        + attempted * 4 * 262 * cdim
+                        + FIELD_MACS + (TANGENT_MACS if trace else 0))
+                + args[1].shape[0] * args[1].shape[1] * cdim * 262)
+        n_bytes = (2 * nbytes(y1, args[3]) + nbytes(args[1], out[2])
+                   + 2 * tree_bytes(args[0]) + rows * 8 * 4
+                   + (2 * nbytes(args[4]) if trace else 0))
+        set_bound(results["cnf_adjoint_bwd"], n_bytes, 2 * macs)
+        log(f"cnf_adjoint_bwd {path} path (trace {trace}), R = {rows}, cdim "
+            f"{cdim}: {attempted} steps attempted, {1 + 6 * attempted} "
+            f"augmented evaluations a row")
+        time_pair(results, "cnf_adjoint_bwd",
+                  lambda: cnf_ops.cnf_adjoint_bwd(*args, **kw),
+                  lambda: cnf_ops.cnf_adjoint_bwd_plain(*args, **kw),
+                  reps=3, plain_reps=1)
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) of a nested dict / list tree in flattening order."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in tree_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def cnf_grad_loss(params, state, sparse, dense, plain: bool, smooth: bool):
+    """The training loss through `continuous.forward(train=True)`: 1e-4
+    NLL + 5e-2 EMD, or with ``smooth`` the NLL plus the mean square of the
+    dense cloud; ``plain`` runs the solves and the EMD on their plain
+    versions."""
+    cfg = TrainConfig()
+    pred, nll, _ = continuous.forward(params, state, sparse, UPRATIO,
+                                      train=True, plain_solves=plain)
+    if smooth:
+        return nll + torch.mean(pred ** 2)
+    emd_fn = emd_auction_plain if plain else emd_auction
+    dist, _ = emd_fn(pred, dense, cfg.emd_eps, cfg.emd_iters)
+    return nll * cfg.logpx_weight + torch.sum(dist) * cfg.emd_weight
+
+
+def phase_cnf_grad(results, card):
+    """One training loss's gradients through the full-width CNF model at
+    seeded weights and `bench.py:bench_cnf_train`'s shape (batch 32, 256 ->
+    1024 points)."""
+    params, state = seeded_cnf_model().trees()
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    paths = tree_paths(params)
+    leaves = [t for _, t in paths]
+    sp, de = synthetic_pairs(np.random.RandomState(1), TRAIN_B, TRAIN_N,
+                             UPRATIO)
+    sparse, dense = torch.from_numpy(sp).cuda(), torch.from_numpy(de).cuda()
+
+    logged = ("cnf_solve_logp", "cnf_solve", "cnf_adjoint_bwd")
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    for k in logged:
+        WRAPPERS[k].stats_log = []
+    t0 = time.perf_counter()
+    loss = cnf_grad_loss(params, state, sparse, dense, False, False)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    stats = {k: solve_steps(WRAPPERS[k].stats_log) for k in logged}
+    for k in logged:
+        WRAPPERS[k].stats_log = None
+    log(f"cnf_grad main path (batch {TRAIN_B}, {TRAIN_N} -> "
+        f"{TRAIN_N * UPRATIO} points, seeded weights; {first_s:.2f} s with "
+        f"the first launches): loss {float(loss.detach()):.6f}, launches {launches}")
+    for k, n in GRAD_LAUNCHES.items():
+        if launches[k] != n:
+            raise AssertionError(f"cnf_grad: {launches[k]} {k} launches in "
+                                 f"one loss's gradient, not {n}")
+        if COUNT_FROM[k] == "cnf_grad":
+            results[k]["launches"] = launches[k]
+    for k in logged:
+        log(f"cnf_grad [attempted, accepted] steps of {k}: {stats[k]}")
+    bad = [p for (p, _), g in zip(paths, grads)
+           if not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"cnf_grad: non-finite loss or gradients {bad}")
+    log(f"cnf_grad: the loss and all {len(grads)} gradient leaves finite")
+
+    # the smooth loss on the kernels and on the plain versions; leaves whose
+    # gradient is zero but for rounding (the biases before train-mode BN)
+    # must be so on both sides
+    sm = {}
+    for plain in (False, True):
+        loss = cnf_grad_loss(params, state, sparse, dense, plain, True)
+        sm[plain] = (float(loss), torch.autograd.grad(loss, leaves))
+    top = max(float(g.abs().max()) for g in sm[True][1])
+    zero = ROUNDING_ZERO * top
+    worst, n_zero = ("", 0.0), 0
+    for (path, _), gk, gp in zip(paths, sm[False][1], sm[True][1]):
+        if float(gp.abs().max()) < zero:
+            n_zero += 1
+            if not float(gk.abs().max()) < zero:
+                raise AssertionError(f"cnf_grad {path}: zero to rounding on "
+                                     "the plain versions, not on the kernels")
+            continue
+        rel = maxrel(gk, gp)
+        if not rel < 2e-2:
+            raise AssertionError(f"cnf_grad {path}: kernels vs plain "
+                                 f"max-relative {rel} >= 2e-2")
+        worst = max(worst, (path, rel), key=lambda w: w[1])
+    log(f"cnf_grad smooth loss (NLL + mean square of the dense cloud) "
+        f"{sm[False][0]:.6f} on kernels, {sm[True][0]:.6f} on plain "
+        f"versions; {len(paths) - n_zero} leaves within 2e-2 max-relative "
+        f"(worst {worst[1]:.3e}, {worst[0]}), {n_zero} zero to rounding on "
+        f"both sides (below {ROUNDING_ZERO:g} of the largest gradient)")
+
+    def forward_backward(plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = cnf_grad_loss(params, state, sparse, dense, plain, False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    runs = [forward_backward(False) for _ in range(3)]
+    fwd = statistics.median(r[0] for r in runs)
+    bwd = statistics.median(r[1] for r in runs)
+    log(f"cnf_grad on kernels, ms (median of 3): forward {fwd:.3f}, backward "
+        f"{bwd:.3f}, total {fwd + bwd:.3f} on {card}")
+    pf, pb = forward_backward(True)
+    log(f"cnf_grad on plain versions, ms (one run): forward {pf:.3f}, "
+        f"backward {pb:.3f}, total {pf + pb:.3f} on {card}")
+    trace_idle("cnf_grad loss forward + backward on kernels",
+               lambda: forward_backward(False), (fwd + bwd) / 1e3)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1451,6 +1854,11 @@ def main():
     phase_main_path("cnf_seeded_merge", cnf_folded, results, batch=1)
     phase_merge_timing(folded, card)
     phase_merge_cli(model)
+
+    with torch.no_grad():
+        compare_cnf_logp(cnf_model, results)
+        compare_cnf_adjoint(cnf_model, results)
+    phase_cnf_grad(results, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
