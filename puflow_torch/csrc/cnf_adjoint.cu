@@ -117,7 +117,7 @@ struct AdjArgs {
   float* out_g;          // [ng]
   float* out_bnd;        // [n_rows, 8]: f1, div1, f0, div0
   int* stats;            // steps attempted, steps accepted
-  int n_rows, rep, cdim, max_steps, max_grid;
+  int n_rows, rep, cdim, cdim_true, max_steps, max_grid;
   float rtol, atol;
 };
 
@@ -429,8 +429,10 @@ cnf_adjoint_kernel(AdjArgs a) {
     kgb[static_cast<size_t>(b) * kGOwn + e] = acc7[e];
   for (int e = b * kThreads + tid; e < ng; e += nb * kThreads) gbuf[e] = 0.f;
 
-  const double count = (kTrace ? 8.0 : 6.0) * R + static_cast<double>(cdim) * R +
-                       (kGOwn + 262.0 * cdim);
+  // the plain state's size; padded condition columns add no error
+  const double count = (kTrace ? 8.0 : 6.0) * R +
+                       static_cast<double>(a.cdim_true) * R +
+                       (kGOwn + 262.0 * a.cdim_true);
   float t = t1, h = direction * span / 16.f;
   bool done = span <= 1e-12f;
   int n = 0, accepted = 0, cur = 0;
@@ -732,18 +734,20 @@ cudaError_t launch(const AdjArgs& args, int dev, cudaStream_t stream) {
 // max_grid (2 ng + 10,008) + 2 ng floats with ng = 5,004 + 264 cdim;
 // partials, 4 max_grid doubles. Writes y0, a0 [n_rows, 3], dc [n_rows,
 // cdim] (per row of y), the packed gradient g [ng], bnd [n_rows, 8] = f1,
-// div1, f0, div0, and stats = steps attempted, accepted. cdim is a
-// multiple of 4; rep divides n_rows.
+// div1, f0, div0, and stats = steps attempted, accepted. cdim, the width
+// of c and wct, is a multiple of 4, their columns past cdim_true zero;
+// rep divides n_rows.
 extern "C" int puflow_cnf_adjoint(
     const void* y1, const void* logp1, const void* a1, const void* ap,
     const void* c, const void* proj, const void* weights, const void* wct,
-    const void* t01, int n_rows, int rep, int cdim, int with_trace,
+    const void* t01, int n_rows, int rep, int cdim, int cdim_true,
+    int with_trace,
     float rtol, float atol, int max_steps, void* rows, void* per_grid,
     void* partials, int max_grid, void* out_y0, void* out_a0, void* out_dc,
     void* out_g, void* out_bnd, void* stats, void* stream) {
   using namespace puflow;
   if (n_rows < 1 || rep < 1 || n_rows % rep != 0 || max_grid < 1 ||
-      cdim < 4 || cdim % 4 != 0)
+      cdim < 4 || cdim % 4 != 0 || cdim_true < 0 || cdim_true > cdim)
     return cudaErrorInvalidValue;
   cudaError_t err;
   int dev = 0;
@@ -771,6 +775,7 @@ extern "C" int puflow_cnf_adjoint(
   args.n_rows = n_rows;
   args.rep = rep;
   args.cdim = cdim;
+  args.cdim_true = cdim_true;
   args.max_steps = max_steps;
   args.max_grid = max_grid;
   args.rtol = rtol;

@@ -51,8 +51,8 @@ _SIGNATURES = {
     "puflow_cnf_solve_logp": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
                               _I, _P, _P, _P, _P],
     "puflow_cnf_adjoint": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                           _P],
+                           _I, _F, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                           _P, _P],
 }
 
 

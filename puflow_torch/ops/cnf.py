@@ -34,6 +34,7 @@ tiles of rows and keeps the state in device memory between steps.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from puflow_torch.models.continuous import (exact_div_field, field_plain_csl,
                                             field_with_exact_div, plain_field)
@@ -392,7 +393,7 @@ _ROW_FLOATS = 32 + 2 * _LD_PROJ      # per row: y, a, FSAL stages, q
 def _unpack_grads(layers, g: torch.Tensor, cdim: int):
     """The kernel's packed gradient -> one dict per layer, the params'
     shapes."""
-    gc = g[_G_OWN:].view(cdim, _LD_PROJ)
+    gc = g[_G_OWN:].view(-1, _LD_PROJ)[:cdim]
     grads, off, col = [], 0, 0
     for p in layers:
         din, dout = p["layer"]["w"].shape
@@ -420,18 +421,22 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
     B, N, _ = y1.shape
     n_rows, cdim = B * N, c.shape[-1]
     y1, a1, ap, logp1 = (t.contiguous() for t in (y1, a1, ap, logp1))
-    c2 = c.reshape(-1, cdim).contiguous()
     weights, proj_w, proj_b = _packed(layers)
+    c2 = c.reshape(c.shape[0] * c.shape[1], cdim)
     proj = torch.addmm(proj_b, c2, proj_w)
-    wct = proj_w.t().contiguous()                       # [262, cdim]
-    ng = _G_OWN + cdim * _LD_PROJ
+    # the kernel reads c and the projection matrix four columns at a time:
+    # zero columns pad them to a multiple of 4
+    pad = max(4, -(-cdim // 4) * 4) - cdim
+    c2 = F.pad(c2, (0, pad)).contiguous()
+    wct = F.pad(proj_w.t(), (0, pad)).contiguous()      # [262, cdim + pad]
+    ng = _G_OWN + (cdim + pad) * _LD_PROJ
     grid = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
     rows = torch.empty((n_rows * (_ROW_FLOATS + 2 * cdim),), **f32)
     per_grid = torch.empty((grid * (2 * ng + 2 * _G_OWN) + 2 * ng,), **f32)
     partials = torch.empty((4 * grid,), dtype=torch.float64, device=dev)
     y0, a0 = torch.empty_like(y1), torch.empty_like(a1)
-    dc = torch.empty((B, N, cdim), **f32)
+    dc = torch.empty((B, N, cdim + pad), **f32)
     g = torch.empty((ng,), **f32)
     bnd = torch.empty((B, N, 8), **f32)
     stats = torch.zeros((2,), dtype=torch.int32, device=dev)
@@ -440,8 +445,8 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
         code = lib.puflow_cnf_adjoint(
             y1.data_ptr(), logp1.data_ptr(), a1.data_ptr(), ap.data_ptr(),
             c2.data_ptr(), proj.data_ptr(), weights.data_ptr(),
-            wct.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r, cdim,
-            int(with_trace), float(rtol), float(atol), int(max_steps),
+            wct.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r,
+            cdim + pad, cdim, int(with_trace), float(rtol), float(atol), int(max_steps),
             rows.data_ptr(), per_grid.data_ptr(), partials.data_ptr(), grid,
             y0.data_ptr(), a0.data_ptr(), dc.data_ptr(), g.data_ptr(),
             bnd.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))
@@ -450,8 +455,8 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
     if cnf_adjoint_bwd.stats_log is not None:
         cnf_adjoint_bwd.stats_log.append(stats)
     bnd = (bnd[..., 0:3], bnd[..., 3:4], bnd[..., 4:7], bnd[..., 7:8])
-    return (y0, a0, _sum_repeats(dc, c), _unpack_grads(layers, g, cdim), bnd,
-            stats)
+    return (y0, a0, _sum_repeats(dc[..., :cdim], c),
+            _unpack_grads(layers, g, cdim), bnd, stats)
 
 
 def cnf_adjoint_bwd(layers, c: torch.Tensor, y1: torch.Tensor,

@@ -444,7 +444,7 @@ def _maxrel(a, b) -> float:
 @pytest.mark.parametrize("with_trace", [False, True])
 @pytest.mark.parametrize("b,n,r,cdim,time_scale", [
     (1, 60, 1, 32, 0.0), (2, 333, 1, 128, 20.0), (4, 231, 3, 64, 20.0),
-    (8, 256, 4, 128, 0.0)])
+    (8, 256, 4, 128, 0.0), (2, 40, 1, 6, 20.0)])
 def test_cnf_adjoint_kernel_matches_plain(card, with_trace, b, n, r, cdim,
                                           time_scale):
     """The adjoint's backward-solve kernel against `cnf_adjoint_bwd_plain`
