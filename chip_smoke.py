@@ -1733,7 +1733,8 @@ def phase_cnf_grad(results, card):
         WRAPPERS[k].stats_log = None
     log(f"cnf_grad main path (batch {TRAIN_B}, {TRAIN_N} -> "
         f"{TRAIN_N * UPRATIO} points, seeded weights; {first_s:.2f} s with "
-        f"the first launches): loss {float(loss.detach()):.6f}, launches {launches}")
+        f"the first launches): loss {float(loss.detach()):.6f}, launches "
+        f"{launches}")
     for k, n in GRAD_LAUNCHES.items():
         if launches[k] != n:
             raise AssertionError(f"cnf_grad: {launches[k]} {k} launches in "
@@ -1754,7 +1755,7 @@ def phase_cnf_grad(results, card):
     sm = {}
     for plain in (False, True):
         loss = cnf_grad_loss(params, state, sparse, dense, plain, True)
-        sm[plain] = (float(loss), torch.autograd.grad(loss, leaves))
+        sm[plain] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
     top = max(float(g.abs().max()) for g in sm[True][1])
     zero = ROUNDING_ZERO * top
     worst, n_zero = ("", 0.0), 0

@@ -384,7 +384,8 @@ cnf_adjoint_kernel(AdjArgs a) {
   const float direction = t0 > t1 ? 1.f : (t0 < t1 ? -1.f : 0.f);
 
   // the field at t1: FSAL stage, its q and its gradient sum, f1 and div1
-  for (int e = tid; e < kGOwn; e += kThreads) acc5[e] = accE[e] = acc7[e] = 0.f;
+  for (int e = tid; e < kGOwn; e += kThreads)
+    acc5[e] = accE[e] = acc7[e] = 0.f;
   for (int e = tid; e < kSuper * kLdP; e += kThreads) q5[e] = qe[e] = 0.f;
   for (int st = b; st < n_super; st += nb) {
     for (int sub = 0; sub < kSubTiles; ++sub) {

@@ -216,13 +216,9 @@ def adjoint_backward(func, params, y1, y1_bar, t1, t0, rtol: float = 1e-5,
         return dy, tree_map(torch.neg, y_bar), tree_map(torch.neg, p_bar)
 
     g0 = tree_map(torch.zeros_like, params)
-    out = odeint_dopri5(aug_field, (y1, y1_bar, g0), t1, t0, rtol, atol,
-                        max_steps, differentiable=False,
-                        return_stats=return_stats)
-    if return_stats:
-        (y0, a0, g), stats = out
-        return (y0, a0, g), stats
-    return out
+    return odeint_dopri5(aug_field, (y1, y1_bar, g0), t1, t0, rtol, atol,
+                         max_steps, differentiable=False,
+                         return_stats=return_stats)
 
 
 class _AdjointSolve(torch.autograd.Function):
@@ -267,31 +263,26 @@ class _AdjointSolver:
 
     def forward_solve(self, params, y0, t0, t1):
         if self.fwd_solver is not None:
-            y1 = self.fwd_solver(params, y0, t0, t1)
-            if y1 is not None:
-                return y1
+            return self.fwd_solver(params, y0, t0, t1)
         return odeint_dopri5(lambda t, y: self.func(params, t, y), y0, t0,
                              t1, self.rtol, self.atol, self.max_steps,
                              differentiable=False)
 
     def backward_solve(self, params, y1, y1_bar, t0, t1):
         """-> (params cotangent, y0 cotangent, t0 cotangent, t1 cotangent)."""
-        if self.bwd_solver is not None:
-            fused = self.bwd_solver(params, y1, y1_bar, t0, t1)
-            if fused is not None:
-                if len(fused) == 5:
-                    # the solver gave the boundary cotangents too
-                    _, a0, g, t0_bar, t1_bar = fused
-                    return g, a0, t0_bar, t1_bar
-                y0, a0, g = fused
-                t1_bar = _vdot(y1_bar, self.func(params, t1, y1))
-                t0_bar = -_vdot(a0, self.func(params, t0, y0))
+        if self.bwd_solver is None:
+            y0, a0, g = adjoint_backward(self.func, params, y1, y1_bar, t1,
+                                         t0, self.rtol, self.atol,
+                                         self.max_steps)
+        else:
+            solved = self.bwd_solver(params, y1, y1_bar, t0, t1)
+            if len(solved) == 5:
+                # the solver gave the boundary cotangents too
+                _, a0, g, t0_bar, t1_bar = solved
                 return g, a0, t0_bar, t1_bar
+            y0, a0, g = solved
         with torch.no_grad():
             t1_bar = _vdot(y1_bar, self.func(params, t1, y1))
-        y0, a0, g = adjoint_backward(self.func, params, y1, y1_bar, t1, t0,
-                                     self.rtol, self.atol, self.max_steps)
-        with torch.no_grad():
             t0_bar = -_vdot(a0, self.func(params, t0, y0))
         return g, a0, t0_bar, t1_bar
 
@@ -312,9 +303,9 @@ def make_adjoint_odeint(func, rtol: float = 1e-5, atol: float = 1e-5,
     integration (for example the whole-solve kernel of `ops.cnf`); the
     backward re-solves from its y1, so it needs no gradient of its own.
     ``bwd_solver(params, y1, y1_bar, t0, t1)`` may replace the backward
-    integration and return ``(y0, a0, g)`` or ``(y0, a0, g, t0_bar,
-    t1_bar)``. Either may return ``None``: that call then takes the
-    plain solve.
+    integration and return ``(y0, a0, g)`` or, with the boundary
+    cotangents it can form from its own field evaluations, ``(y0, a0, g,
+    t0_bar, t1_bar)``.
     """
     def solve(params, y0, t0, t1):
         p_leaves, p_spec = tree_flatten(params)

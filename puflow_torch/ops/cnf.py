@@ -1,4 +1,4 @@
-"""Whole-solve dopri5 of one CNF block: the CUDA kernels and their plain versions.
+"""Whole-solve dopri5 of one CNF block: CUDA kernels and plain versions.
 
 Three kernels, each with its plain version beside it:
 
@@ -13,14 +13,15 @@ Three kernels, each with its plain version beside it:
     `ops/pallas/cnf_adjoint_pallas.py:cnf_adjoint_bwd_pallas`: the backward
     solve of the continuous adjoint, with or without the trace.
 
-`cnf_solve` is the adaptive Dormand-Prince integration of the plain (divergence-free)
-ConcatSquashLinear + tanh field 3 -> 64 -> 64 -> 3 for every row of
-``y [B, N, 3]`` from t0 to t1 in either direction, with one step size
-shared by every row of the call (RMS error norm over all rows), FSAL, at
-most ``max_steps`` attempts. t0 and t1 are tensors and stay on the device.
+`cnf_solve` is the adaptive Dormand-Prince integration of the plain
+(divergence-free) ConcatSquashLinear + tanh field 3 -> 64 -> 64 -> 3 for
+every row of ``y [B, N, 3]`` from t0 to t1 in either direction, with one
+step size shared by every row of the call (RMS error norm over all rows),
+FSAL, at most ``max_steps`` attempts. t0 and t1 are tensors and stay on
+the device. The other two share this design.
 
 The condition enters each layer only through ``c @ w[1:]``, constant
-during a solve: the wrapper computes those projections once (one matrix
+during a solve: the wrappers compute those projections once (one matrix
 product for all three layers, 262 floats a condition row) and the kernel
 computes the field's own three products. ``c`` may have fewer rows than
 ``y``: ``[B, N / r, cdim]``, each condition row serving r consecutive rows
@@ -135,26 +136,33 @@ def _packed(layers):
     return pack
 
 
+def _t01(t0, t1, dev) -> torch.Tensor:
+    return torch.stack([
+        torch.as_tensor(t0, dtype=torch.float32, device=dev).reshape(()),
+        torch.as_tensor(t1, dtype=torch.float32, device=dev).reshape(())])
+
+
+def _on_card(name: str, layers, dev, *tensors) -> None:
+    if any(t.dtype != torch.float32 or t.device != dev for t in tensors):
+        raise ValueError(f"{name}: the kernel takes float32 tensors on one "
+                         "device")
+    if layers[0]["layer"]["w"].device != dev:
+        raise ValueError(f"{name}: the layers are not on {dev}")
+
+
 def _cnf_kernel(layers, c: torch.Tensor, y: torch.Tensor, t0, t1, r: int,
                 rtol: float, atol: float, max_steps: int):
     """Launch `csrc/cnf_solve.cu` on CUDA tensors -> (y(t1), stats int32
     [2]: steps attempted, steps accepted; on the device)."""
     dev = y.device
-    if (y.dtype != torch.float32 or c.dtype != torch.float32
-            or c.device != dev):
-        raise ValueError("cnf_solve: the kernel takes float32 y and c on one "
-                         "device")
-    if layers[0]["layer"]["w"].device != dev:
-        raise ValueError(f"cnf_solve: the layers are not on {dev}")
+    _on_card("cnf_solve", layers, dev, c, y)
     y = y.contiguous()
     n_rows = y.shape[0] * y.shape[1]
     out = torch.empty_like(y)
     stats = torch.zeros((2,), dtype=torch.int32, device=dev)
     if n_rows == 0:
         return out, stats
-    t01 = torch.stack([
-        torch.as_tensor(t0, dtype=torch.float32, device=dev).reshape(()),
-        torch.as_tensor(t1, dtype=torch.float32, device=dev).reshape(())])
+    t01 = _t01(t0, t1, dev)
     weights, proj_w, proj_b = _packed(layers)
     proj = torch.addmm(proj_b, c.reshape(-1, c.shape[-1]), proj_w)
     state = torch.empty((4 * n_rows * IDIM,), dtype=torch.float32, device=dev)
@@ -239,20 +247,6 @@ def cnf_solve_logp_plain(layers, c: torch.Tensor, y: torch.Tensor,
     return odeint_dopri5(field_with_exact_div(layers, _repeat(c, y)),
                          (y, logp0), t0, t1, rtol, atol, max_steps,
                          differentiable=False, return_stats=return_stats)
-
-
-def _t01(t0, t1, dev) -> torch.Tensor:
-    return torch.stack([
-        torch.as_tensor(t0, dtype=torch.float32, device=dev).reshape(()),
-        torch.as_tensor(t1, dtype=torch.float32, device=dev).reshape(())])
-
-
-def _on_card(name: str, layers, dev, *tensors) -> None:
-    if any(t.dtype != torch.float32 or t.device != dev for t in tensors):
-        raise ValueError(f"{name}: the kernel takes float32 tensors on one "
-                         "device")
-    if layers[0]["layer"]["w"].device != dev:
-        raise ValueError(f"{name}: the layers are not on {dev}")
 
 
 def _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol, atol, max_steps):
@@ -401,7 +395,8 @@ def _unpack_grads(layers, g: torch.Tensor, cdim: int):
         off += din * dout
         db, dgt, dbt, dgb = g[off:off + 4 * dout].view(4, dout)
         off += 4 * dout
-        gate_c, bias_c = gc[:, col:col + dout], gc[:, col + dout:col + 2 * dout]
+        gate_c = gc[:, col:col + dout]
+        bias_c = gc[:, col + dout:col + 2 * dout]
         col += 2 * dout
         grads.append({
             "layer": {"w": w, "b": db},
@@ -446,7 +441,8 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
             y1.data_ptr(), logp1.data_ptr(), a1.data_ptr(), ap.data_ptr(),
             c2.data_ptr(), proj.data_ptr(), weights.data_ptr(),
             wct.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r,
-            cdim + pad, cdim, int(with_trace), float(rtol), float(atol), int(max_steps),
+            cdim + pad, cdim, int(with_trace), float(rtol), float(atol),
+            int(max_steps),
             rows.data_ptr(), per_grid.data_ptr(), partials.data_ptr(), grid,
             y0.data_ptr(), a0.data_ptr(), dc.data_ptr(), g.data_ptr(),
             bnd.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))

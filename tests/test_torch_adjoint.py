@@ -96,6 +96,41 @@ def test_masked_driver_matches_early_exit_and_stops():
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
 
 
+def test_adjoint_solver_hooks():
+    """`make_adjoint_odeint`'s forward and backward hooks: a backward
+    solver that returns ``(y0, a0, g)`` leaves the boundary cotangents to
+    the adjoint, one that returns them too is taken as it is; both give
+    the plain adjoint's gradients."""
+    from puflow_torch.models.ode import adjoint_backward
+
+    def func(p, t, y):
+        return torch.tanh(y) @ p["w"].T + torch.sin(3 * t)
+
+    def bwd3(p, y1, y1_bar, t0, t1):
+        return adjoint_backward(func, p, y1, y1_bar, t1, t0)
+
+    def bwd5(p, y1, y1_bar, t0, t1):
+        y0, a0, g = bwd3(p, y1, y1_bar, t0, t1)
+        return (y0, a0, g, -torch.sum(a0 * func(p, t0, y0)),
+                torch.sum(y1_bar * func(p, t1, y1)))
+
+    def fwd(p, y0, t0, t1):
+        return t_odeint(lambda t, y: func(p, t, y), y0, t0, t1,
+                        differentiable=False)
+
+    grads = []
+    for hooks in ({}, {"bwd_solver": bwd3}, {"fwd_solver": fwd,
+                                             "bwd_solver": bwd5}):
+        w = torch.tensor(A, requires_grad=True)
+        y0 = torch.tensor([[1.0, 0.0, 2.0]], requires_grad=True)
+        t1 = torch.tensor(1.3, requires_grad=True)
+        out = make_adjoint_odeint(func, **hooks)({"w": w}, y0, 0.0, t1)
+        grads.append(torch.autograd.grad(torch.sum(out ** 2), (w, y0, t1)))
+    for other in grads[1:]:
+        for g, r in zip(other, grads[0]):
+            torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-7)
+
+
 def _block_inputs(cdim=32):
     params, _ = j_cont.init(KEY)
     block = jax.tree.map(np.asarray, params["flow_blocks"][0])
