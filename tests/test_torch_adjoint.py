@@ -1,9 +1,10 @@
 """The port's CNF gradients against puflow_tpu on the CPU.
 
 The masked fixed-trip driver, the continuous adjoint, the differentiable
-flow blocks, the plain versions of the two training kernels and the whole
-``continuous.forward(train=True)`` go through the JAX functions and their
-counterparts on the same numpy-seeded inputs. Sizes and tolerances are
+flow blocks and the plain versions of the two training kernels go through
+the JAX functions and their counterparts on the same numpy-seeded inputs
+(the whole ``continuous.forward(train=True)``:
+`tests/test_torch_adjoint_model.py`). Sizes and tolerances are
 those of `tests/test_cnf.py`: gradients on 1 x 8 points (values within
 1e-4, gradients within 2e-2 relative), the Pallas kernels in interpret
 mode at B = 1, N = 60 (2e-3 max-relative for the adjoint, 5e-6 for the
@@ -279,58 +280,3 @@ def test_cnf_adjoint_bwd_plain_unrepeated_conditions():
     assert got[2].shape == c.shape
     torch.testing.assert_close(got[2], ref[2].reshape(1, 20, 3, 32).sum(2))
     torch.testing.assert_close(got[0], ref[0])
-
-
-# --------------------------------------------------------------------------
-# the whole model
-# --------------------------------------------------------------------------
-B, N, R = 2, 64, 4
-ROUNDING_ZERO = 1e-4
-
-
-def test_forward_train_matches_jax():
-    """`continuous.forward(train=True)` at seeded (first-step) weights, the
-    size of `test_forward_eval_matches_jax`: the NLL and the dense cloud
-    within 1e-4 (relative for the NLL), and the gradient of a smooth loss
-    (the NLL plus the mean square of the dense cloud) in every parameter
-    leaf within 2e-2 max-relative of `jax.value_and_grad`."""
-    params, state = j_cont.init(KEY)
-    params, state = (jax.tree.map(np.asarray, params),
-                     jax.tree.map(np.asarray, state))
-    x = _rand(7, B, N, 3, scale=0.3)
-
-    def j_loss(p):
-        dense, nll, _ = j_cont.forward(p, state, jnp.asarray(x), R,
-                                       train=True)
-        return nll + jnp.mean(dense ** 2), (nll, dense)
-
-    # one jitted program compiles in about half the time of the eager
-    # solves
-    (_, (rnll, rdense)), rg = jax.jit(jax.value_and_grad(
-        j_loss, has_aux=True))(jax.tree.map(jnp.asarray, params))
-    tp, ts = _to_torch(params, grad=True), _to_torch(state)
-    leaves = jax.tree.leaves(tp)
-    dense, nll, new_state = t_cont.forward(tp, ts, torch.tensor(x), R,
-                                           train=True)
-    grads = torch.autograd.grad(nll + torch.mean(dense ** 2), leaves)
-    assert dense.shape == (B, N * R, 3)
-    np.testing.assert_allclose(float(nll), float(rnll), rtol=1e-4)
-    np.testing.assert_allclose(dense.detach().numpy(), np.asarray(rdense),
-                               atol=1e-4)
-    assert set(new_state) == {"interp", "feat_convs"}
-    ref = [np.asarray(r) for r in jax.tree.leaves(rg)]
-    assert len(ref) == len(grads)
-    assert all(np.isfinite(g.numpy()).all() for g in grads)
-    # the biases of the convs before train-mode BN have a gradient of
-    # exactly zero, which each framework rounds to its own noise (below
-    # 4e-6 here): those leaves are held to be as small in both
-    top = max(np.abs(r).max() for r in ref)
-    zero = ROUNDING_ZERO * top
-    rels = []
-    for g, r in zip(grads, ref):
-        if np.abs(r).max() < zero:
-            assert float(g.abs().max()) < zero
-        else:
-            rels.append(_maxrel(g.numpy(), r))
-    assert len(rels) > len(ref) // 2
-    assert max(rels) < 2e-2, max(rels)

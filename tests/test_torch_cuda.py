@@ -444,7 +444,7 @@ def _maxrel(a, b) -> float:
 @pytest.mark.parametrize("with_trace", [False, True])
 @pytest.mark.parametrize("b,n,r,cdim,time_scale", [
     (1, 60, 1, 32, 0.0), (2, 333, 1, 128, 20.0), (4, 231, 3, 64, 20.0),
-    (8, 256, 4, 128, 0.0), (2, 40, 1, 6, 20.0)])
+    (8, 256, 4, 128, 0.0), (2, 40, 1, 6, 0.0)])
 def test_cnf_adjoint_kernel_matches_plain(card, with_trace, b, n, r, cdim,
                                           time_scale):
     """The adjoint's backward-solve kernel against `cnf_adjoint_bwd_plain`
@@ -452,7 +452,13 @@ def test_cnf_adjoint_kernel_matches_plain(card, with_trace, b, n, r, cdim,
     a0, dc and every parameter gradient within 2e-3 max-relative (the JAX
     package's gate for its kernel, tests/test_cnf.py:216-336), the field
     and its trace at t1 within 5e-5. 333 and 231 rows a cloud leave a
-    partial tile; r > 1 indexes the conditions in place."""
+    partial tile; r > 1 indexes the conditions in place; a condition
+    width of 6 is padded to the kernel's multiple of 4. That case runs at
+    seeded weights: with time rows of scale 20 on 80 rows its first
+    layer's gate gradient (4e-4 against 0.7 for the largest leaf) sits at
+    float32's noise, and the plain version in float32 lies 4.0e-3 and
+    5.0e-3 max-relative from itself in float64 there (measured on the
+    CPU), beyond any float32 solver's reach of the 2e-3 gate."""
     layers = _cnf_layers(card, cdim, b + n, time_scale)
     rng = np.random.RandomState(n + cdim + 1)
 
