@@ -96,6 +96,7 @@ refuses to run without it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -178,7 +179,7 @@ KERNELS = {
     "fps_seeded": {"route": "cuda", "source": "puflow_torch/csrc/fps.cu",
                    "replaces": PALLAS + "fps_pallas.py:165"},
     "cnf_solve_logp": {"route": "cuda",
-                       "source": "puflow_torch/csrc/cnf_logp.cu",
+                       "source": "puflow_torch/csrc/cnf_solve.cu",
                        "replaces": PALLAS + "cnf_pallas.py:281"},
     "cnf_adjoint_bwd": {"route": "cuda",
                         "source": "puflow_torch/csrc/cnf_adjoint.cu",
@@ -931,17 +932,16 @@ def step_grads(trainer, sparse, dense, emd_fn):
 ROUNDING_ZERO = 1e-4
 
 
-def rounding_zero(layout, grads) -> dict:
+def rounding_zero(paths, grads) -> dict:
     """The bias leaves whose gradient is zero to rounding: the largest
     entry is below ``ROUNDING_ZERO`` times that of the same layer's weight
     gradient. (A bias that train-mode BN follows has an exactly zero
     gradient, BN removes the mean, and holds rounding noise of the batch
     sums, about 1e-6 of the weight's; a bias with a real gradient has more
     than 1e-2 of it.) -> {path: that ratio}."""
-    peak = {p: float(g.abs().max())
-            for p, g in zip(layout.paths, grads.split(layout.sizes))}
+    peak = {p: float(g.abs().max()) for p, g in zip(paths, grads)}
     ratios = {p: peak[p] / max(peak[p[:-1] + "w"], 1e-30)
-              for p in layout.paths
+              for p in paths
               if p.endswith("/b") and p[:-1] + "w" in peak}
     return {p: r for p, r in ratios.items() if r < ROUNDING_ZERO}
 
@@ -956,8 +956,8 @@ def phase_train(results, params, state, sparse, dense, card):
     # leaves whose true gradient is zero hold only rounding noise: there
     # both sides must be zero to rounding, and every other leaf is held to
     # the bound
-    zero_plain = rounding_zero(layout, g_plain)
-    zero_kernel = rounding_zero(layout, g_kernel)
+    zero_plain = rounding_zero(layout.paths, g_plain.split(layout.sizes))
+    zero_kernel = rounding_zero(layout.paths, g_kernel.split(layout.sizes))
     if set(zero_plain) != set(zero_kernel):
         raise AssertionError(
             "train gradients: the leaves zero to rounding differ between "
@@ -1696,8 +1696,12 @@ def cnf_grad_loss(params, state, sparse, dense, plain: bool, smooth: bool):
     dense cloud; ``plain`` runs the solves and the EMD on their plain
     versions."""
     cfg = TrainConfig()
-    pred, nll, _ = continuous.forward(params, state, sparse, UPRATIO,
-                                      train=True, plain_solves=plain)
+    solves = continuous.training_solves(
+        cnf_ops.cnf_solve_logp_plain, cnf_ops.cnf_solve_plain,
+        cnf_ops.cnf_adjoint_bwd_plain) if plain else contextlib.nullcontext()
+    with solves:
+        pred, nll, _ = continuous.forward(params, state, sparse, UPRATIO,
+                                          train=True)
     if smooth:
         return nll + torch.mean(pred ** 2)
     emd_fn = emd_auction_plain if plain else emd_auction
@@ -1749,22 +1753,28 @@ def phase_cnf_grad(results, card):
         raise AssertionError(f"cnf_grad: non-finite loss or gradients {bad}")
     log(f"cnf_grad: the loss and all {len(grads)} gradient leaves finite")
 
-    # the smooth loss on the kernels and on the plain versions; leaves whose
-    # gradient is zero but for rounding (the biases before train-mode BN)
-    # must be so on both sides
+    # the smooth loss on the kernels and on the plain versions; the biases
+    # before train-mode BN, whose gradient is zero but for rounding, must be
+    # so on both sides, and no leaf of a CNF block may be among them
     sm = {}
     for plain in (False, True):
         loss = cnf_grad_loss(params, state, sparse, dense, plain, True)
         sm[plain] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
-    top = max(float(g.abs().max()) for g in sm[True][1])
-    zero = ROUNDING_ZERO * top
-    worst, n_zero = ("", 0.0), 0
-    for (path, _), gk, gp in zip(paths, sm[False][1], sm[True][1]):
-        if float(gp.abs().max()) < zero:
-            n_zero += 1
-            if not float(gk.abs().max()) < zero:
-                raise AssertionError(f"cnf_grad {path}: zero to rounding on "
-                                     "the plain versions, not on the kernels")
+    names = [p for p, _ in paths]
+    zero_kernel = rounding_zero(names, sm[False][1])
+    zero_plain = rounding_zero(names, sm[True][1])
+    if set(zero_plain) != set(zero_kernel):
+        raise AssertionError(
+            "cnf_grad: the leaves zero to rounding differ between kernels "
+            "and plain versions: "
+            f"{sorted(set(zero_plain) ^ set(zero_kernel))}")
+    in_blocks = [p for p in zero_plain if p.startswith("/flow_blocks/")]
+    if in_blocks:
+        raise AssertionError(f"cnf_grad: CNF-block leaves zero to rounding "
+                             f"{in_blocks}")
+    worst = ("", 0.0)
+    for path, gk, gp in zip(names, sm[False][1], sm[True][1]):
+        if path in zero_plain:
             continue
         rel = maxrel(gk, gp)
         if not rel < 2e-2:
@@ -1773,9 +1783,12 @@ def phase_cnf_grad(results, card):
         worst = max(worst, (path, rel), key=lambda w: w[1])
     log(f"cnf_grad smooth loss (NLL + mean square of the dense cloud) "
         f"{sm[False][0]:.6f} on kernels, {sm[True][0]:.6f} on plain "
-        f"versions; {len(paths) - n_zero} leaves within 2e-2 max-relative "
-        f"(worst {worst[1]:.3e}, {worst[0]}), {n_zero} zero to rounding on "
-        f"both sides (below {ROUNDING_ZERO:g} of the largest gradient)")
+        f"versions; {len(paths) - len(zero_plain)} leaves within 2e-2 "
+        f"max-relative (worst {worst[1]:.3e}, {worst[0]}); zero to rounding "
+        f"on both sides (largest entry / the layer weight's, below "
+        f"{ROUNDING_ZERO:g}), kernels vs plain: "
+        + ", ".join(f"{p} {zero_kernel[p]:.2e} vs {r:.2e}"
+                    for p, r in zero_plain.items()))
 
     def forward_backward(plain):
         torch.cuda.synchronize()

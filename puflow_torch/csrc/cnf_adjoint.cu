@@ -731,24 +731,32 @@ cudaError_t launch(const AdjArgs& args, int dev, cudaStream_t stream) {
 // of n_rows rows: y1, a1 [n_rows, 3], logp1, ap [n_rows] (read only with
 // the trace), conditions c [n_rows / rep, cdim] with their projections
 // proj [n_rows / rep, 262] and the projection matrix transposed, wct
-// [262, cdim]. Scratch: rows, n_rows (560 + 2 cdim) floats; per_grid,
-// max_grid (2 ng + 10,008) + 2 ng floats with ng = 5,004 + 264 cdim;
-// partials, 4 max_grid doubles. Writes y0, a0 [n_rows, 3], dc [n_rows,
-// cdim] (per row of y), the packed gradient g [ng], bnd [n_rows, 8] = f1,
-// div1, f0, div0, and stats = steps attempted, accepted. cdim, the width
-// of c and wct, is a multiple of 4, their columns past cdim_true zero;
-// rep divides n_rows.
+// [262, cdim]. cdim, the width of c and wct, is a multiple of 4, their
+// columns past cdim_true zero; rep divides n_rows. Scratch, each with its
+// size, which must be at least what the layout needs: rows, n_rows (560 +
+// 2 cdim) floats; per_grid, max_grid (2 ng + 10,008) + 2 ng floats with
+// ng = 5,004 + 264 cdim; partials, 4 max_grid doubles. Writes y0, a0
+// [n_rows, 3], dc [n_rows, cdim] (per row of y), the packed gradient g
+// [ng], bnd [n_rows, 8] = f1, div1, f0, div0, and stats = steps
+// attempted, accepted.
 extern "C" int puflow_cnf_adjoint(
     const void* y1, const void* logp1, const void* a1, const void* ap,
     const void* c, const void* proj, const void* weights, const void* wct,
     const void* t01, int n_rows, int rep, int cdim, int cdim_true,
     int with_trace,
-    float rtol, float atol, int max_steps, void* rows, void* per_grid,
-    void* partials, int max_grid, void* out_y0, void* out_a0, void* out_dc,
-    void* out_g, void* out_bnd, void* stats, void* stream) {
+    float rtol, float atol, int max_steps, void* rows, long long rows_floats,
+    void* per_grid, long long per_grid_floats, void* partials,
+    long long partials_doubles, int max_grid, void* out_y0, void* out_a0,
+    void* out_dc, void* out_g, void* out_bnd, void* stats, void* stream) {
   using namespace puflow;
   if (n_rows < 1 || rep < 1 || n_rows % rep != 0 || max_grid < 1 ||
       cdim < 4 || cdim % 4 != 0 || cdim_true < 0 || cdim_true > cdim)
+    return cudaErrorInvalidValue;
+  const long long ng = kGOwn + static_cast<long long>(cdim) * kLdP;
+  if (rows_floats < static_cast<long long>(n_rows) * (4 * kLd + 2 * kLdP +
+                                                      2 * cdim) ||
+      per_grid_floats < max_grid * (2 * ng + 2 * kGOwn) + 2 * ng ||
+      partials_doubles < 4LL * max_grid)
     return cudaErrorInvalidValue;
   cudaError_t err;
   int dev = 0;

@@ -1,122 +1,100 @@
-// Whole adaptive dopri5 solve of one CNF block in one launch.
+// Whole adaptive dopri5 solves of one CNF block in one launch: the plain
+// field, and the field with its exact-trace log-density channel.
 //
-// Replaces the TPU kernels `cnf_solve_pallas` / `cnf_solve_pallas_t`
-// (puflow_tpu/ops/pallas/cnf_pallas.py, `_cnf_solve_kernel`): integrates
-// the plain (divergence-free) ConcatSquashLinear field 3 -> 64 -> 64 -> 3,
+// Replaces the TPU kernels `cnf_solve_pallas` / `cnf_solve_pallas_t` and
+// `cnf_solve_logp_pallas` (puflow_tpu/ops/pallas/cnf_pallas.py,
+// `_cnf_solve_kernel` and `_cnf_solve_logp_kernel`): integrates, for every
+// row of y [R, 3] from t0 to t1 (either direction), the ConcatSquashLinear
+// field 3 -> 64 -> 64 -> 3 of `cnf_field.cuh`,
 //   h = x W + b;  out = h * sigmoid(t gate_t + gate_c) + (t bias_t + bias_c)
-// with tanh between layers, for every row of y [R, 3] from t0 to t1
-// (either direction), with ONE step size shared by all rows: the error
-// ratio of a step is the RMS over all 3 R entries, and accept / reject is
-// one decision a step. Same tableau, controller and FSAL as the plain
-// version, `cnf_solve_plain` in puflow_torch/ops/cnf.py
-// (`models.ode.odeint_dopri5` on `field_plain_csl`). The per-row condition
-// projections gate_c / bias_c are constant during a solve and come
-// precomputed (one matrix product in the wrapper), 262 floats a condition
-// row; a condition row may serve `rep` consecutive rows of y, so the
-// inverse pass never repeats its conditions. The three products of the
-// field are computed here, in f32 on the CUDA cores.
+// with tanh between layers, either alone (`puflow_cnf_solve`) or with
+// d logp / dt = -div f, div the exact trace from three tangent chains
+// (`puflow_cnf_solve_logp`). ONE step size is shared by all rows: the
+// error ratio of a step is the RMS over every entry of the state (3 R, or
+// 4 R with logp), and accept / reject is one decision a step. Same
+// tableau, controller and FSAL as the plain versions, `cnf_solve_plain`
+// and `cnf_solve_logp_plain` in puflow_torch/ops/cnf.py
+// (`models.ode.odeint_dopri5` on `field_plain_csl` / `field_with_exact_div`).
+// The TPU's log-density kernel instead lets each block of up to 8,192 rows
+// adapt its own step; the port follows the plain version, so that the
+// kernel and its oracle take the same steps and agree to rounding wherever
+// a step size is set by a clip. The per-row condition projections gate_c /
+// bias_c are constant during a solve and come precomputed (one matrix
+// product in the wrapper), 262 floats a condition row; a condition row may
+// serve `rep` consecutive rows of y, so the inverse pass never repeats its
+// conditions. The three products of the field are computed here, in f32
+// on the CUDA cores.
 //
 // What bounds it on the H100: FP32 operations. A row costs 4,480
-// multiply-adds and 259 transcendentals per field evaluation, six
-// evaluations a step, against 24 bytes of state and 1,048 bytes of
-// projections read once a step. With everything in shared memory and the
-// 64 x 64 product at most a third of the instructions, what limits it in
-// practice is the instruction issue rate of the small layers, the
-// epilogues and the barriers around them.
+// multiply-adds and 259 transcendentals per plain field evaluation (about
+// 13k more for the tangent chains), six evaluations a step, against 24
+// bytes of state and 1,048 bytes of projections read once a step. With
+// everything in shared memory and the 64 x 64 product at most a third of
+// the instructions, what limits it in practice is the instruction issue
+// rate of the small layers, the epilogues and the barriers around them.
 //
 // Design. The solve needs the error norm over every row before any row
 // may go on, so it is one cooperative launch (`cudaLaunchCooperativeKernel`)
-// of at most as many blocks as fit the card at once (two an SM), with one
-// `grid.sync()` a step and no host read from start to end; t0 and t1 come
-// from device memory. Rows are cut into tiles of 48; block b owns tiles
-// b, b + grid, ... and, for each, runs the step's six stages out of shared
-// memory (weights resident, the tile's projections loaded once a step and
-// used by all six evaluations, hidden activations never in device
-// memory), so there is no cap on rows. Two blocks an SM overlap one
-// block's barriers and transcendental chains with the other's products;
-// the shared-memory traffic of the 64 x 64 layer is 16-byte loads.
-// Between steps the state (y and the FSAL stage k1) lives in device memory
-// in two copies: a step reads copy `cur` and writes its candidate (y5, k7)
-// to the other, and an accepted step flips `cur`, so nothing is copied.
-// The norm is summed in a fixed order: within a tile by a shuffle tree,
-// over a block's tiles in index order, over blocks in a fixed order after
-// the sync, each block repeating the same sum, so every block takes the
-// same decision and two runs agree bit for bit (no float atomics). A
-// partial last tile adds nothing to the sum.
+// of as many blocks as fit the card at once (the occupancy API decides),
+// with one `grid.sync()` a step and no host read from start to end; t0 and
+// t1 come from device memory. One step loop, `solve_kernel`, is templated
+// on the field: rows are cut into tiles of the field's height; block b
+// owns tiles b, b + grid, ... and, for each, runs the step's six stages
+// out of shared memory (weights resident, the tile's projections loaded
+// once a step and used by all six evaluations, hidden activations never in
+// device memory), so there is no cap on rows. The plain field takes tiles
+// of 48 rows, two blocks an SM: one block's barriers and transcendental
+// chains overlap the other's products, and the shared-memory traffic of
+// the 64 x 64 layer is 16-byte loads. The tangent chains of the log-density
+// field triple the hidden tiles, so its tile holds 16 rows. Between steps
+// the state (y[, logp] and the FSAL stage k1) lives in device memory in two
+// copies: a step reads copy `cur` and writes its candidate (y5, k7) to the
+// other, and an accepted step flips `cur`, so nothing is copied. The norm
+// is summed in a fixed order: within a tile by a shuffle tree, over a
+// block's tiles in index order, over blocks in a fixed order after the
+// sync, each block repeating the same sum, so every block takes the same
+// decision and two runs agree bit for bit (no float atomics). A partial
+// last tile adds nothing to the sum.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 
+#include "cnf_field.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace puflow {
 namespace {
 
-// Tile height (a multiple of 16, at most 80) and blocks an SM. Timed side
-// by side on the H100: 48 x 2 (102 KB of shared memory a block) ties with
-// 32 x 3, which fills shared memory to the brim, and beats 32 x 2 (by 10%
-// at 262,144 rows), 64 x 1 and 16 x 4 (by 37%).
-constexpr int kRows = 48;
-constexpr int kRowBlocks = kRows / 16;
+using namespace cnf_field;
+
 constexpr int kThreads = 256;        // 16 x 16 threads
-constexpr int kBlocksPerSm = 2;
 constexpr int kMaxDevices = 64;      // cards a process may launch on
-static_assert(kRows % 16 == 0 && kRows * 3 <= kThreads, "tile height");
-constexpr int kH = 64;               // hidden width
+// The plain field's tile height (a multiple of 16, at most 80) and blocks
+// an SM. Timed side by side on the H100: 48 x 2 (102 KB of shared memory a
+// block) ties with 32 x 3, which fills shared memory to the brim, and
+// beats 32 x 2 (by 10% at 262,144 rows), 64 x 1 and 16 x 4 (by 37%).
+constexpr int kPlainRows = 48;
+constexpr int kRowBlocks = kPlainRows / 16;
+static_assert(kPlainRows % 16 == 0 && kPlainRows * 3 <= kThreads,
+              "tile height");
 constexpr int kLdH = kH + 4;         // row stride of hidden tiles: rows stay
                                      // 16-byte aligned, two rows 4 banks apart
-constexpr int kProj = 4 * kH + 6;    // projections of one condition row:
-                                     // gate1 | bias1 | gate2 | bias2 (64
-                                     // each) | gate3 | bias3 (3 each)
-constexpr int kLdP = kProj + 2;      // row stride in shared memory, 16-byte
-                                     // aligned rows
-constexpr int kTile3 = kRows * 3;
-// packed weights (floats), as `_pack` in ops/cnf.py writes them:
-// per layer W [in, out], then b, gate_t, bias_t [out] each
-constexpr int kW1 = 0;
-constexpr int kV1 = kW1 + 3 * kH;
-constexpr int kW2 = kV1 + 3 * kH;
-constexpr int kV2 = kW2 + kH * kH;
-constexpr int kW3 = kV2 + 3 * kH;
-constexpr int kV3 = kW3 + kH * 3;
-constexpr int kWeights = kV3 + 9;
+constexpr int kPlainTile = kPlainRows * 3;
 constexpr int kWeightsPad = (kWeights + 3) / 4 * 4;
-constexpr int kSmemFloats = kWeightsPad + kRows * kLdP + 2 * kRows * kLdH +
-                            9 * kTile3 + 16;
-
-// Dormand-Prince tableau (models/ode.py)
-__constant__ float kC[7] = {0.f, (float)(1.0 / 5), (float)(3.0 / 10),
-                            (float)(4.0 / 5), (float)(8.0 / 9), 1.f, 1.f};
-__constant__ float kA[7][6] = {
-    {0.f, 0.f, 0.f, 0.f, 0.f, 0.f},
-    {(float)(1.0 / 5), 0.f, 0.f, 0.f, 0.f, 0.f},
-    {(float)(3.0 / 40), (float)(9.0 / 40), 0.f, 0.f, 0.f, 0.f},
-    {(float)(44.0 / 45), (float)(-56.0 / 15), (float)(32.0 / 9), 0.f, 0.f, 0.f},
-    {(float)(19372.0 / 6561), (float)(-25360.0 / 2187), (float)(64448.0 / 6561),
-     (float)(-212.0 / 729), 0.f, 0.f},
-    {(float)(9017.0 / 3168), (float)(-355.0 / 33), (float)(46732.0 / 5247),
-     (float)(49.0 / 176), (float)(-5103.0 / 18656), 0.f},
-    {(float)(35.0 / 384), 0.f, (float)(500.0 / 1113), (float)(125.0 / 192),
-     (float)(-2187.0 / 6784), (float)(11.0 / 84)}};
-__constant__ float kB5[7] = {(float)(35.0 / 384),      0.f,
-                             (float)(500.0 / 1113),    (float)(125.0 / 192),
-                             (float)(-2187.0 / 6784),  (float)(11.0 / 84),
-                             0.f};
-__constant__ float kB4[7] = {(float)(5179.0 / 57600),    0.f,
-                             (float)(7571.0 / 16695),    (float)(393.0 / 640),
-                             (float)(-92097.0 / 339200), (float)(187.0 / 2100),
-                             (float)(1.0 / 40)};
 
 struct SolveArgs {
   const float* y0;       // [n_rows, 3]
+  const float* logp0;    // [n_rows] (the log-density solve)
   const float* proj;     // [n_rows / rep, kProj]
   const float* weights;  // [kWeights]
   const float* t01;      // t0, t1
-  float* state;          // y [2][n_rows * 3], then k1 [2][n_rows * 3]
+  float* state;          // y[, logp] [2][n_rows][kCh], then k1 the same
   double* partials;      // [2][gridDim.x]
-  float* out;            // [n_rows, 3]
+  float* out_y;          // [n_rows, 3]
+  float* out_logp;       // [n_rows] (the log-density solve)
   int* stats;            // steps attempted, steps accepted
   int n_rows, rep, max_steps;
   float rtol, atol;
@@ -125,13 +103,12 @@ struct SolveArgs {
 __device__ __forceinline__ float squash(float h, float t, float gate_t,
                                         float gate_c, float bias_t,
                                         float bias_c) {
-  const float gate = 1.f / (1.f + expf(-(t * gate_t + gate_c)));
-  return h * gate + (t * bias_t + bias_c);
+  return h * sigmoid(t * gate_t + gate_c) + (t * bias_t + bias_c);
 }
 
-// One field evaluation on a tile: xin [kRows][3] -> kout [kRows][3].
+// One field evaluation on a tile: xin [kPlainRows][3] -> kout [kPlainRows][3].
 // Contains __syncthreads: call it from every thread, after xin is written
-// and synchronised. It returns unsynchronised: thread tid < 3 kRows has
+// and synchronised. It returns unsynchronised: thread tid < 3 kPlainRows has
 // written kout[tid], the element it alone reads until the next barrier.
 // Each epilogue first loads all of a thread's operands, then computes its
 // outputs side by side, then stores them, so that the chains of the
@@ -143,7 +120,7 @@ __device__ void field(const float* __restrict__ w_s,
   const int tid = threadIdx.x;
   // layer 1, 3 -> 64: thread = column tid % 64 of rows tid / 64 + 4 u
   {
-    constexpr int kPer = kRows * kH / kThreads;
+    constexpr int kPer = kPlainRows * kH / kThreads;
     constexpr int kStep = kThreads / kH;
     const int o = tid % kH, r0 = tid / kH;
     const float w0 = w_s[kW1 + o], w1 = w_s[kW1 + kH + o],
@@ -161,7 +138,7 @@ __device__ void field(const float* __restrict__ w_s,
     }
 #pragma unroll
     for (int u = 0; u < kPer; ++u)
-      h[u] = tanhf(h[u] * (1.f / (1.f + expf(-g[u]))) + c[u]);
+      h[u] = tanhf(h[u] * sigmoid(g[u]) + c[u]);
 #pragma unroll
     for (int u = 0; u < kPer; ++u) ha[(r0 + kStep * u) * kLdH + o] = h[u];
   }
@@ -232,8 +209,7 @@ __device__ void field(const float* __restrict__ w_s,
     for (int i = 0; i < kRowBlocks; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        acc[i][j] = tanhf(acc[i][j] * (1.f / (1.f + expf(-g[i][j]))) +
-                          c[i][j]);
+        acc[i][j] = tanhf(acc[i][j] * sigmoid(g[i][j]) + c[i][j]);
 #pragma unroll
     for (int i = 0; i < kRowBlocks; ++i)
       *reinterpret_cast<float4*>(hb + (ty + 16 * i) * kLdH + 4 * tx) =
@@ -242,7 +218,7 @@ __device__ void field(const float* __restrict__ w_s,
   __syncthreads();
   // layer 3, 64 -> 3: thread = (row, channel), four partial sums over
   // k = u mod 4, the row read as 16-byte loads
-  if (tid < kTile3) {
+  if (tid < kPlainTile) {
     const int r = tid / 3, o = tid - r * 3;
     const float4* hrow = reinterpret_cast<const float4*>(hb + r * kLdH);
     const float* w3 = w_s + kW3 + o;
@@ -262,42 +238,77 @@ __device__ void field(const float* __restrict__ w_s,
   }
 }
 
-// Sum of `v` over the block in a fixed order (shuffle tree per warp, then
-// the warps in index order); the result is valid in thread 0.
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
-  __syncthreads();
-  return total;
+// The plain field on tiles of 48 rows: the weights as `_pack` writes them
+// (W2's rows kH apart, read as 16-byte words), two hidden tiles.
+struct PlainField {
+  static constexpr int kRows = kPlainRows, kCh = 3, kBlocksPerSm = 2;
+  static constexpr int kWeightFloats = kWeightsPad;
+  static constexpr int kScratchFloats = 2 * kRows * kLdH;
+  __device__ static void load(const float* __restrict__ g, float* w_s) {
+    for (int i = threadIdx.x; i < kWeights; i += kThreads)
+      w_s[i] = __ldg(g + i);
+  }
+  // xin [kRows][3] -> kout [kRows][3]; returns unsynchronised, as `field`
+  __device__ static void eval(const float* w_s, const float* proj_s, float t,
+                              const float* xin, float* scratch, float* kout) {
+    field(w_s, proj_s, t, xin, scratch, scratch + kRows * kLdH, kout);
+  }
+};
+
+// The field and its exact trace on tiles of 16 rows: (y, logp) [kRows][4]
+// -> (f, -div) [kRows][4], `cnf_field.cuh`'s `forward`.
+struct LogpField {
+  static constexpr int kRows = 16, kCh = 4, kBlocksPerSm = 1;
+  static constexpr int kWeightFloats = kSmemW;
+  static constexpr int kScratchFloats = 12 * kRows * kH + 12 * kRows;
+  __device__ static void load(const float* __restrict__ g, float* w_s) {
+    load_weights(g, w_s);
+  }
+  __device__ static void eval(const float* w_s, const float* proj_s, float t,
+                              const float* xin, float* scratch, float* kout) {
+    Act act;
+    float* p = scratch;
+    act.h1 = p; act.s1 = p + kRows * kH; act.x1 = p + 2 * kRows * kH;
+    act.h2 = p + 3 * kRows * kH; act.s2 = p + 4 * kRows * kH;
+    act.x2 = p + 5 * kRows * kH;
+    p += 6 * kRows * kH;
+    act.u1 = p; act.v2 = p + 3 * kRows * kH;
+    p += 6 * kRows * kH;
+    act.h3 = p; act.s3 = p + 3 * kRows; act.v3 = p + 6 * kRows;
+    act.dterm = p + 9 * kRows;
+    forward<kRows, true>(w_s, proj_s, t, xin, kCh, act, kout, kCh, 3);
+  }
+};
+
+template <class F>
+constexpr int smem_floats() {
+  return F::kWeightFloats + F::kRows * kLdP + F::kScratchFloats +
+         9 * F::kRows * F::kCh + 16;
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-cnf_solve_kernel(SolveArgs a) {
+template <class F>
+__global__ void __launch_bounds__(kThreads, F::kBlocksPerSm)
+solve_kernel(SolveArgs a) {
+  constexpr int kRows = F::kRows, kCh = F::kCh, kTile = kRows * kCh;
+  static_assert(kTile <= kThreads, "a thread an entry of the tile");
   extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                          // [kWeightsPad]
-  float* proj_s = w_s + kWeightsPad;          // [kRows][kLdP]
-  float* ha = proj_s + kRows * kLdP;          // [kRows][kLdH]
-  float* hb = ha + kRows * kLdH;              // [kRows][kLdH]
-  float* ks = hb + kRows * kLdH;              // [7][kRows][3] stages k1..k7
-  float* ys = ks + 7 * kTile3;                // [kRows][3] state
-  float* xin = ys + kTile3;                   // [kRows][3] stage input
-  float* red = xin + kTile3;                  // [8] warp sums
+  float* w_s = smem;                          // [F::kWeightFloats]
+  float* proj_s = w_s + F::kWeightFloats;     // [kRows][kLdP]
+  float* scratch = proj_s + kRows * kLdP;     // the field's activations
+  float* ks = scratch + F::kScratchFloats;    // [7][kRows][kCh] stages
+  float* ys = ks + 7 * kTile;                 // [kRows][kCh] state
+  float* xin = ys + kTile;                    // [kRows][kCh] stage input
+  float* red = xin + kTile;                   // [8] warp sums
   float* ctrl = red + 8;                      // [8] the controller's scalars
 
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
-  const int n3 = a.n_rows * 3;
+  const int n_state = a.n_rows * kCh;
   const int n_tiles = (a.n_rows + kRows - 1) / kRows;
-  float* ybuf = a.state;                      // [2][n3]
-  float* kbuf = a.state + 2 * static_cast<size_t>(n3);
+  float* sbuf = a.state;                      // [2][n_state]
+  float* kbuf = a.state + 2 * static_cast<size_t>(n_state);
 
-  for (int i = tid; i < kWeights; i += kThreads) w_s[i] = __ldg(a.weights + i);
+  F::load(a.weights, w_s);
 
   // a tile's projections, zero beyond the last row: warp w loads rows w,
   // w + 8, ... as 8-byte words (a row is 131 of them)
@@ -322,15 +333,18 @@ cnf_solve_kernel(SolveArgs a) {
     const int rows = min(kRows, a.n_rows - row0);
     __syncthreads();  // the previous tile is done with the shared tiles
     load_proj(row0, rows);
-    if (tid < kTile3)
-      xin[tid] = tid < rows * 3
-                     ? __ldg(a.y0 + static_cast<size_t>(row0) * 3 + tid)
-                     : 0.f;
+    if (tid < kTile) {
+      const int r = tid / kCh, c = tid % kCh;
+      const size_t row = static_cast<size_t>(row0) + r;
+      xin[tid] = r >= rows ? 0.f
+                 : c < 3   ? __ldg(a.y0 + row * 3 + c)
+                           : __ldg(a.logp0 + row);
+    }
     __syncthreads();
-    field(w_s, proj_s, t0, xin, ha, hb, ks);
-    if (tid < rows * 3) {
-      const size_t g = static_cast<size_t>(row0) * 3 + tid;
-      ybuf[g] = xin[tid];
+    F::eval(w_s, proj_s, t0, xin, scratch, ks);
+    if (tid < rows * kCh) {
+      const size_t g = static_cast<size_t>(row0) * kCh + tid;
+      sbuf[g] = xin[tid];
       kbuf[g] = ks[tid];
     }
   }
@@ -342,53 +356,53 @@ cnf_solve_kernel(SolveArgs a) {
     // never step past t1
     const float remaining = t1 - t;
     const float h_c = fabsf(h) > fabsf(remaining) ? remaining : h;
-    const float* y_cur = ybuf + static_cast<size_t>(cur) * n3;
-    const float* k_cur = kbuf + static_cast<size_t>(cur) * n3;
-    float* y_new = ybuf + static_cast<size_t>(1 - cur) * n3;
-    float* k_new = kbuf + static_cast<size_t>(1 - cur) * n3;
+    const float* s_cur = sbuf + static_cast<size_t>(cur) * n_state;
+    const float* k_cur = kbuf + static_cast<size_t>(cur) * n_state;
+    float* s_new = sbuf + static_cast<size_t>(1 - cur) * n_state;
+    float* k_new = kbuf + static_cast<size_t>(1 - cur) * n_state;
     double partial = 0.0;  // thread 0's: this block's tiles in index order
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row0 = tile * kRows;
       const int rows = min(kRows, a.n_rows - row0);
       __syncthreads();  // the previous tile is done with the shared tiles
       load_proj(row0, rows);
-      if (tid < kTile3) {
-        const size_t g = static_cast<size_t>(row0) * 3 + tid;
-        const bool valid = tid < rows * 3;
-        ys[tid] = valid ? __ldcg(y_cur + g) : 0.f;
+      if (tid < kTile) {
+        const size_t g = static_cast<size_t>(row0) * kCh + tid;
+        const bool valid = tid < rows * kCh;
+        ys[tid] = valid ? __ldcg(s_cur + g) : 0.f;
         ks[tid] = valid ? __ldcg(k_cur + g) : 0.f;
       }
       __syncthreads();
       // stages 2..7 (k1 is carried: first same as last)
 #pragma unroll 1
       for (int i = 1; i < 7; ++i) {
-        if (tid < kTile3) {
+        if (tid < kTile) {
           float acc = ks[tid] * (kA[i][0] * h_c);
           for (int j = 1; j < i; ++j)
-            acc += ks[j * kTile3 + tid] * (kA[i][j] * h_c);
+            acc += ks[j * kTile + tid] * (kA[i][j] * h_c);
           xin[tid] = ys[tid] + acc;
         }
         __syncthreads();
-        field(w_s, proj_s, t + kC[i] * h_c, xin, ha, hb, ks + i * kTile3);
+        F::eval(w_s, proj_s, t + kC[i] * h_c, xin, scratch, ks + i * kTile);
       }
       float sq = 0.f;
-      if (tid < rows * 3) {
+      if (tid < rows * kCh) {
         float s5 = ks[tid] * kB5[0];
-        float se = ks[tid] * __fsub_rn(kB5[0], kB4[0]);
+        float se = ks[tid] * err_weight(0);
 #pragma unroll
         for (int j = 1; j < 7; ++j) {
-          const float kj = ks[j * kTile3 + tid];
+          const float kj = ks[j * kTile + tid];
           s5 += kB5[j] * kj;
-          se += __fsub_rn(kB5[j], kB4[j]) * kj;
+          se += err_weight(j) * kj;
         }
         const float y = ys[tid];
         const float y5 = y + h_c * s5;
         const float r = (h_c * se) /
                         (a.atol + a.rtol * fmaxf(fabsf(y), fabsf(y5)));
         sq = r * r;
-        const size_t g = static_cast<size_t>(row0) * 3 + tid;
-        y_new[g] = y5;
-        k_new[g] = ks[6 * kTile3 + tid];
+        const size_t g = static_cast<size_t>(row0) * kCh + tid;
+        s_new[g] = y5;
+        k_new[g] = ks[6 * kTile + tid];
       }
       const float tile_sum = block_sum(sq, red);
       if (tid == 0) partial += static_cast<double>(tile_sum);
@@ -397,26 +411,15 @@ cnf_solve_kernel(SolveArgs a) {
     if (tid == 0) part[blockIdx.x] = partial;
     __threadfence();
     grid.sync();
-    // every block sums the partials in the same fixed order (lane l takes
-    // l, l + 32, ..., then a butterfly over the lanes) and decides alike
+    // every block sums the partials in the same fixed order and decides
+    // alike
     if (tid < 32) {
-      double total = 0.0;
-      for (unsigned b = tid; b < gridDim.x; b += 32) total += __ldcg(part + b);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        total += __shfl_xor_sync(0xffffffffu, total, off);
-      if (tid == 0) {
-        const float ratio =
-            sqrtf(static_cast<float>(total / (3.0 * a.n_rows)) + 1e-24f);
-        const bool accept = ratio <= 1.f;
-        const float factor = fminf(
-            fmaxf(0.9f * powf(fmaxf(ratio, 1e-10f), -0.2f), 0.1f), 10.f);
-        float new_h = h_c * factor;
-        if (fabsf(new_h) < 1e-12f) new_h = h_c;
-        ctrl[0] = accept ? t + h_c : t;
-        ctrl[1] = new_h;
-        ctrl[2] = accept ? 1.f : 0.f;
-      }
+      const double total = grid_total(part, gridDim.x);
+      if (tid == 0)
+        control(sqrtf(static_cast<float>(
+                          total / (static_cast<double>(kCh) * a.n_rows)) +
+                      1e-24f),
+                t, h_c, ctrl);
     }
     __syncthreads();
     t = ctrl[0];
@@ -429,19 +432,72 @@ cnf_solve_kernel(SolveArgs a) {
     ++n;
   }
 
-  const float* y_fin = ybuf + static_cast<size_t>(cur) * n3;
+  const float* s_fin = sbuf + static_cast<size_t>(cur) * n_state;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * kRows;
     const int rows = min(kRows, a.n_rows - row0);
-    if (tid < rows * 3) {
-      const size_t g = static_cast<size_t>(row0) * 3 + tid;
-      a.out[g] = __ldcg(y_fin + g);
+    if (tid < rows * kCh) {
+      const size_t row = static_cast<size_t>(row0) + tid / kCh;
+      const int c = tid % kCh;
+      const float v = __ldcg(s_fin + row * kCh + c);
+      if (c < 3)
+        a.out_y[row * 3 + c] = v;
+      else
+        a.out_logp[row] = v;
     }
   }
   if (blockIdx.x == 0 && tid == 0) {
     a.stats[0] = n;
     a.stats[1] = accepted;
   }
+}
+
+// Launch `solve_kernel<F>` on the current card. The blocks that fit a card
+// at once are found (and the kernel's shared-memory limit set) at the
+// first launch on that card.
+template <class F>
+cudaError_t launch(const SolveArgs& args, int max_grid, cudaStream_t stream) {
+  if (args.n_rows < 1 || args.rep < 1 || args.n_rows % args.rep != 0 ||
+      max_grid < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * smem_floats<F>();
+  static std::atomic<int> resident[kMaxDevices];
+  cudaError_t err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int blocks = resident[dev].load(std::memory_order_relaxed);
+  if (blocks == 0) {
+    int sms = 0, coop = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             solve_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(smem))) != cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                      dev)) != cudaSuccess)
+      return err;
+    if (!coop) return cudaErrorNotSupported;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, solve_kernel<F>, kThreads, smem)) != cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    blocks = sms * per_sm;
+    resident[dev].store(blocks, std::memory_order_relaxed);
+  }
+  const int tiles = (args.n_rows + F::kRows - 1) / F::kRows;
+  int grid = blocks;
+  if (grid > tiles) grid = tiles;
+  if (grid > max_grid) grid = max_grid;
+  SolveArgs copy = args;
+  void* params[] = {&copy};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(solve_kernel<F>), dim3(grid), dim3(kThreads),
+      params, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -458,59 +514,50 @@ extern "C" int puflow_cnf_solve(const void* y0, const void* proj,
                                 int max_grid, void* out, void* stats,
                                 void* stream) {
   using namespace puflow;
-  if (n_rows < 1 || rep < 1 || n_rows % rep != 0 || max_grid < 1)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kSmemFloats;
-  // The blocks that fit a card at once are found (and the kernel's
-  // shared-memory limit set) at the first launch on that card.
-  static std::atomic<int> resident[kMaxDevices];
-  cudaError_t err;
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = resident[dev].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int sms = 0, coop = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             cnf_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             static_cast<int>(smem))) != cudaSuccess)
-      return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return err;
-    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                      dev)) != cudaSuccess)
-      return err;
-    if (!coop) return cudaErrorNotSupported;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, cnf_solve_kernel, kThreads, smem)) != cudaSuccess)
-      return err;
-    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    blocks = sms * per_sm;
-    resident[dev].store(blocks, std::memory_order_relaxed);
-  }
-  const int tiles = (n_rows + kRows - 1) / kRows;
-  int grid = blocks;
-  if (grid > tiles) grid = tiles;
-  if (grid > max_grid) grid = max_grid;
-  SolveArgs args;
+  SolveArgs args{};
   args.y0 = static_cast<const float*>(y0);
   args.proj = static_cast<const float*>(proj);
   args.weights = static_cast<const float*>(weights);
   args.t01 = static_cast<const float*>(t01);
   args.state = static_cast<float*>(state);
   args.partials = static_cast<double*>(partials);
-  args.out = static_cast<float*>(out);
+  args.out_y = static_cast<float*>(out);
   args.stats = static_cast<int*>(stats);
   args.n_rows = n_rows;
   args.rep = rep;
   args.max_steps = max_steps;
   args.rtol = rtol;
   args.atol = atol;
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(cnf_solve_kernel), dim3(grid), dim3(kThreads),
-      params, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch<PlainField>(args, max_grid,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// y0 [n_rows, 3], logp0 [n_rows] -> out_y, out_logp at t1, with t01 = {t0,
+// t1} on the device. proj is [n_rows / rep, 262]; state is scratch of
+// 16 n_rows floats, partials scratch of 2 max_grid doubles; stats gets the
+// steps attempted and accepted. n_rows > 0 and rep divides n_rows.
+extern "C" int puflow_cnf_solve_logp(
+    const void* y0, const void* logp0, const void* proj, const void* weights,
+    const void* t01, int n_rows, int rep, float rtol, float atol,
+    int max_steps, void* state, void* partials, int max_grid, void* out_y,
+    void* out_logp, void* stats, void* stream) {
+  using namespace puflow;
+  SolveArgs args{};
+  args.y0 = static_cast<const float*>(y0);
+  args.logp0 = static_cast<const float*>(logp0);
+  args.proj = static_cast<const float*>(proj);
+  args.weights = static_cast<const float*>(weights);
+  args.t01 = static_cast<const float*>(t01);
+  args.state = static_cast<float*>(state);
+  args.partials = static_cast<double*>(partials);
+  args.out_y = static_cast<float*>(out_y);
+  args.out_logp = static_cast<float*>(out_logp);
+  args.stats = static_cast<int*>(stats);
+  args.n_rows = n_rows;
+  args.rep = rep;
+  args.max_steps = max_steps;
+  args.rtol = rtol;
+  args.atol = atol;
+  return launch<LogpField>(args, max_grid,
+                           static_cast<cudaStream_t>(stream));
 }

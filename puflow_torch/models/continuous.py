@@ -32,6 +32,8 @@ hyper_bias``), held as `ContinuousModel`'s parameters and buffers.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 from typing import NamedTuple
@@ -335,31 +337,36 @@ def plain_field(layer_type: str = "concatsquash",
 
 
 # --------------------------------------------------------------------------
-# Continuous adjoints of the two differentiable solves. With ``solves``
-# given the net is the shipped one (`ops.cnf.kernel_takes`): "wrappers"
-# runs its solves through `ops.cnf`'s kernel wrappers (kernels on the card,
-# plain versions on the CPU), "plain" through those plain versions on any
-# device (the reference the kernels are held to). Without, both solves are
-# `models.ode`'s, for every layer type and nonlinearity.
+# Continuous adjoints of the two differentiable solves. With ``solves``, a
+# (log-density solve, plain solve, adjoint backward) triple, the net is the
+# shipped one (`ops.cnf.kernel_takes`) and its solves go through those
+# functions; without, both solves are `models.ode`'s, for every layer type
+# and nonlinearity.
 # --------------------------------------------------------------------------
-def _solve_ops(solves: str):
-    """(log-density solve, plain solve, adjoint backward) of ``solves``."""
-    from puflow_torch.ops import cnf as cnf_ops
+_TRAINING_SOLVES = contextvars.ContextVar("training_solves", default=None)
 
-    if solves == "plain":
-        return (cnf_ops.cnf_solve_logp_plain, cnf_ops.cnf_solve_plain,
-                cnf_ops.cnf_adjoint_bwd_plain)
-    return cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t, cnf_ops.cnf_adjoint_bwd
+
+@contextlib.contextmanager
+def training_solves(solve_logp, solve, adjoint_bwd):
+    """Inside the block, the shipped field's differentiable solves go
+    through these functions in place of `ops.cnf`'s kernel wrappers (for
+    example through the wrappers' plain versions on the card: the
+    reference the kernels are held to). A graph built inside keeps them
+    for its backward."""
+    token = _TRAINING_SOLVES.set((solve_logp, solve, adjoint_bwd))
+    try:
+        yield
+    finally:
+        _TRAINING_SOLVES.reset(token)
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_for(layer_type: str, nonlinearity: str,
-                 solves: str | None = None):
+def _adjoint_for(layer_type: str, nonlinearity: str, solves=None):
     """The adjoint of the exact-trace field (the f path): ``solve(p, (y,
     logp0), t0, t1) -> (y1, logp1)`` with ``p = {"layers", "c"}``."""
     fwd_solver = bwd_solver = None
     if solves is not None:
-        solve_logp, _, adjoint_bwd = _solve_ops(solves)
+        solve_logp, _, adjoint_bwd = solves
 
         def fwd_solver(p, y0, t0, t1):
             y, logp0 = y0
@@ -388,14 +395,13 @@ def _adjoint_for(layer_type: str, nonlinearity: str,
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_plain_for(layer_type: str, nonlinearity: str,
-                       solves: str | None = None):
+def _adjoint_plain_for(layer_type: str, nonlinearity: str, solves=None):
     """The adjoint of the plain field (the g path, whose log-density is
     discarded): ``solve(p, y0, t0, t1) -> y1``. With ``solves`` the
     conditions ``p["c"]`` may be un-repeated, ``[B, N / r, cdim]``."""
     fwd_solver = bwd_solver = None
     if solves is not None:
-        _, solve, adjoint_bwd = _solve_ops(solves)
+        _, solve, adjoint_bwd = solves
 
         def fwd_solver(p, y0, t0, t1):
             return solve(p["layers"], p["c"], y0, t0, t1, RTOL, ATOL,
@@ -434,8 +440,7 @@ def flow_block_init(generator, cdim: int, idim: int = 3, T: float = T_INIT,
 def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
                differentiable: bool, max_steps: int | None = None,
                layer_type: str = "concatsquash",
-               nonlinearity: str = "tanh", with_logp: bool = True,
-               plain_solves: bool = False):
+               nonlinearity: str = "tanh", with_logp: bool = True):
     """One block-solve -> (y(t1), accumulated delta-logp ``[B, N, 1]``).
 
     ``c`` is ``[B, N, cdim]``, or ``[B, N / r, cdim]`` when each condition
@@ -443,8 +448,7 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
     latents): the kernel path indexes it in place, the others repeat it.
     ``differentiable`` solves take gradients by the continuous adjoint;
     for the shipped field their solves go through `ops.cnf`'s wrappers, or
-    with ``plain_solves`` through the wrappers' plain versions on any
-    device.
+    through the functions `training_solves` gives.
     """
     # ops.cnf builds its plain version from this module's field
     from puflow_torch.ops import cnf as cnf_ops
@@ -460,7 +464,9 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
         solves = None
         if (layer_type == "concatsquash" and nonlinearity == "tanh"
                 and cnf_ops.kernel_takes(block["layers"])):
-            solves = "plain" if plain_solves else "wrappers"
+            solves = _TRAINING_SOLVES.get() or (
+                cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t,
+                cnf_ops.cnf_adjoint_bwd)
         if solves is None and c.shape[1] != y.shape[1]:
             c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
         p = {"layers": block["layers"], "c": c}
@@ -495,27 +501,23 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
 def flow_block_forward(block, x: torch.Tensor, c: torch.Tensor,
                        differentiable: bool = True,
                        layer_type: str = "concatsquash",
-                       nonlinearity: str = "tanh",
-                       plain_solves: bool = False):
+                       nonlinearity: str = "tanh"):
     """x -> z with the accumulated delta-logp summed per cloud."""
     z, logp = _integrate(block, x, c, reverse=False,
                          differentiable=differentiable,
-                         layer_type=layer_type, nonlinearity=nonlinearity,
-                         plain_solves=plain_solves)
+                         layer_type=layer_type, nonlinearity=nonlinearity)
     return z, torch.sum(logp, dim=(1, 2))
 
 
 def flow_block_inverse(block, z: torch.Tensor, c: torch.Tensor,
                        differentiable: bool = False,
                        layer_type: str = "concatsquash",
-                       nonlinearity: str = "tanh",
-                       plain_solves: bool = False) -> torch.Tensor:
+                       nonlinearity: str = "tanh") -> torch.Tensor:
     """z -> x; the inverse pass never consumes the log-density channel, so
     it integrates the plain field."""
     x, _ = _integrate(block, z, c, reverse=True,
                       differentiable=differentiable, layer_type=layer_type,
-                      nonlinearity=nonlinearity, with_logp=False,
-                      plain_solves=plain_solves)
+                      nonlinearity=nonlinearity, with_logp=False)
     return x
 
 
@@ -669,7 +671,7 @@ def init(generator: torch.Generator, device="cuda"):
 
 
 def f_transform(params, x: torch.Tensor, cs, differentiable: bool = True,
-                need_logp: bool = True, plain_solves: bool = False):
+                need_logp: bool = True):
     """Points -> (latents, total delta-logp per cloud; zero when
     ``need_logp`` is off, where the plain field is integrated)."""
     log_det = torch.zeros((x.shape[0],), dtype=torch.float32,
@@ -679,15 +681,13 @@ def f_transform(params, x: torch.Tensor, cs, differentiable: bool = True,
             x, _ = _integrate(bp, x, c, reverse=False, differentiable=False,
                               with_logp=False)
             continue
-        x, ld = flow_block_forward(bp, x, c, differentiable,
-                                   plain_solves=plain_solves)
+        x, ld = flow_block_forward(bp, x, c, differentiable)
         log_det = log_det + ld
     return x, log_det
 
 
 def g_transform(params, z: torch.Tensor, cs, upratio: int,
-                differentiable: bool = False,
-                plain_solves: bool = False) -> torch.Tensor:
+                differentiable: bool = False) -> torch.Tensor:
     """Latents ``[B, N, C, r]`` -> points ``[B, N * r, C]``, point-major,
     with the un-repeated conditions: each condition row serves its point's
     r consecutive rows."""
@@ -697,7 +697,7 @@ def g_transform(params, z: torch.Tensor, cs, upratio: int,
     z = z.transpose(2, 3).reshape(B, N * r, C)
     for i in reversed(range(len(params["flow_blocks"]))):
         z = flow_block_inverse(params["flow_blocks"][i], z, cs[i],
-                               differentiable, plain_solves=plain_solves)
+                               differentiable)
     return z
 
 
@@ -706,29 +706,25 @@ def _bn_state(state, key: str):
 
 
 def forward(params, state, xyz: torch.Tensor, upratio: int,
-            train: bool = False, plain_solves: bool = False):
+            train: bool = False):
     """``[B, N, 3] -> ([B, N * r, 3], scalar NLL, new state)``; the NLL is
     ``-mean(logp_z - log_det)`` through the exact-trace field.
 
     ``train=False``: the plain solver, no gradients. ``train=True``: BN on
     batch statistics (the new state carries the moved running statistics)
     and differentiable solves by the continuous adjoint, six f solves with
-    the log-density and six g solves without. ``plain_solves`` runs those
-    solves on the plain versions of `ops.cnf`'s kernels on any device: the
-    reference the kernels are held to.
+    the log-density and six g solves without.
     """
     knn_idx = knn_indices(xyz, xyz, _discrete.NUM_NEIGHBORS)
     cs, feat_s = _discrete.feat_extract(params, state, xyz, knn_idx, train)
-    z, log_det = f_transform(params, xyz, cs, differentiable=train,
-                             plain_solves=plain_solves)
+    z, log_det = f_transform(params, xyz, cs, differentiable=train)
     logp_z = standard_gaussian_logp(z)
     logp_x = -torch.mean(logp_z - log_det)
     # K=16 sorted -> its first 8 columns ARE the K=8 graph
     fz, interp_s = interpolation_apply(
         params["interp"], _bn_state(state, "interp"), z.contiguous(), xyz,
         upratio, train, knn_idx=knn_idx)
-    x = g_transform(params, fz, cs, upratio, differentiable=train,
-                    plain_solves=plain_solves)
+    x = g_transform(params, fz, cs, upratio, differentiable=train)
     new_state = None if state is None else {"interp": interp_s,
                                             "feat_convs": feat_s}
     return x, logp_x, new_state

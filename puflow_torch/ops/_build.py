@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each entry point in csrc/*.cu (all return cudaError_t)
 _SIGNATURES = {
     "puflow_fps": [_P, _I, _I, _I, _P, _P, _P],
@@ -51,8 +52,8 @@ _SIGNATURES = {
     "puflow_cnf_solve_logp": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,
                               _I, _P, _P, _P, _P],
     "puflow_cnf_adjoint": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _F, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                           _P, _P],
+                           _I, _F, _F, _I, _P, _L, _P, _L, _P, _L, _I, _P, _P,
+                           _P, _P, _P, _P, _P],
 }
 
 

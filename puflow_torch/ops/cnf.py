@@ -5,10 +5,10 @@ Three kernels, each with its plain version beside it:
   * `cnf_solve` / `cnf_solve_t` (`csrc/cnf_solve.cu`), counterpart of the
     TPU kernels `ops/pallas/cnf_pallas.py:cnf_solve_pallas` and
     `cnf_solve_pallas_t`;
-  * `cnf_solve_logp` (`csrc/cnf_logp.cu`), counterpart of
-    `cnf_pallas.py:cnf_solve_logp_pallas`: the same solve of the field
-    with its exact-trace log-density channel, the forward solve of the f
-    path's adjoint in training;
+  * `cnf_solve_logp` (`csrc/cnf_solve.cu:puflow_cnf_solve_logp`),
+    counterpart of `cnf_pallas.py:cnf_solve_logp_pallas`: the same solve
+    of the field with its exact-trace log-density channel, the forward
+    solve of the f path's adjoint in training;
   * `cnf_adjoint_bwd` (`csrc/cnf_adjoint.cu`), counterpart of
     `ops/pallas/cnf_adjoint_pallas.py:cnf_adjoint_bwd_pallas`: the backward
     solve of the continuous adjoint, with or without the trace.
@@ -250,8 +250,8 @@ def cnf_solve_logp_plain(layers, c: torch.Tensor, y: torch.Tensor,
 
 
 def _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol, atol, max_steps):
-    """Launch `csrc/cnf_logp.cu` -> (y(t1), logp(t1), stats int32 [2] on
-    the device)."""
+    """Launch `csrc/cnf_solve.cu:puflow_cnf_solve_logp` -> (y(t1), logp(t1),
+    stats int32 [2] on the device)."""
     dev = y.device
     _on_card("cnf_solve_logp", layers, dev, c, y, logp0)
     y = y.contiguous()
@@ -427,7 +427,7 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
     ng = _G_OWN + (cdim + pad) * _LD_PROJ
     grid = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    rows = torch.empty((n_rows * (_ROW_FLOATS + 2 * cdim),), **f32)
+    rows = torch.empty((n_rows * (_ROW_FLOATS + 2 * (cdim + pad)),), **f32)
     per_grid = torch.empty((grid * (2 * ng + 2 * _G_OWN) + 2 * ng,), **f32)
     partials = torch.empty((4 * grid,), dtype=torch.float64, device=dev)
     y0, a0 = torch.empty_like(y1), torch.empty_like(a1)
@@ -443,7 +443,8 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
             wct.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r,
             cdim + pad, cdim, int(with_trace), float(rtol), float(atol),
             int(max_steps),
-            rows.data_ptr(), per_grid.data_ptr(), partials.data_ptr(), grid,
+            rows.data_ptr(), rows.numel(), per_grid.data_ptr(),
+            per_grid.numel(), partials.data_ptr(), partials.numel(), grid,
             y0.data_ptr(), a0.data_ptr(), dc.data_ptr(), g.data_ptr(),
             bnd.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "puflow_cnf_adjoint")

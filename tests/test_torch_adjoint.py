@@ -206,6 +206,42 @@ def test_flow_block_gradients_match_jax(direction):
     assert float(grads[len(leaves) - 1].abs()) > 0
 
 
+def test_training_solves_routes_the_differentiable_solves():
+    """Inside `continuous.training_solves` a differentiable block's solves,
+    forward and backward, go through the given functions (here counting
+    spies around the plain versions), and give what the wrappers give on
+    the CPU; outside it they go through the wrappers again."""
+    block, x, c = _block_inputs()
+    calls = {"logp": 0, "solve": 0, "adjoint": 0}
+
+    def spy(key, fn):
+        def wrapped(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    solves = (spy("logp", t_cnf.cnf_solve_logp_plain),
+              spy("solve", t_cnf.cnf_solve_plain),
+              spy("adjoint", t_cnf.cnf_adjoint_bwd_plain))
+
+    def loss_and_grads():
+        tb = _to_torch(block, grad=True)
+        xt = torch.tensor(x)
+        z, logp = t_cont.flow_block_forward(tb, xt, torch.tensor(c))
+        back = t_cont.flow_block_inverse(tb, z, torch.tensor(c),
+                                         differentiable=True)
+        loss = torch.sum(back ** 2) + torch.sum(logp)
+        return [loss, *torch.autograd.grad(loss, jax.tree.leaves(tb))]
+
+    with t_cont.training_solves(*solves):
+        inside = loss_and_grads()
+    assert calls == {"logp": 1, "solve": 1, "adjoint": 2}
+    outside = loss_and_grads()
+    assert calls == {"logp": 1, "solve": 1, "adjoint": 2}
+    for a, b in zip(inside, outside):
+        assert torch.equal(a, b)
+
+
 # --------------------------------------------------------------------------
 # the plain versions of the two kernels
 # --------------------------------------------------------------------------

@@ -28,6 +28,15 @@ def _maxrel(a, b) -> float:
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-8))
 
 
+def _rounding_zero(names, grads) -> set:
+    """The bias leaves whose largest gradient entry is below
+    ``ROUNDING_ZERO`` times that of the same layer's weight."""
+    peak = {n: float(np.abs(np.asarray(g)).max())
+            for n, g in zip(names, grads)}
+    return {n for n in names if n.endswith("/b") and n[:-1] + "w" in peak
+            and peak[n] < ROUNDING_ZERO * peak[n[:-1] + "w"]}
+
+
 B, N, R = 2, 64, 4
 ROUNDING_ZERO = 1e-4
 
@@ -63,19 +72,20 @@ def test_forward_train_matches_jax():
     np.testing.assert_allclose(dense.detach().numpy(), np.asarray(rdense),
                                atol=1e-4)
     assert set(new_state) == {"interp", "feat_convs"}
-    ref = [np.asarray(r) for r in jax.tree.leaves(rg)]
+    flat, _ = jax.tree_util.tree_flatten_with_path(rg)
+    names = ["".join(f"/{getattr(k, 'key', getattr(k, 'idx', k))}"
+                     for k in path) for path, _ in flat]
+    ref = [np.asarray(r) for _, r in flat]
     assert len(ref) == len(grads)
     assert all(np.isfinite(g.numpy()).all() for g in grads)
     # the biases of the convs before train-mode BN have a gradient of
-    # exactly zero, which each framework rounds to its own noise (below
-    # 4e-6 here): those leaves are held to be as small in both
-    top = max(np.abs(r).max() for r in ref)
-    zero = ROUNDING_ZERO * top
-    rels = []
-    for g, r in zip(grads, ref):
-        if np.abs(r).max() < zero:
-            assert float(g.abs().max()) < zero
-        else:
-            rels.append(_maxrel(g.numpy(), r))
+    # exactly zero, which each framework rounds to its own noise: those
+    # leaves are held to be zero to rounding against their own layer's
+    # weight in both, and none of them is a CNF block's
+    zero = _rounding_zero(names, ref)
+    assert zero == _rounding_zero(names, [g.numpy() for g in grads])
+    assert not [n for n in zero if n.startswith("/flow_blocks/")]
+    rels = [_maxrel(g.numpy(), r)
+            for n, g, r in zip(names, grads, ref) if n not in zero]
     assert len(rels) > len(ref) // 2
     assert max(rels) < 2e-2, max(rels)
