@@ -35,6 +35,10 @@ Phases:
   3. compares each kernel with its plain PyTorch version on the card at
      the main path's shapes (256 patches of 256 points, r=4), times both,
      and works out each kernel's bound from the work these inputs need;
+     the merge FPS at 1, 8 and 32 clouds under every plan of `SWEEP`
+     (one block a cloud, clusters of C blocks), ties between blocks
+     included, with each plan's time a step and the chosen plan timed in
+     turns with one block a cloud;
   4. runs `upsample_cloud` + `remove_outliers` on 8 clouds in each
      configuration, with every launch count set to 0 just before and read
      just after; checks the output, that each kernel of the path was
@@ -97,6 +101,7 @@ refuses to run without it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -145,6 +150,12 @@ NPOINT = N_POINTS * UPRATIO + N_OUTLIERS
 N_PATCH = int(N_POINTS / PATCH * EXPAND)                   # 32 per cloud
 MERGE_N = N_PATCH * PATCH * UPRATIO + N_POINTS             # 34816
 K = discrete.NUM_NEIGHBORS
+MERGE_BATCHES = (1, 8, 32)
+# the merge FPS's plans timed side by side: one block a cloud, and
+# clusters of 2-16 blocks of 128 or 256 threads that hold the cloud
+SWEEP = [fps_ops.ONE_BLOCK] + [fps_ops.FpsPlan(c, t)
+                               for c in (2, 3, 4, 6, 8, 12, 16)
+                               for t in (128, 256)]
 TRAIN_B, TRAIN_N = 32, 256          # bench.py:bench_train, 256 -> 1024 points
 TRAIN_WARMUP, TRAIN_WINDOWS, TRAIN_STEPS = 10, 5, 10
 ROOT = Path(__file__).resolve().parent
@@ -482,9 +493,12 @@ def merge_select(pc_n, idx, pred, ops, merge):
     return union, ops["fps"](union, NPOINT)
 
 
-def check_fps(name, xyz, m, results):
-    got = farthest_point_sample(xyz, m)
-    ref = farthest_point_sample_plain(xyz, m)
+def check_fps(name, xyz, m, results, plan=None, ref=None):
+    """The FPS kernel (``plan``, or the wrapper's own) against the plain
+    version's indices (``ref``, or computed here)."""
+    got = farthest_point_sample(xyz, m, _plan=plan)
+    if ref is None:
+        ref = farthest_point_sample_plain(xyz, m)
     torch.cuda.synchronize()
     bad = (got != ref).any(dim=0).nonzero()
     if bad.numel():
@@ -531,9 +545,25 @@ def main_path_patches(batch: int) -> torch.Tensor:
     return x.contiguous()
 
 
+def repeated_half(rng, batch: int, n: int) -> torch.Tensor:
+    """Integer-grid clouds whose second half repeats the first: every point
+    ties exactly with its copy in another block of a cluster, and the lower
+    index must win."""
+    half = rng.randint(0, 64, (batch, n // 2, 3))
+    return torch.from_numpy(
+        np.concatenate([half, half], 1).astype(np.float32)).cuda()
+
+
+def fps_step_us(ms: float, m: int) -> float:
+    return ms * 1e3 / (m - 1)
+
+
 def compare_fps(results, rng):
-    # the seed pick, the union merge, and the union's 16 Morton cells
-    # (`--merge_groups 16`) at 1 and at 32 clouds
+    """`csrc/fps.cu` against the plain version: the seed pick and the
+    union's 16 Morton cells (`--merge_groups 16`) at 1 and 32 clouds (one
+    block a cloud), then the merge at 1, 8 and 32 clouds under every plan
+    of the sweep (`SWEEP`; one block a cloud is C = 1), each timed, and the
+    plan `_fps_plan` chooses timed against one block a cloud in turns."""
     cells = (MERGE_N // 16, -(-NPOINT // 16))              # 2176 -> 514
     for B, N, m, label in ((8, N_POINTS, N_PATCH, "seed pick"),
                            (8, MERGE_N, NPOINT, "merge"),
@@ -545,14 +575,60 @@ def compare_fps(results, rng):
         cloud = rng.rand(B, N, 3).astype(np.float32)
         check_fps(f"{label} float", torch.from_numpy(cloud).cuda(), m,
                   results)
+    capacity = functools.partial(fps_ops.cluster_capacity,
+                                 torch.device("cuda"), MERGE_N)
+    log("fps clusters the card holds at once at the merge, by C and T: "
+        + "; ".join(f"C={c} " + " ".join(
+            f"{t}:{capacity(fps_ops.FpsPlan(c, t))}"
+            for t in sorted(fps_ops._CLUSTER_PER_THREAD)
+            if fps_ops._plan_covers(fps_ops.FpsPlan(c, t), MERGE_N))
+            for c in range(2, 17)))
+    for B in MERGE_BATCHES:
+        clouds = {"float": torch.from_numpy(
+                      rng.rand(B, MERGE_N, 3).astype(np.float32)).cuda(),
+                  "repeated half": repeated_half(rng, B, MERGE_N)}
+        refs = {k: farthest_point_sample_plain(x, NPOINT)
+                for k, x in clouds.items()}
+        chosen = fps_ops._fps_plan(B, MERGE_N, capacity)
+        shape = f"[{B}, {MERGE_N}] -> {NPOINT}"
+        for plan in SWEEP:
+            if not fps_ops._plan_covers(plan, MERGE_N):
+                continue
+            occupancy = ("-" if plan == fps_ops.ONE_BLOCK
+                         else capacity(plan))
+            for label, x in clouds.items():
+                check_fps(f"merge {label}, C={plan.cluster} T="
+                          f"{plan.threads}", x, NPOINT, results, plan=plan,
+                          ref=refs[label])
+            ms = time_ms(lambda: farthest_point_sample(
+                clouds["float"], NPOINT, _plan=plan), 3)
+            log(f"fps sweep {shape} C={plan.cluster} T={plan.threads}: "
+                f"{ms:.4f} ms, {fps_step_us(ms, NPOINT):.4f} us a step, "
+                f"{occupancy} clusters at once"
+                + (" (chosen)" if plan == chosen else ""))
+        x = clouds["float"]
+        one = functools.partial(farthest_point_sample, x, NPOINT,
+                                _plan=fps_ops.ONE_BLOCK)
+        own = functools.partial(farthest_point_sample, x, NPOINT)
+        o1, c1, c2, o2 = (time_ms(one, 3), time_ms(own, 3), time_ms(own, 3),
+                          time_ms(one, 3))
+        ms, one_ms = (c1 + c2) / 2, (o1 + o2) / 2
+        log(f"fps merge {shape}: chosen C={chosen.cluster} T="
+            f"{chosen.threads} {c1:.4f} / {c2:.4f} ms "
+            f"({fps_step_us(ms, NPOINT):.4f} us a step), one block a cloud "
+            f"{o1:.4f} / {o2:.4f} ms ({fps_step_us(one_ms, NPOINT):.4f} us "
+            f"a step): {one_ms / ms:.2f}x")
+        if ms > one_ms:
+            raise AssertionError(f"fps merge {shape}: the chosen plan is "
+                                 "slower than one block a cloud")
+        if B == 8:
+            results["fps"].update(ms=ms, library_ms=None)
+            merge_cloud = x
     seed_cloud = torch.from_numpy(
         rng.rand(8, N_POINTS, 3).astype(np.float32)).cuda()
-    merge_cloud = torch.from_numpy(
-        rng.rand(8, MERGE_N, 3).astype(np.float32)).cuda()
     seed_ms = time_ms(lambda: farthest_point_sample(seed_cloud, N_PATCH), 20)
     seed_plain = time_ms(
         lambda: farthest_point_sample_plain(seed_cloud, N_PATCH), 5)
-    merge_ms = time_ms(lambda: farthest_point_sample(merge_cloud, NPOINT), 3)
     merge_plain = time_ms(
         lambda: farthest_point_sample_plain(merge_cloud, NPOINT), 1)
     log(f"fps seed pick [8, {N_POINTS}] -> {N_PATCH}: kernel {seed_ms:.4f} "
@@ -560,9 +636,9 @@ def compare_fps(results, rng):
     # each step: 3 sub, 3 mul, 2 add, a min and a compare per point
     set_bound(results["fps"], nbytes(merge_cloud) + 8 * NPOINT * 4,
               10 * 8 * MERGE_N * (NPOINT - 1))
-    results["fps"].update(ms=merge_ms, plain_ms=merge_plain, library_ms=None)
-    log(f"fps merge [8, {MERGE_N}] -> {NPOINT}: kernel {merge_ms:.4f} ms, "
-        f"plain {merge_plain:.4f} ms, bound "
+    results["fps"].update(plain_ms=merge_plain)
+    log(f"fps merge [8, {MERGE_N}] -> {NPOINT}: kernel "
+        f"{results['fps']['ms']:.4f} ms, plain {merge_plain:.4f} ms, bound "
         f"{results['fps']['bound_ms']:.4f} ms "
         f"({results['fps']['bound_by']})")
 

@@ -4,7 +4,9 @@ versions, and the grouped merges built on them.
 Counterpart of `puflow_tpu.ops.fps`: `farthest_point_sample` (dispatch),
 `farthest_point_sample_xla` (plain version) and the TPU kernel
 `ops/pallas/fps_pallas.py:farthest_point_sample_pallas` (here
-`csrc/fps.cu:puflow_fps`); `farthest_point_sample_seeded` with
+`csrc/fps.cu`: `puflow_fps_cluster`, a cloud over a thread-block cluster,
+or `puflow_fps`, a block a cloud, as `_fps_plan` chooses from the shape);
+`farthest_point_sample_seeded` with
 `farthest_point_sample_seeded_xla` and the TPU kernel
 `farthest_point_sample_seeded_pallas` (here `csrc/fps.cu:puflow_fps_seeded`);
 and the grouped, partitioned and Morton-cell variants, which only reshape,
@@ -14,6 +16,10 @@ plain version return the same indices.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -55,9 +61,71 @@ def farthest_point_sample_plain(xyz: torch.Tensor,
     return sel
 
 
-def farthest_point_sample(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """FPS ``[B, N, 3] -> [B, n_samples]`` int32: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+class FpsPlan(NamedTuple):
+    """How `farthest_point_sample` runs a batch on the card: each cloud
+    over a cluster of ``cluster`` blocks of ``threads`` threads
+    (`csrc/fps.cu:fps_cluster_kernel`), or, with ``cluster == 1``, over one
+    block of 1024 threads (`fps_kernel`)."""
+    cluster: int
+    threads: int
+
+
+ONE_BLOCK = FpsPlan(1, 1024)
+# Most points a thread of the cluster kernel holds in registers, by block
+# size: the largest kK that `csrc/fps.cu:cluster_kernel` instantiates
+_CLUSTER_PER_THREAD = {128: 46, 256: 46}
+# Below this many candidates a step is mostly its argmax, which a cluster
+# does not shorten: one block a cloud
+_CLUSTER_MIN_POINTS = 8192
+
+
+def _plan_covers(plan: FpsPlan, n: int) -> bool:
+    """Whether ``plan`` is one the kernels take, for clouds of ``n``."""
+    if plan == ONE_BLOCK:
+        return True
+    c, t = plan
+    if not 2 <= c <= 16 or t not in _CLUSTER_PER_THREAD:
+        return False
+    return -(-(-(-n // c)) // t) <= _CLUSTER_PER_THREAD[t]
+
+
+def _fps_plan(batch: int, n: int,
+              capacity: Callable[[FpsPlan], int]) -> FpsPlan:
+    """The plan for ``batch`` clouds of ``n`` points. ``capacity(plan)``:
+    how many of the plan's clusters the card holds at once.
+
+    A cluster a cloud where the clouds are large enough that a step's pass
+    over them outweighs its argmax: the largest cluster, then the smallest
+    block, that holds the cloud in registers and of which the card holds
+    all ``batch`` at once (clusters in a second wave would double the
+    time). One block a cloud where no cluster fits the batch, the clouds
+    are small, or their cache needs the global scratch."""
+    if _CLUSTER_MIN_POINTS <= n <= _FPS_SMEM_POINTS:
+        for c in range(16, 1, -1):
+            for t in sorted(_CLUSTER_PER_THREAD):
+                plan = FpsPlan(c, t)
+                if _plan_covers(plan, n) and capacity(plan) >= batch:
+                    return plan
+    return ONE_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_capacity(device: torch.device, n: int, plan: FpsPlan) -> int:
+    """How many clusters of ``plan``'s kernel, for clouds of ``n`` points,
+    the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int()
+    with torch.cuda.device(device):
+        code = _build.library().puflow_fps_cluster_occupancy(
+            n, plan.cluster, plan.threads, ctypes.addressof(count))
+    _build.check(code, "puflow_fps_cluster_occupancy")
+    return count.value
+
+
+def farthest_point_sample(xyz: torch.Tensor, n_samples: int, *,
+                          _plan: FpsPlan | None = None) -> torch.Tensor:
+    """FPS ``[B, N, 3] -> [B, n_samples]`` int32: the CUDA kernel that
+    `_fps_plan` chooses for a CUDA tensor, the plain version for a CPU
+    tensor. ``_plan`` forces a plan (the card tests reach each one so)."""
     if xyz.device.type == "cpu":
         return farthest_point_sample_plain(xyz, n_samples)
     if xyz.device.type != "cuda":
@@ -67,16 +135,27 @@ def farthest_point_sample(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     if not 1 <= n_samples <= N:
         raise ValueError(f"farthest_point_sample: n_samples={n_samples} "
                          f"outside [1, {N}]")
+    plan = _plan or _fps_plan(
+        B, N, functools.partial(cluster_capacity, xyz.device, N))
+    if not _plan_covers(plan, N):
+        raise ValueError(f"farthest_point_sample: no kernel runs {plan} on "
+                         f"clouds of {N} points")
     out = torch.empty((B, n_samples), dtype=torch.int32, device=xyz.device)
-    scratch = (None if N <= _FPS_SMEM_POINTS else
-               torch.empty((B, N), dtype=torch.float32, device=xyz.device))
     lib = _build.library()
     with torch.cuda.device(xyz.device):
-        code = lib.puflow_fps(
-            xyz.data_ptr(), B, N, n_samples, out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            _build.stream_ptr(xyz.device))
-    _build.check(code, "puflow_fps")
+        stream = _build.stream_ptr(xyz.device)
+        if plan == ONE_BLOCK:
+            scratch = (None if N <= _FPS_SMEM_POINTS else torch.empty(
+                (B, N), dtype=torch.float32, device=xyz.device))
+            code = lib.puflow_fps(
+                xyz.data_ptr(), B, N, n_samples, out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), stream)
+            _build.check(code, "puflow_fps")
+        else:
+            code = lib.puflow_fps_cluster(
+                xyz.data_ptr(), B, N, n_samples, out.data_ptr(),
+                plan.cluster, plan.threads, stream)
+            _build.check(code, "puflow_fps_cluster")
     farthest_point_sample.launches += 1
     return out
 

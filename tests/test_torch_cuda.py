@@ -4,6 +4,8 @@ Marked ``cuda``: they skip on a host without a CUDA card. Run them on the
 card with ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ from puflow_torch.models import continuous, discrete
 from puflow_torch.models.encoder import interpolation_apply
 from puflow_torch.models.fold_bn import fold_bn_inference
 from puflow_torch.ops import cnf, emd, encoder, flow, interp
+from puflow_torch.ops import fps as fps_ops
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain,
                                   farthest_point_sample_seeded,
@@ -31,18 +34,44 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,m,scratch", [(300, 40, False), (5000, 700, False),
-                                         (60000, 64, True)])
-def test_fps_kernel_matches_plain(card, n, m, scratch):
-    # n = 60000 exceeds shared memory: the cache lives in global scratch
+# every plan at a ragged n (no multiple of C x threads), one block a cloud
+# included; forced through the wrapper's private keyword
+PLANS = [fps_ops.ONE_BLOCK] + [fps_ops.FpsPlan(c, t)
+                               for c in (2, 3, 5, 8, 12, 16)
+                               for t in (128, 256)]
+
+
+def _repeated_half(rng, b, n):
+    # the second half repeats the first: exact ties between blocks of a
+    # cluster, where the lower index must win
+    half = rng.randint(0, 64, (b, n // 2, 3))
+    return np.concatenate([half, half, half[:, :n % 2]], 1)
+
+
+# (clouds, points, picks, plan): the first three keep the wrapper's plan
+# (n = 60000 exceeds shared memory: the cache lives in global scratch);
+# then the merge's 34,816 candidates at 1, 8 and 32 clouds, and each plan
+@pytest.mark.parametrize("b,n,m,plan", [
+    (3, 300, 40, None), (3, 5000, 700, None), (3, 60000, 64, None),
+    (1, 34816, 2000, None), (8, 34816, 2000, None), (32, 34816, 2000, None),
+    *((2, 8001, 1500, plan) for plan in PLANS)])
+def test_fps_kernel_matches_plain(card, b, n, m, plan):
     rng = np.random.RandomState(n)
-    for pts in (rng.randint(0, 11, (3, n, 3)), rng.rand(3, n, 3)):
+    for pts in (rng.randint(0, 11, (b, n, 3)), rng.rand(b, n, 3),
+                _repeated_half(rng, b, n)):
         x = torch.from_numpy(pts.astype(np.float32)).to(card)
         before = farthest_point_sample.launches
-        got = farthest_point_sample(x, m)
+        got = farthest_point_sample(x, m, _plan=plan)
         assert farthest_point_sample.launches == before + 1
         np.testing.assert_array_equal(
             got.cpu().numpy(), farthest_point_sample_plain(x, m).cpu().numpy())
+
+
+def test_fps_merge_plan_takes_a_cluster(card):
+    capacity = functools.partial(fps_ops.cluster_capacity, card, 34816)
+    for b in (1, 8, 32):
+        plan = fps_ops._fps_plan(b, 34816, capacity)
+        assert plan.cluster > 1 and capacity(plan) >= b
 
 
 # (rows, candidates, seed sets, seeds, picks): the seeded merge's Morton

@@ -98,6 +98,66 @@ def test_fps_plain_coverage_matches_xla_on_floats():
                                    rtol=1e-6)
 
 
+def test_fps_plain_matches_xla_on_repeated_half():
+    # the card tests' tie cloud at the merge's size: every point ties
+    # exactly with its copy N / 2 later, and the lower index must win
+    rng = np.random.RandomState(34816)
+    half = rng.randint(0, 64, (1, 34816 // 2, 3))
+    pts = np.concatenate([half, half], 1).astype(np.float32)
+    ref = np.asarray(j_fps.farthest_point_sample_xla(jnp.asarray(pts), 600))
+    got = t_fps.farthest_point_sample_plain(torch.from_numpy(pts), 600)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref < 34816 // 2).all()
+
+
+MERGE_N = 34816          # 32 patches x 256 x 4 + the 2,048 originals
+# Clusters of each plan at MERGE_N that an H100 holds at once
+# (cudaOccupancyMaxActiveClusters, as chip_smoke.py's compare_fps logs it
+# on an NVIDIA H100 80GB HBM3 at 700 W); a plan that does not hold the
+# cloud is not listed
+H100_CLUSTERS = {
+    (3, 256): 39, (4, 256): 30, (5, 256): 22, (6, 128): 39, (6, 256): 17,
+    (7, 128): 32, (7, 256): 15, (8, 128): 30, (8, 256): 30, (9, 128): 23,
+    (9, 256): 23, (10, 128): 21, (10, 256): 21, (11, 128): 16,
+    (11, 256): 16, (12, 128): 28, (12, 256): 16, (13, 128): 23,
+    (13, 256): 14, (14, 128): 21, (14, 256): 14, (15, 128): 21,
+    (15, 256): 14, (16, 128): 28, (16, 256): 21}
+
+
+def h100_capacity(plan):
+    return H100_CLUSTERS.get(tuple(plan), 0)
+
+
+# (clouds, candidates, plan): the seed pick, the merge, and the grouped
+# union's 16 Morton cells a cloud at 1 and 32 clouds; the merges' plans
+# are the ones the card chose in chip_smoke.py's run
+@pytest.mark.parametrize("b,n,expected", [
+    (1, 2048, (1, 1024)), (8, 2048, (1, 1024)), (32, 2048, (1, 1024)),
+    (1, MERGE_N, (16, 128)), (8, MERGE_N, (16, 128)), (32, MERGE_N, (7, 128)),
+    (16, 2176, (1, 1024)), (512, 2176, (1, 1024))])
+def test_fps_plan_by_shape(b, n, expected):
+    plan = t_fps._fps_plan(b, n, h100_capacity)
+    assert plan == expected
+    assert 1 <= plan.cluster <= 16
+    assert t_fps._plan_covers(plan, n)
+    if plan.cluster > 1:    # all the batch's clusters at once, in registers
+        assert h100_capacity(plan) >= b
+        per = -(-(-(-n // plan.cluster)) // plan.threads)
+        assert per <= t_fps._CLUSTER_PER_THREAD[plan.threads]
+    else:
+        assert plan == t_fps.ONE_BLOCK
+
+
+def test_fps_plan_keeps_one_block_where_a_cluster_cannot_help():
+    # no cluster holds the batch at once; the cache needs the global scratch
+    assert t_fps._fps_plan(100, MERGE_N, h100_capacity) == t_fps.ONE_BLOCK
+    assert t_fps._fps_plan(1, 60000, h100_capacity) == t_fps.ONE_BLOCK
+    # plans that no kernel takes
+    assert not t_fps._plan_covers(t_fps.FpsPlan(17, 256), 10000)
+    assert not t_fps._plan_covers(t_fps.FpsPlan(2, 256), 60000)
+    assert not t_fps._plan_covers(t_fps.FpsPlan(4, 64), 1000)
+
+
 def test_fps_wrapper_runs_plain_version_on_cpu():
     rng = np.random.RandomState(6)
     pts = torch.from_numpy(rng.rand(3, 100, 3).astype(np.float32))
