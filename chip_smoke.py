@@ -161,11 +161,12 @@ TRAIN_WARMUP, TRAIN_WINDOWS, TRAIN_STEPS = 10, 5, 10
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32 flop/s outside
-# the tensor cores. A kernel's bound is the larger of its bytes (inputs
-# read once, outputs written once) over the first and its flops over the
-# second.
+# the tensor cores, dense TF32 flop/s on them. A kernel's bound is the
+# larger of its bytes (inputs read once, outputs written once) over the
+# first and its flops over the peak of the arithmetic it uses.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 
 PALLAS = "puflow_tpu/ops/pallas/"
 KERNELS = {
@@ -293,11 +294,12 @@ def tree_bytes(tree) -> int:
     return nbytes(tree)
 
 
-def set_bound(entry, n_bytes: float, flops: float):
+def set_bound(entry, n_bytes: float, flops: float, peak: float = PEAK_F32):
     """The least time the card could take: bytes over HBM bandwidth or
-    flops over the FP32 peak, whichever is larger."""
+    flops over ``peak`` (the FP32 peak unless the kernel computes on the
+    tensor cores), whichever is larger."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32 * 1e3
+    t_ops = flops / peak * 1e3
     entry.update(bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -664,25 +666,47 @@ def compare_folded(folded, x, results, rng):
     fp, _ = folded.trees()
     idx = knn_self_plain(x, K)
     idx8 = idx[..., :INTERP_K]
+    # the main path's K = 16, then K = 8 and 24 (padded to 16 and 32
+    # slots), each a slice of a 24-neighbour graph; 65,536 points leave the
+    # persistent grid's last round ragged
+    idx24 = knn_indices(x, x, 24)
+    for label, graph in (("K=16", idx), ("K=8 sliced", idx24[..., :8]),
+                         ("K=24", idx24)):
+        cs = enc_ops.encoder_conditions(fp, x, graph)
+        cs_ref = enc_ops.encoder_conditions_plain(fp, x, graph)
+        torch.cuda.synchronize()
+        for b, (got, ref) in enumerate(zip(cs, cs_ref)):
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            log(f"encoder {label} block {b} {tuple(got.shape)}: max_abs_err "
+                f"{err:.3e}, relative {err / scale:.3e} (tol 5e-5 * "
+                f"{scale:.4f} + 1e-4)")
+            if not err < 5e-5 * scale + 1e-4:
+                raise AssertionError(f"encoder {label} block {b}: {err} "
+                                     f"(scale {scale})")
+            results["encoder"]["max_abs_err"] = max(
+                results["encoder"].get("max_abs_err", 0.0), err)
     cs = enc_ops.encoder_conditions(fp, x, idx)
     cs_ref = enc_ops.encoder_conditions_plain(fp, x, idx)
-    torch.cuda.synchronize()
-    for b, (got, ref) in enumerate(zip(cs, cs_ref)):
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        log(f"encoder block {b} {tuple(got.shape)}: max_abs_err {err:.3e}, "
-            f"relative {err / scale:.3e} (tol 5e-5 * {scale:.4f} + 1e-4)")
-        if not err < 5e-5 * scale + 1e-4:
-            raise AssertionError(f"encoder block {b}: {err} (scale {scale})")
-        results["encoder"]["max_abs_err"] = max(
-            results["encoder"].get("max_abs_err", 0.0), err)
-    set_bound(results["encoder"],
-              nbytes(x, idx, *cs) + tree_bytes(fp["feat_convs"])
-              + tree_bytes(fp["merge_convs"]),
-              2 * encoder_macs(fp, M * n, K))
+    again = enc_ops.encoder_conditions(fp, x, idx)
+    if not all(torch.equal(a, b) for a, b in zip(cs, again)):
+        raise AssertionError("encoder: two runs differ")
+    log("encoder: two runs bit-equal")
+    # the exact f32 function as 3xTF32: three TF32 products for each f32
+    # product, at the tensor cores' dense TF32 peak; the FP32 bound beside
+    enc_bytes = (nbytes(x, idx, *cs) + tree_bytes(fp["feat_convs"])
+                 + tree_bytes(fp["merge_convs"]))
+    enc_flops = 2 * encoder_macs(fp, M * n, K)
+    fp32 = {}
+    set_bound(fp32, enc_bytes, enc_flops)
+    set_bound(results["encoder"], enc_bytes, 3 * enc_flops, PEAK_TF32)
+    log(f"encoder bound: 3xTF32 {results['encoder']['bound_ms']:.4f} ms "
+        f"(3 x {enc_flops / 1e9:.1f} GFLOP at {PEAK_TF32 / 1e12:.0f} "
+        f"TFLOP/s), FP32 {fp32['bound_ms']:.4f} ms")
     time_pair(results, "encoder",
               lambda: enc_ops.encoder_conditions(fp, x, idx),
-              lambda: enc_ops.encoder_conditions_plain(fp, x, idx), reps=3)
+              lambda: enc_ops.encoder_conditions_plain(fp, x, idx),
+              plain_reps=3)
 
     blocks, ip = fp["flow_blocks"], fp["interp"]
     z = flow_ops.flow_f_plain(blocks, x, cs_ref)

@@ -143,6 +143,28 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({what}) at launch")
 
 
+# Weights are packed for a kernel once, not once a launch: id()s of the
+# tensors packed -> (the tensors, which keeps the ids theirs; their
+# versions, which an in-place update moves; the pack).
+_PACKS: dict = {}
+_MAX_PACKS = 64
+
+
+def packed(tensors, make):
+    """``make()``, the kernel's packing of ``tensors``, made again only when
+    one of them is another tensor or was updated in place."""
+    key = tuple(map(id, tensors))
+    versions = tuple(t._version for t in tensors)
+    hit = _PACKS.get(key)
+    if hit is not None and hit[1] == versions:
+        return hit[2]
+    if len(_PACKS) >= _MAX_PACKS:
+        _PACKS.clear()
+    pack = make()
+    _PACKS[key] = (tensors, versions, pack)
+    return pack
+
+
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device`` as an integer handle."""
     import torch

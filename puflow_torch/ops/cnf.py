@@ -112,28 +112,13 @@ def _pack(layers):
                 torch.cat(w, dim=1).contiguous(), torch.cat(b))
 
 
-# A net is packed once, not once a launch: id()s of its tensors -> (the
-# tensors, which keeps the ids theirs; their versions, which an in-place
-# update moves; the pack). A sample launches 12 solves on 6 nets.
-_PACKS: dict = {}
-_MAX_PACKS = 64
-
-
 def _packed(layers):
+    """`_pack` once a net (a sample launches 12 solves on 6 nets)."""
     tensors = [t for p in layers
                for t in (p["layer"]["w"], p["layer"]["b"],
                          p["hyper_gate"]["w"], p["hyper_gate"]["b"],
                          p["hyper_bias"]["w"])]
-    key = tuple(map(id, tensors))
-    versions = tuple(t._version for t in tensors)
-    hit = _PACKS.get(key)
-    if hit is not None and hit[1] == versions:
-        return hit[2]
-    if len(_PACKS) >= _MAX_PACKS:
-        _PACKS.clear()
-    pack = _pack(layers)
-    _PACKS[key] = (tensors, versions, pack)
-    return pack
+    return _build.packed(tensors, lambda: _pack(layers))
 
 
 def _t01(t0, t1, dev) -> torch.Tensor:

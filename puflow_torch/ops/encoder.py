@@ -14,14 +14,18 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._pytree import tree_flatten
 
 from puflow_torch.models.encoder import feat_merge_apply, feature_extract_apply
 from puflow_torch.ops import _build
 from puflow_torch.ops.knn import check_graph, check_patches
 
-MAX_LAYERS = 8            # growth layers per block (csrc/encoder.cu)
-_META = 10 + 2 * (MAX_LAYERS + 1)
-_WIDTHS = (8, 16, 32, 64, 128)
+SLOT_TILE = 16            # slots of a tensor-core tile (csrc/encoder.cu)
+# (growth width g, growth layers, odim) of the blocks the kernel takes: the
+# model's (models/discrete.py, GROWTH_WIDTHS and FEAT_CHANNELS)
+_EDGE_SHAPES = ((8, 4, 32), (16, 4, 64), (32, 4, 128))
+_CDIMS = (32, 64, 128)    # condition widths the kernel takes
+_PROJ_COLS = 128          # projection columns a rows phase (csrc/encoder.cu)
 _MAX_GT = 256             # projection columns of a block
 _MAX_ODIM = 128
 
@@ -41,16 +45,68 @@ def encoder_conditions_plain(params, xyz: torch.Tensor,
     return cs
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds: add half the dropped ulp to the
+    bits, clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x -> (hi, lo): hi = tf32(x), lo = tf32(x - hi); hi + lo is x to
+    about 2^-22 of it (csrc/mma_tf32.cuh)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """``[K, N]`` weights (K and N multiples of 8) -> ``[K/8, N/8, 8, 4,
+    2]``: the B fragments of ``mma.m16n8k8``, k chunk major. Lane 4 g + t
+    of fragment (kc, nt) holds rows 8 kc + 2t and 8 kc + 2t + 1 of column
+    8 nt + g: each chunk's rows in the order 0 2 4 6 1 3 5 7, which lets
+    a C fragment serve as the next product's A fragment."""
+    K, N = w.shape
+    return w.reshape(K // 8, 4, 2, N // 8, 8).permute(0, 3, 4, 1, 2)
+
+
+def pad_slots(knn_idx: torch.Tensor) -> torch.Tensor:
+    """``[B, n, K]`` graph -> ``[B, n, K']`` with K' the next multiple of
+    SLOT_TILE, each point's first neighbour repeated in the new slots: the
+    max over the slots is unchanged."""
+    pad = -knn_idx.shape[-1] % SLOT_TILE
+    if pad == 0:
+        return knn_idx
+    first = knn_idx[..., :1].expand(*knn_idx.shape[:-1], pad)
+    return torch.cat([knn_idx, first], dim=-1)
+
+
 def _pack(params):
-    """Folded encoder params -> (flat f32 weights, [nblocks * _META] int
-    metadata) in the layout `csrc/encoder.cu` reads."""
-    pieces, meta, off = [], [], 0
+    """Folded encoder params -> (flat f32 weights, 10 int metadata a block)
+    in the layout `csrc/encoder.cu` reads: c, g, n_layers, odim, cdim, then
+    float offsets of the edge biases, the merge's b1 and three runs of B
+    fragments (`fragment_order`, each pair of values split into tf32 hi
+    and lo, float4 {hi0, hi1, lo0, lo1} a lane): the projections [W_self |
+    W_nbr] ([c, 2 gt], rows zero-padded to a multiple of 8) 128 columns at
+    a time, the merge's W1 and W2, and the products with the growth
+    outputs (layers 1.., then conv_out)."""
+    plain, plain_len, runs, n_pairs, blocks = [], 0, [], 0, []
 
     def put(t):
-        nonlocal off
-        pieces.append(t.reshape(-1))
-        off += t.numel()
-        return off - t.numel()
+        nonlocal plain_len
+        t = t.reshape(-1)
+        pad = -t.numel() % 4            # every piece 16-byte aligned
+        plain.extend([t, t.new_zeros(pad)])
+        plain_len += t.numel() + pad
+        return plain_len - t.numel() - pad
+
+    def run(*mats):
+        nonlocal n_pairs
+        start = n_pairs
+        for w in mats:
+            runs.append(fragment_order(w).reshape(-1, 2))
+            n_pairs += runs[-1].shape[0]
+        return start
 
     for b, (fp, mp) in enumerate(zip(params["feat_convs"],
                                      params["merge_convs"])):
@@ -63,32 +119,34 @@ def _pack(params):
         n_layers = len(fp["convs"])
         odim = layers[-1]["w"].shape[1]
         cdim = mp["conv2"]["w"].shape[1]
-        gt = n_layers * g + odim
         shapes_ok = (
             all(lay["w"].shape == (3 * c + j * g, g)
                 for j, lay in enumerate(layers[:-1]))
             and layers[-1]["w"].shape == (3 * c + n_layers * g, odim)
             and mp["conv1"]["w"].shape == (odim, odim // 2)
             and mp["conv2"]["w"].shape == (odim // 2, cdim))
-        if not (shapes_ok and 1 <= n_layers <= MAX_LAYERS
-                and g in _WIDTHS and odim in _WIDTHS and odim // 2 in _WIDTHS
-                and cdim in _WIDTHS and gt <= _MAX_GT
-                and (gt % 128 == 0 or gt % 128 in _WIDTHS)):
+        if not (shapes_ok and (g, n_layers, odim) in _EDGE_SHAPES
+                and cdim in _CDIMS):
             raise ValueError(f"encoder_conditions: block {b} has a shape the "
                              "kernel does not take")
-        w_self = torch.cat([lay["w"][:c] - lay["w"][2 * c:3 * c]
-                            for lay in layers], dim=1)
-        w_nbr = torch.cat([lay["w"][c:2 * c] + lay["w"][2 * c:3 * c]
-                           for lay in layers], dim=1)
-        rec = [c, g, n_layers, odim, cdim, put(w_self), put(w_nbr),
-               put(mp["conv1"]["w"]), put(mp["conv1"]["b"]),
-               put(mp["conv2"]["w"])]
-        bias = [put(lay["b"]) for lay in layers]
-        w_h = [-1] + [put(lay["w"][3 * c:]) for lay in layers[1:]]
-        pad = [-1] * (MAX_LAYERS - n_layers)
-        meta.extend(rec + bias + pad + w_h + pad)
-    weights = torch.cat(pieces).to(torch.float32).contiguous()
-    return weights, meta
+        w_proj = torch.cat([lay["w"][:c] - lay["w"][2 * c:3 * c]
+                            for lay in layers]
+                           + [lay["w"][c:2 * c] + lay["w"][2 * c:3 * c]
+                              for lay in layers], dim=1)
+        w_proj = torch.cat([w_proj, w_proj.new_zeros(-c % 8,
+                                                     w_proj.shape[1])])
+        blocks.append((
+            [c, g, n_layers, odim, cdim,
+             put(torch.cat([lay["b"] for lay in layers])),
+             put(mp["conv1"]["b"])],
+            [run(*w_proj.split(_PROJ_COLS, dim=1)),
+             run(mp["conv1"]["w"], mp["conv2"]["w"]),
+             run(*(lay["w"][3 * c:] for lay in layers[1:]))]))
+    frags = torch.cat(split_tf32(torch.cat(runs)), dim=1)   # a pair: 4 floats
+    weights = torch.cat(plain + [frags.reshape(-1)]).to(torch.float32)
+    meta = [v for head, starts in blocks
+            for v in head + [plain_len + 4 * start for start in starts]]
+    return weights.contiguous(), meta
 
 
 def encoder_conditions(params, xyz: torch.Tensor, knn_idx: torch.Tensor):
@@ -100,9 +158,12 @@ def encoder_conditions(params, xyz: torch.Tensor, knn_idx: torch.Tensor):
     if xyz.device.type != "cuda":
         raise ValueError(f"encoder_conditions: no kernel for {xyz.device}")
     check_patches("encoder_conditions", xyz)
-    k = check_graph("encoder_conditions", knn_idx, xyz)
+    check_graph("encoder_conditions", knn_idx, xyz)
+    knn_idx = pad_slots(knn_idx)
     B, n, _ = xyz.shape
-    weights, meta = _pack(params)
+    blocks = (params["feat_convs"], params["merge_convs"])
+    weights, meta = _build.packed(tree_flatten(blocks)[0],
+                                  lambda: _pack(params))
     cdims = [mp["conv2"]["w"].shape[1] for mp in params["merge_convs"]]
     cs = [torch.empty((B, n, cd), dtype=torch.float32, device=xyz.device)
           for cd in cdims]
@@ -114,8 +175,8 @@ def encoder_conditions(params, xyz: torch.Tensor, knn_idx: torch.Tensor):
     with torch.cuda.device(xyz.device):
         code = lib.puflow_encoder(
             xyz.data_ptr(), knn_idx.data_ptr(), knn_idx.stride(1), B * n, n,
-            k, weights.data_ptr(), ctypes.addressof(meta_c), len(cdims),
-            ctypes.addressof(out_ptrs), scratch.data_ptr(),
+            knn_idx.shape[-1], weights.data_ptr(), ctypes.addressof(meta_c),
+            len(cdims), ctypes.addressof(out_ptrs), scratch.data_ptr(),
             _build.stream_ptr(xyz.device))
     _build.check(code, "puflow_encoder")
     encoder_conditions.launches += 1

@@ -172,6 +172,34 @@ def test_encoder_kernel_matches_plain(card, folded):
         assert float((a - b).abs().max()) < 5e-5 * scale + 1e-4
 
 
+# (patches, points, K): 67 x 61 points leave the persistent grid's last
+# round ragged (no multiple of a block's warps, a point each); K = 8 and 24
+# come padded to 16 and 32 slots; every graph is a slice of a 24-neighbour
+# one (row stride 24)
+@pytest.mark.parametrize("b,n,k", [(67, 61, 16), (37, 64, 8), (37, 64, 24)])
+def test_encoder_kernel_ragged_and_padded(card, folded, b, n, k):
+    params = folded[0]
+    rng = np.random.RandomState(b * n + k)
+    x = torch.from_numpy((rng.randn(b, n, 3) * 0.3).astype(np.float32))
+    x = x.to(card)
+    idx = knn_indices(x, x, 24)[..., :k]
+    before = encoder.encoder_conditions.launches
+    got = encoder.encoder_conditions(params, x, idx)
+    assert encoder.encoder_conditions.launches == before + 1
+    ref = encoder.encoder_conditions_plain(params, x, idx)
+    for a, r in zip(got, ref):
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) < 5e-5 * scale + 1e-4
+
+
+def test_encoder_kernel_rerun_is_bit_equal(card, folded):
+    params, x, idx = folded
+    first = encoder.encoder_conditions(params, x, idx)
+    again = encoder.encoder_conditions(params, x, idx)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mode,bound", [("logits", 2e-3), ("weights", 5e-4),
                                         ("latents", 5e-4)])
 def test_interp_kernel_matches_plain(card, folded, mode, bound):
