@@ -34,7 +34,10 @@ Phases:
   2. builds the kernels from `puflow_torch/csrc` and prints the build time;
   3. compares each kernel with its plain PyTorch version on the card at
      the main path's shapes (256 patches of 256 points, r=4), times both,
-     and works out each kernel's bound from the work these inputs need;
+     and works out each kernel's bound from the work these inputs need
+     (the encoder's and flow g's products at the TF32 peak as three TF32
+     products an f32 one, their FP32 bounds printed beside; two runs of
+     each of these three kernels bit-equal);
      the merge FPS at 1, 8 and 32 clouds under every plan of `SWEEP`
      (one block a cloud, clusters of C blocks), ties between blocks
      included, with each plan's time a step and the chosen plan timed in
@@ -304,6 +307,33 @@ def set_bound(entry, n_bytes: float, flops: float, peak: float = PEAK_F32):
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def set_bound_3xtf32(entry, n_bytes: float, flops: float,
+                     fma_flops: float = 0.0):
+    """The bound of a kernel that computes the exact f32 function as 3xTF32
+    products: three TF32 products for each f32 product of ``flops``, at
+    the tensor cores' dense TF32 peak, plus ``fma_flops`` at the FP32 peak
+    (work outside the products); the FP32 bound of all of it is printed
+    beside it."""
+    fp32 = {}
+    set_bound(fp32, n_bytes, flops + fma_flops)
+    set_bound(entry, n_bytes,
+              (3 * flops / PEAK_TF32 + fma_flops / PEAK_F32) * PEAK_TF32,
+              PEAK_TF32)
+    log(f"{entry['name']} bound: 3xTF32 {entry['bound_ms']:.4f} ms (3 x "
+        f"{flops / 1e9:.1f} GFLOP at {PEAK_TF32 / 1e12:.0f} TFLOP/s, "
+        f"{fma_flops / 1e9:.3f} GFLOP at {PEAK_F32 / 1e12:.0f}), FP32 "
+        f"{fp32['bound_ms']:.4f} ms")
+
+
+def check_rerun(name, first, again):
+    """Raise unless two runs of a kernel gave the same bits."""
+    torch.cuda.synchronize()
+    pairs = zip(first, again) if isinstance(first, list) else [(first, again)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{name}: two runs differ")
+    log(f"{name}: two runs bit-equal")
+
+
 def encoder_macs(params, rows: int, k: int) -> int:
     """Multiply-adds of the six EdgeConv blocks and their merge MLPs on
     ``rows`` points with ``k`` neighbours each (projections once per
@@ -348,6 +378,15 @@ def flow_macs(blocks, points: int, r: int | None) -> int:
         else:
             macs += points * (cond + proj) + points * r * (tail + 9)
     return macs
+
+
+def flow_g_fma_macs(blocks, rows: int) -> int:
+    """The inverse flow's multiply-adds outside its products over ``rows``
+    rows: the h1 term of the coupling's first layer and W^-1, which
+    `csrc/flow_g.cu` takes as f32 FMAs (part of `flow_macs`)."""
+    return sum(rows * ((1 if i % 2 == 0 else 2)
+                       * bp["coupling1"]["bias_net"]["w0"].shape[1] + 9)
+               for i, bp in enumerate(blocks))
 
 
 def synthetic_clouds(batch: int, seed: int) -> torch.Tensor:
@@ -688,21 +727,11 @@ def compare_folded(folded, x, results, rng):
                 results["encoder"].get("max_abs_err", 0.0), err)
     cs = enc_ops.encoder_conditions(fp, x, idx)
     cs_ref = enc_ops.encoder_conditions_plain(fp, x, idx)
-    again = enc_ops.encoder_conditions(fp, x, idx)
-    if not all(torch.equal(a, b) for a, b in zip(cs, again)):
-        raise AssertionError("encoder: two runs differ")
-    log("encoder: two runs bit-equal")
-    # the exact f32 function as 3xTF32: three TF32 products for each f32
-    # product, at the tensor cores' dense TF32 peak; the FP32 bound beside
-    enc_bytes = (nbytes(x, idx, *cs) + tree_bytes(fp["feat_convs"])
-                 + tree_bytes(fp["merge_convs"]))
-    enc_flops = 2 * encoder_macs(fp, M * n, K)
-    fp32 = {}
-    set_bound(fp32, enc_bytes, enc_flops)
-    set_bound(results["encoder"], enc_bytes, 3 * enc_flops, PEAK_TF32)
-    log(f"encoder bound: 3xTF32 {results['encoder']['bound_ms']:.4f} ms "
-        f"(3 x {enc_flops / 1e9:.1f} GFLOP at {PEAK_TF32 / 1e12:.0f} "
-        f"TFLOP/s), FP32 {fp32['bound_ms']:.4f} ms")
+    check_rerun("encoder", cs, enc_ops.encoder_conditions(fp, x, idx))
+    set_bound_3xtf32(results["encoder"],
+                     nbytes(x, idx, *cs) + tree_bytes(fp["feat_convs"])
+                     + tree_bytes(fp["merge_convs"]),
+                     2 * encoder_macs(fp, M * n, K))
     time_pair(results, "encoder",
               lambda: enc_ops.encoder_conditions(fp, x, idx),
               lambda: enc_ops.encoder_conditions_plain(fp, x, idx),
@@ -732,13 +761,17 @@ def compare_folded(folded, x, results, rng):
             f"{p_ms:.4f} ms")
 
     ref = flow_ops.flow_g_blend_plain(blocks, z, ws, idx8, cs_ref)
-    check_close(results, "flow_g_blend",
-                flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref), ref,
+    got = flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref)
+    check_close(results, "flow_g_blend", got, ref,
                 1e-5 * max(1.0, float(ref.abs().max())))
-    set_bound(results["flow_g_blend"],
-              nbytes(z, ws, idx8, ref, *cs_ref) + tree_bytes(blocks),
-              2 * (flow_macs(blocks, M * n, UPRATIO)
-                   + M * n * UPRATIO * 3 * INTERP_K))
+    check_rerun("flow_g_blend", got,
+                flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref))
+    # the blend, the h1 terms and W^-1 are f32 FMAs
+    fma = flow_g_fma_macs(blocks, M * n * UPRATIO)
+    set_bound_3xtf32(results["flow_g_blend"],
+                     nbytes(z, ws, idx8, ref, *cs_ref) + tree_bytes(blocks),
+                     2 * (flow_macs(blocks, M * n, UPRATIO) - fma),
+                     2 * (fma + M * n * UPRATIO * 3 * INTERP_K))
     time_pair(results, "flow_g_blend",
               lambda: flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref),
               lambda: flow_ops.flow_g_blend_plain(blocks, z, ws, idx8,
@@ -757,16 +790,20 @@ def compare_flows(model, x, results):
                                 UPRATIO, knn_idx=knn_idx)
     fz = fz.contiguous()
     g_ref = flow_ops.flow_g_plain(blocks, fz, cs)
-    # exact f32 on both sides; summation order differs
+    # flow f exact f32, flow g 3xTF32 (the exact function's bound); the
+    # summation order differs from the plain version's
+    g = flow_ops.flow_g(blocks, fz, cs)
     for name, got, ref in (("flow_f", flow_ops.flow_f(blocks, x, cs), z_ref),
-                           ("flow_g", flow_ops.flow_g(blocks, fz, cs),
-                            g_ref)):
+                           ("flow_g", g, g_ref)):
         check_close(results, name, got, ref,
                     1e-5 * max(1.0, float(ref.abs().max())))
+    check_rerun("flow_g", g, flow_ops.flow_g(blocks, fz, cs))
     set_bound(results["flow_f"], nbytes(x, z_ref, *cs) + tree_bytes(blocks),
               2 * flow_macs(blocks, M * n, None))
-    set_bound(results["flow_g"], nbytes(fz, g_ref, *cs) + tree_bytes(blocks),
-              2 * flow_macs(blocks, M * n, UPRATIO))
+    fma = flow_g_fma_macs(blocks, M * n * UPRATIO)
+    set_bound_3xtf32(results["flow_g"],
+                     nbytes(fz, g_ref, *cs) + tree_bytes(blocks),
+                     2 * (flow_macs(blocks, M * n, UPRATIO) - fma), 2 * fma)
     time_pair(results, "flow_f", lambda: flow_ops.flow_f(blocks, x, cs),
               lambda: flow_ops.flow_f_plain(blocks, x, cs))
     time_pair(results, "flow_g", lambda: flow_ops.flow_g(blocks, fz, cs),

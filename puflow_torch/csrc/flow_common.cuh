@@ -1,11 +1,13 @@
-// Shared pieces of the forward-flow (flow_f.cu) and inverse-flow
-// (flow_g.cu) kernels: the packed weight layout of one flow block, and the
-// small dense layers of the LinearA1D condition MLPs on shared-memory tiles.
+// Shared pieces of the flow kernels. Both flow_f.cu and flow_g.cu take
+// their per-block arguments through FlowArgs / fill_args and the
+// constants below. The packed weight layout and the small dense layers on
+// shared-memory tiles (CUDA-core FMAs, bound by FP32 throughput and by
+// shared-memory reads) serve flow_f.cu only: flow_g.cu has its own layout
+// of B fragments and takes its products on the tensor cores (3xTF32).
 //
-// Weight layout of one flow block, as `_pack_weights` in
+// Weight layout of one flow block for flow_f, as `_pack_f` in
 // puflow_torch/ops/flow.py writes it (floats, every matrix [in, out]):
-//   head   15                 f: exp(logs)[3], bias[3], W[3x3]
-//                             g: bias[3], exp(-logs)[3], W^-1[3x3]
+//   head   15                 exp(logs)[3], bias[3], W[3x3]
 //   coupling1.bias_net        w0[(split + cdim) x 64] (rows: h1 then c),
 //                             w1[64 x 64], b1[64], w2[64 x (3 - split)],
 //                             b2[3 - split]

@@ -21,8 +21,9 @@
 // at cdim = 128) and the tile's conditions in shared memory; each dense
 // layer is a 16 x 16 thread grid with a 4 x 4 register tile per thread.
 // The shared memory (about 215 KB) allows one block per SM; the 16
-// independent FMAs per k keep the pipes fed. Tensor cores (TF32 or bf16
-// splits with wgmma) are later work.
+// independent FMAs per k keep the pipes fed. Its products on the tensor
+// cores, as flow_g.cu takes them (3xTF32), are queued in ROADMAP.md
+// (Queue 2, "Ported kernels with open work").
 
 #include "flow_common.cuh"
 

@@ -18,42 +18,121 @@
 // tile's state rows, so the interpolated latents never make a round trip
 // through device memory of their own and no second kernel runs.
 //
-// What bounds it on the H100: FP32 FMAs, as in flow_f. Of the three MLPs
-// per block, the two injector MLPs and the coupling's condition
-// projection w0_c . c depend only on the point's condition, so they run
-// once per point and are reused for its r samples; only the coupling's
-// h1 term and its last two layers run per row. At r = 4 that removes
-// about two thirds of the multiply-adds, and the conditions are read once
-// per point: repeat(cs, r) is never formed.
+// What bounds it on the H100: its products. Of the three MLPs per block,
+// the two injector MLPs and the coupling's condition projection w0_c . c
+// depend only on the point's condition, so they run once per point and
+// are reused for its r samples (at r = 4 about 62% of the multiply-adds);
+// the coupling's h1 term and its last two layers run per row. The kernel
+// computes the exact f32 function (the TPU kernel's 3-pass bf16 split)
+// as 3xTF32 products on the tensor cores (mma_tf32.cuh): three TF32
+// products for each f32 one, so the least time is 3 x 2 x the
+// multiply-adds at the dense TF32 rate (chip_smoke.py:flow_macs). The
+// 3-wide steps (the blend, the injector's scale and bias, the h1 term of
+// the coupling's first layer, W^-1, ActNorm) stay f32 FMAs.
 //
-// Design: a thread block owns 48 points (48 r rows) for all blocks of the
-// flow. Per flow block it stages the block's weights (about 150 KB at
-// cdim = 128) and the points' conditions in shared memory, runs the
-// per-point MLPs on all 48 points at once, then walks the rows 64 at a
-// time. The 3-wide state of the rows stays in the tile's output rows
-// between flow blocks (12 bytes a row, L2-resident), so shared memory does
-// not grow with r. Exact f32 throughout (the TPU default was a 2-pass
-// bf16 split); W^-1 comes from torch.linalg.inv on the host side, as the
-// plain version computes it.
+// Design: a persistent grid of one block an SM walks the flow blocks in
+// turn; for each it stages the block's weights in shared memory once and
+// its warps then walk the thread block's share of point tiles. Every
+// product is a warp's m16n8k8 `mma.sync` on a tile of 16 points:
+//   per point: the three first layers read the tile's conditions straight
+//     from device memory as A fragments, the injector's two in one pass
+//     (each chunk loaded and split once for both); each 64-wide output
+//     stays in its C fragments and is the next layer's A operand (the host
+//     orders each k8 chunk's weight rows 0 2 4 6 1 3 5 7, mma_tf32.cuh);
+//     the 64 -> 3 layers are an n8 tile with zero columns, whose three
+//     columns a lane gathers from the lanes holding them. exp(scale) and
+//     the bias (6 floats a point) and the projection (the C fragments of
+//     [16 x 64]) stay in registers;
+//   per row, sample by sample: row tile s holds sample s of the tile's 16
+//     points, so row i of it belongs to point i and the projection's C
+//     fragments start the coupling's first layer as they are. The rows'
+//     3-wide state stays in the output rows between flow blocks (12 bytes
+//     a row, L2-resident).
+// Shared memory holds one block's weights as B fragments (204 KB at
+// cdim = 128 of kMaxSmem's 227 KB): the first layers' and the 64 -> 3
+// layers' as f32 pairs, split into tf32 hi / lo as they are read (all
+// pre-split would take 310 KB); the three 64 x 64 layers' pre-split on
+// the host (96 KB).
+// Reruns are bit-equal: one fixed order, no atomics.
+// Measured on an H100 at 256 patches and r = 4 (scripts/flow_g_variants.py,
+// PERF.md): 0.79-0.82 ms a call of flow_g_blend, 3.6-3.8x its 3xTF32
+// bound, where the CUDA-core kernel before it took 3.2-3.3 ms. Against the
+// kept design, rounding with `cvt.rna.tf32.f32` took 34% longer, the
+// injector's first layers in two passes 22%, the 64 x 64 layers split as
+// read 13%, 4-byte condition loads 11%, 8 or 16 warps an SM 15% / 2%. A
+// third of the products (hi * hi only) still takes 0.44 ms: what is left
+// is each warp's chain of splits, fragment reads and dependent products,
+// as in the encoder (PERF.md, section 6).
 
+#include <algorithm>
 #include <cstdint>
 
 #include "flow_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace puflow {
 namespace {
 
-// Points per tile: the most whose conditions, per-point projections and
-// injector outputs fit beside a cdim = 128 block's weights.
-constexpr int kPoints = 48;
+constexpr int kGThreads = 384;     // 12 warps an SM
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kTile = 16;          // points of a warp's tile (m16)
+constexpr int kHt = kHidden / 8;   // n8 tiles of a hidden layer
+using HidFrag = float4;            // a 64 x 64 layer's pre-split pair
 
-// Shared-memory floats of a tile: weights, the point conditions, the
-// per-point coupling projection, two [kRows] hidden tiles, the injector's
-// scale and bias per point, and the state and coupling output of a chunk
-// of kRows rows.
-__host__ __device__ inline int g_smem_floats(int wmax, int ldc) {
-  return wmax + kPoints * ldc + kPoints * kLdH + 2 * kRows * kLdH +
-         2 * kPoints * 3 + 2 * kRows * 3;
+// Layout of one flow block's weights, as `_pack_g` in
+// puflow_torch/ops/flow.py writes it (floats): the head (bias[3],
+// exp(-logs)[3], W^-1[9], 0); c_w0's h1 rows [2][64] (row 1 zero at split
+// 1); the biases c_b1, s_b1, b_b1 [64]; c_b2, s_b2, b_b2 [8] (zero past
+// the net's outputs); then B fragments (32 lanes each, k chunk major):
+// the first layers s_w0, b_w0 and c_w0's condition rows [8 kt x 64] and
+// the 64 -> 3 layers s_w2, b_w2, c_w2 [64 x 8] as f32 pairs, the hidden
+// layers s_w1, b_w1, c_w1 [64 x 64] as HidFrag. kt k chunks cover the
+// condition (zero rows past cdim).
+constexpr int kW0h = 16, kCB1 = 144, kSB1 = 208, kBB1 = 272, kCB2 = 336,
+              kSB2 = 344, kBB2 = 352, kFrags = 360;
+constexpr int kPair = 64;                         // floats of an f32 fragment
+constexpr int kHidFloats = 8 * sizeof(HidFrag);   // ... of a hidden one
+
+__host__ __device__ constexpr int kt_of(int cdim) {
+  return cdim <= 32 ? 4 : cdim <= 64 ? 8 : 16;
+}
+
+__host__ __device__ constexpr int g_block_floats(int kt) {
+  return kFrags + kPair * 3 * (8 * kt + kHt) + kHidFloats * 3 * kHt * kHt;
+}
+
+struct GBlock {
+  const float* head;
+  const float* w0h;
+  const float *c_b1, *s_b1, *b_b1, *c_b2, *s_b2, *b_b2;
+  const float2 *s_w0, *b_w0, *c_w0, *s_w2, *b_w2, *c_w2;
+  const HidFrag *s_w1, *b_w1, *c_w1;
+};
+
+// Block pointers into shared memory w; fragment pointers offset by the
+// lane, except the 64 -> 3 layers' (narrow_out offsets them itself).
+__device__ __forceinline__ GBlock g_block(const float* w, int kt, int lane) {
+  GBlock p;
+  p.head = w;
+  p.w0h = w + kW0h;
+  p.c_b1 = w + kCB1;
+  p.s_b1 = w + kSB1;
+  p.b_b1 = w + kBB1;
+  p.c_b2 = w + kCB2;
+  p.s_b2 = w + kSB2;
+  p.b_b2 = w + kBB2;
+  const float2* f = reinterpret_cast<const float2*>(w + kFrags);
+  p.s_w0 = f + lane;
+  p.b_w0 = p.s_w0 + 32 * 8 * kt;
+  p.c_w0 = p.b_w0 + 32 * 8 * kt;
+  p.s_w2 = f + 3 * 32 * 8 * kt;
+  p.b_w2 = p.s_w2 + 32 * kHt;
+  p.c_w2 = p.b_w2 + 32 * kHt;
+  const HidFrag* h = reinterpret_cast<const HidFrag*>(p.c_w2 + 32 * kHt);
+  p.s_w1 = h + lane;
+  p.b_w1 = p.s_w1 + 32 * kHt * kHt;
+  p.c_w1 = p.b_w1 + 32 * kHt * kHt;
+  return p;
 }
 
 // The blend's inputs; z == nullptr selects flow_g's latents `fz`.
@@ -65,40 +144,210 @@ struct Blend {
   int idx_stride, n, k;
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
-flow_g_kernel(const float* __restrict__ fz, Blend blend, FlowArgs args,
-              const float* __restrict__ weights, float* __restrict__ out,
-              int n_points, int r, int ldc_max) {
-  extern __shared__ float smem[];
-  float* w_s = smem;                        // [wmax]
-  float* cp = w_s + args.wmax;              // [kPoints][ldc] conditions
-  float* h_c = cp + kPoints * ldc_max;      // [kPoints][kLdH] w0_c . c
-  float* h_a = h_c + kPoints * kLdH;        // [kRows][kLdH]
-  float* h_b = h_a + kRows * kLdH;          // [kRows][kLdH]
-  float* sc = h_b + kRows * kLdH;           // [kPoints][3] injector scale
-  float* bi = sc + kPoints * 3;             // [kPoints][3] injector bias
-  float* zc = bi + kPoints * 3;             // [kRows][3] state of a chunk
-  float* t0 = zc + kRows * 3;               // [kRows][3] coupling output
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
 
-  const int t = threadIdx.x;
-  const int p0 = blockIdx.x * kPoints;
-  const int np = min(kPoints, n_points - p0);
-  const int rows = np * r;
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
-  // The state of the tile's rows lives in its output rows: 12 bytes a row,
-  // read and written once per flow block. Latents [np][3][r] -> rows
-  // p * r + s.
-  float* z_tile = out + static_cast<size_t>(p0) * r * 3;
-  for (int i = t; i < rows * 3; i += kThreads) {
+// acc[j] = c W0_j for NW first layers on the tile's condition rows c0
+// (point g) and c1 (point g + 8): A fragments loaded chunk by chunk and
+// split once for the NW layers, zero past column cdim (even: a lane reads
+// its two columns in one 8-byte load).
+template <int KT, int NW>
+__device__ __forceinline__ void first_layers(float (&acc)[NW][kHt][4],
+                                             const float* __restrict__ c0,
+                                             const float* __restrict__ c1,
+                                             int cdim, int t2,
+                                             const float2* const (&w0)[NW]) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) zero(acc[j]);
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    const int col = 8 * kc + t2;
+    const float2 zero2 = make_float2(0.f, 0.f);
+    const float2 u =
+        col < cdim ? __ldg(reinterpret_cast<const float2*>(c0 + col)) : zero2;
+    const float2 v =
+        col < cdim ? __ldg(reinterpret_cast<const float2*>(c1 + col)) : zero2;
+    const float a[4] = {u.x, u.y, v.x, v.y};
+    const tf32::ASplit as = tf32::a_split(a);
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      tf32::mma_3x_tiles(acc[j], as, w0[j] + kc * kHt * 32);
+  }
+}
+
+// h = lrelu(h + bias) over a hidden layer's C fragments (bias nullptr:
+// none), bias offset by the lane's columns 2t.
+__device__ __forceinline__ void bias_lrelu(float (&h)[kHt][4],
+                                           const float* bias) {
+#pragma unroll
+  for (int nt = 0; nt < kHt; ++nt) {
+    const float2 b = bias ? lds2(bias + 8 * nt) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[nt][i] = lrelu(h[nt][i] + (i % 2 ? b.y : b.x));
+  }
+}
+
+// The 64 -> 3 layer of a tile: v[h][o] = (x W2 + b2)[row g + 8 h][o] for
+// o < 3, in every lane of group g. An n8 tile whose columns past the
+// net's outputs are zero; columns 0, 1 sit in lane 4 g, column 2 in lane
+// 4 g + 1.
+__device__ __forceinline__ void narrow_out(const float (&x)[kHt][4],
+                                           const float2* w2, const float* b2,
+                                           int lane, float (&v)[2][3]) {
+  float acc[1][4];
+  zero(acc);
+  tf32::mma_3x_any<kHt>(acc, x, w2 + lane, 1);
+  const int l0 = lane & ~3;
+  constexpr unsigned kAll = 0xffffffffu;
+  v[0][0] = __shfl_sync(kAll, acc[0][0], l0) + b2[0];
+  v[0][1] = __shfl_sync(kAll, acc[0][1], l0) + b2[1];
+  v[0][2] = __shfl_sync(kAll, acc[0][0], l0 + 1) + b2[2];
+  v[1][0] = __shfl_sync(kAll, acc[0][2], l0) + b2[0];
+  v[1][1] = __shfl_sync(kAll, acc[0][3], l0) + b2[1];
+  v[1][2] = __shfl_sync(kAll, acc[0][2], l0 + 1) + b2[2];
+}
+
+// Layers 1 and 2 of a LinearA1D from its lrelu'd first layer h.
+template <class Frag>
+__device__ __forceinline__ void mlp_tail(const float (&h)[kHt][4],
+                                         const Frag* w1, const float* b1,
+                                         const float2* w2, const float* b2,
+                                         int lane, float (&v)[2][3]) {
+  float acc[kHt][4];
+  zero(acc);
+  tf32::mma_3x_any<kHt>(acc, h, w1, kHt);
+  bias_lrelu(acc, b1 + 2 * (lane % 4));
+  narrow_out(acc, w2, b2, lane, v);
+}
+
+// Sample s of the tile's 16 points (row tile s, row i of it point i):
+// the injector inverse and the reverse permutation, the coupling (its
+// first layer the point's projection hc plus the h1 columns in f32), W^-1
+// and ActNorm. The state comes from and goes to the rows zrow[i] + 3 s of
+// points g and g + 8; lane t < 3 stores channel t.
+__device__ __forceinline__ void row_step(const GBlock& W,
+                                         const float (&hc)[kHt][4],
+                                         const float (&esc)[2][3],
+                                         const float (&bi)[2][3], int split,
+                                         int s, float* const (&zrow)[2],
+                                         const bool (&ok)[2], int lane) {
+  const int t = lane % 4;
+  const int t2 = 2 * t;
+  float z[2][3];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      z[i][2 - ch] =
+          (ok[i] ? zrow[i][s * 3 + ch] : 0.f) * esc[i][ch] + bi[i][ch];
+  float h[kHt][4];
+#pragma unroll
+  for (int nt = 0; nt < kHt; ++nt) {
+    const float2 w = lds2(W.w0h + 8 * nt + t2);
+    h[nt][0] = fmaf(z[0][0], w.x, hc[nt][0]);
+    h[nt][1] = fmaf(z[0][0], w.y, hc[nt][1]);
+    h[nt][2] = fmaf(z[1][0], w.x, hc[nt][2]);
+    h[nt][3] = fmaf(z[1][0], w.y, hc[nt][3]);
+    if (split == 2) {
+      const float2 u = lds2(W.w0h + kHidden + 8 * nt + t2);
+      h[nt][0] = fmaf(z[0][1], u.x, h[nt][0]);
+      h[nt][1] = fmaf(z[0][1], u.y, h[nt][1]);
+      h[nt][2] = fmaf(z[1][1], u.x, h[nt][2]);
+      h[nt][3] = fmaf(z[1][1], u.y, h[nt][3]);
+    }
+  }
+  bias_lrelu(h, nullptr);
+  float add[2][3];
+  mlp_tail(h, W.c_w1, W.c_b1, W.c_w2, W.c_b2, lane, add);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (split == 1) {
+      z[i][1] += add[i][0];
+      z[i][2] += add[i][1];
+    } else {
+      z[i][2] += add[i][0];
+    }
+    float y[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      y[c] = (W.head[6 + 3 * c] * z[i][0] + W.head[7 + 3 * c] * z[i][1] +
+              W.head[8 + 3 * c] * z[i][2] - W.head[c]) *
+             W.head[3 + c];
+    if (ok[i] && t < 3)
+      zrow[i][s * 3 + t] = t == 0 ? y[0] : t == 1 ? y[1] : y[2];
+  }
+}
+
+// One flow block on a tile of 16 points from pt0 and their r rows each,
+// the state in out's rows; KT k chunks cover the condition.
+template <int KT>
+__device__ __forceinline__ void g_tile(const GBlock& W,
+                                       const float* __restrict__ c, int cdim,
+                                       int split, int pt0, int n_points,
+                                       int r, float* out, int lane) {
+  const int g = lane / 4;
+  const int t2 = 2 * (lane % 4);
+  // rows past the last point compute on its condition and store nothing
+  const float* c0 = c + static_cast<size_t>(min(pt0 + g, n_points - 1)) * cdim;
+  const float* c1 =
+      c + static_cast<size_t>(min(pt0 + g + 8, n_points - 1)) * cdim;
+
+  // once per point: the injector's exp(scale) and bias (their first
+  // layers in one pass over the conditions), the coupling's condition
+  // projection
+  float esc[2][3], bi[2][3];
+  {
+    float h[2][kHt][4];
+    const float2* w0[2] = {W.s_w0, W.b_w0};
+    first_layers<KT>(h, c0, c1, cdim, t2, w0);
+    bias_lrelu(h[0], nullptr);
+    bias_lrelu(h[1], nullptr);
+    mlp_tail(h[0], W.s_w1, W.s_b1, W.s_w2, W.s_b2, lane, esc);
+    mlp_tail(h[1], W.b_w1, W.b_b1, W.b_w2, W.b_b2, lane, bi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) esc[i][ch] = expf(esc[i][ch]);
+  }
+  float hc[1][kHt][4];
+  const float2* wc[1] = {W.c_w0};
+  first_layers<KT>(hc, c0, c1, cdim, t2, wc);
+
+  // per row, a sample at a time
+  const bool ok[2] = {pt0 + g < n_points, pt0 + g + 8 < n_points};
+  float* const zrow[2] = {out + static_cast<size_t>(pt0 + g) * r * 3,
+                          out + static_cast<size_t>(pt0 + g + 8) * r * 3};
+  for (int s = 0; s < r; ++s)
+    row_step(W, hc[0], esc, bi, split, s, zrow, ok, lane);
+}
+
+// The first block's prologue: the latents of a tile's rows into out,
+// blended (blend.z set) or read from fz [n_points, 3, r].
+__device__ __forceinline__ void prologue(const float* __restrict__ fz,
+                                         const Blend& blend, float* out,
+                                         int pt0, int n_points, int r,
+                                         int lane) {
+  const int np = min(kTile, n_points - pt0);
+  float* z_tile = out + static_cast<size_t>(pt0) * r * 3;
+  for (int i = lane; i < np * r * 3; i += 32) {
     const int p = i / (3 * r);
     const int rem = i - p * 3 * r;
     const int ch = rem / r;
     const int s = rem - ch * r;
     float v;
     if (blend.z == nullptr) {
-      v = fz[static_cast<size_t>(p0) * 3 * r + i];
+      v = fz[static_cast<size_t>(pt0) * 3 * r + i];
     } else {
-      const int gp = p0 + p;
+      const int gp = pt0 + p;
       const int64_t base = static_cast<int64_t>(gp / blend.n) * blend.n;
       const int64_t* nb =
           blend.idx + static_cast<int64_t>(gp) * blend.idx_stride;
@@ -109,82 +358,45 @@ flow_g_kernel(const float* __restrict__ fz, Blend blend, FlowArgs args,
     }
     z_tile[(p * r + s) * 3 + ch] = v;
   }
+}
 
+__global__ void __launch_bounds__(kGThreads, 1)
+flow_g_kernel(const float* __restrict__ fz, Blend blend, FlowArgs args,
+              const float* __restrict__ weights, float* __restrict__ out,
+              int n_points, int r) {
+  extern __shared__ float4 wsm[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  // a thread block's share of the point tiles, the same for every flow
+  // block: a warp reads back only rows it wrote
+  const int n_tiles = (n_points + kTile - 1) / kTile;
+  const int tile0 = static_cast<int>(static_cast<int64_t>(n_tiles) *
+                                     blockIdx.x / gridDim.x);
+  const int tile1 = static_cast<int>(static_cast<int64_t>(n_tiles) *
+                                     (blockIdx.x + 1) / gridDim.x);
   for (int b = args.nblocks - 1; b >= 0; --b) {
+    __syncthreads();   // every warp is done with the last block's weights
+    const float4* src =
+        reinterpret_cast<const float4*>(weights + args.woff[b]);
+    const int n4 = (args.woff[b + 1] - args.woff[b]) / 4;
+    for (int i = threadIdx.x; i < n4; i += kGThreads) wsm[i] = __ldg(src + i);
+    __syncthreads();
     const int cdim = args.cdim[b];
+    const int kt = kt_of(cdim);
     const int split = (b % 2 == 0) ? 1 : 2;
-    const int ldc = cdim | 1;
-    __syncthreads();  // the previous block is done with w_s and cp
-    stage_weights(weights, args, b, w_s);
-    const float* c = args.cs[b] + static_cast<size_t>(p0) * cdim;
-    for (int i = t; i < kPoints * cdim; i += kThreads) {
-      const int p = i / cdim;
-      cp[p * ldc + (i - p * cdim)] = p < np ? c[i] : 0.f;
-    }
-    __syncthreads();
-    const BlockWeights W = block_weights(w_s, cdim, split);
-
-    // once per point: the injector's scale and bias nets, and the
-    // coupling's condition projection w0_c . c
-    dense_hidden<true>(cp, ldc, cdim, W.s_w0, nullptr, h_a, np);
-    __syncthreads();
-    dense_hidden<true>(h_a, kLdH, kHidden, W.s_w1, W.s_b1, h_b, np);
-    __syncthreads();
-    dense_out(h_b, W.s_w2, W.s_b2, 3, sc, np);
-    __syncthreads();
-    dense_hidden<true>(cp, ldc, cdim, W.b_w0, nullptr, h_a, np);
-    __syncthreads();
-    dense_hidden<true>(h_a, kLdH, kHidden, W.b_w1, W.b_b1, h_b, np);
-    __syncthreads();
-    dense_out(h_b, W.b_w2, W.b_b2, 3, bi, np);
-    dense_hidden<false>(cp, ldc, cdim, W.c_w0 + split * kHidden, nullptr, h_c,
-                        np);
-    __syncthreads();
-
-    // per row, kRows rows at a time
-    for (int j0 = 0; j0 < rows; j0 += kRows) {
-      const int nr = min(kRows, rows - j0);
-      if (t < nr) {
-        // affine injector inverse, then the reverse permutation
-        const int p = (j0 + t) / r;
-        float v[3];
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch)
-          v[ch] = z_tile[(j0 + t) * 3 + ch] * expf(sc[p * 3 + ch]) +
-                  bi[p * 3 + ch];
-        zc[t * 3] = v[2];
-        zc[t * 3 + 1] = v[1];
-        zc[t * 3 + 2] = v[0];
+    const GBlock W = g_block(reinterpret_cast<const float*>(wsm), kt, lane);
+    for (int tile = tile0 + warp; tile < tile1; tile += kGWarps) {
+      const int pt0 = tile * kTile;
+      if (b == args.nblocks - 1) {
+        prologue(fz, blend, out, pt0, n_points, r, lane);
+        __syncwarp();
       }
-      __syncthreads();
-      // additive coupling inverse, h2 += MLP([h1, c]): the first layer is
-      // the point's projection plus the h1 columns
-      for (int i = t; i < nr * kHidden; i += kThreads) {
-        const int jj = i / kHidden;
-        const int o = i - jj * kHidden;
-        float h = h_c[((j0 + jj) / r) * kLdH + o];
-        for (int s = 0; s < split; ++s)
-          h = fmaf(zc[jj * 3 + s], W.c_w0[s * kHidden + o], h);
-        h_a[jj * kLdH + o] = lrelu(h);
-      }
-      __syncthreads();
-      dense_hidden<true>(h_a, kLdH, kHidden, W.c_w1, W.c_b1, h_b, nr);
-      __syncthreads();
-      dense_out(h_b, W.c_w2, W.c_b2, 3 - split, t0, nr);
-      __syncthreads();
-      if (t < nr) {
-        float v[3];
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) v[ch] = zc[t * 3 + ch];
-        for (int o = 0; o < 3 - split; ++o) v[split + o] += t0[t * 3 + o];
-        // inv1x1 inverse (z' = W^-1 z), then ActNorm inverse
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float y = W.head[6 + 3 * i] * v[0] +
-                          W.head[7 + 3 * i] * v[1] + W.head[8 + 3 * i] * v[2];
-          z_tile[(j0 + t) * 3 + i] = (y - W.head[i]) * W.head[3 + i];
-        }
-      }
+      if (kt == 4)
+        g_tile<4>(W, args.cs[b], cdim, split, pt0, n_points, r, out, lane);
+      else if (kt == 8)
+        g_tile<8>(W, args.cs[b], cdim, split, pt0, n_points, r, out, lane);
+      else
+        g_tile<16>(W, args.cs[b], cdim, split, pt0, n_points, r, out, lane);
     }
   }
 }
@@ -197,19 +409,34 @@ cudaError_t launch_g(const float* fz, const Blend& blend, const void* weights,
   const int cmax = fill_args(&args, static_cast<const long long*>(c_ptrs),
                              static_cast<const int*>(cdims),
                              static_cast<const int*>(woff), nblocks);
-  if (cmax < 0 || r < 1) return cudaErrorInvalidValue;
+  if (cmax < 0 || cmax > 8 * kt_of(128) || r < 1 ||
+      reinterpret_cast<uintptr_t>(weights) % 16 != 0)
+    return cudaErrorInvalidValue;
+  for (int b = 0; b < nblocks; ++b)
+    if (args.cdim[b] < 1 || args.cdim[b] % 2 != 0 ||
+        reinterpret_cast<uintptr_t>(args.cs[b]) % 8 != 0 ||
+        args.woff[b] % 4 != 0 ||
+        args.woff[b + 1] - args.woff[b] != g_block_floats(kt_of(args.cdim[b])))
+      return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
-  const int ldc_max = cmax | 1;
-  const size_t smem = sizeof(float) * g_smem_floats(args.wmax, ldc_max);
+  const size_t smem = sizeof(float) * args.wmax;
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flow_g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (n_points + kPoints - 1) / kPoints;
-  flow_g_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, flow_g_kernel, kGThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // as many SMs as there are tiles, each walking its share
+  const int grid = std::min(sms * per_sm, (n_points + kTile - 1) / kTile);
+  flow_g_kernel<<<grid, kGThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       fz, blend, args, static_cast<const float*>(weights),
-      static_cast<float*>(out), n_points, r, ldc_max);
+      static_cast<float*>(out), n_points, r);
   return cudaGetLastError();
 }
 
@@ -218,7 +445,8 @@ cudaError_t launch_g(const float* fz, const Blend& blend, const void* weights,
 
 // fz [n_points, 3, r] -> out [n_points * r, 3], point-major. c_ptrs /
 // cdims / woff are host arrays of nblocks, nblocks and nblocks + 1 entries;
-// the conditions are [n_points, cdim] (not repeated).
+// the conditions are [n_points, cdim] (not repeated), cdim even and <= 128,
+// 8-byte aligned; the weights (16-byte aligned) are `_pack_g`'s.
 extern "C" int puflow_flow_g(const void* fz, const void* weights,
                              const void* c_ptrs, const void* cdims,
                              const void* woff, int nblocks, int n_points,

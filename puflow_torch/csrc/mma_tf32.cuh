@@ -74,5 +74,83 @@ __device__ __forceinline__ void mma_3x(float (&acc)[NT][4],
   }
 }
 
+// The same rounding as two integer operations, add half the dropped ulp
+// and clear the 13 low bits (`ops/encoder.py:tf32_round`), which gave the
+// same bits as `cvt.rna.tf32.f32` for finite x and cut a call of the
+// inverse flow by 25% (scripts/flow_g_variants.py, PERF.md). The helpers
+// below use it; `mma_3x` (the encoder's) keeps `split`.
+__device__ __forceinline__ uint32_t round_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_bits(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = round_bits(x);
+  lo = round_bits(x - __uint_as_float(hi));
+}
+
+// The tf32 hi and lo of a lane's B pair (rows 2t, 2t + 1 of column g):
+// pre-split on the host (float4 {hi0, hi1, lo0, lo1}) or split here from
+// the f32 pair (float2 {b0, b1}), which halves the bytes in shared memory
+// for the instructions of two splits.
+struct BPair {
+  float h0, h1, l0, l1;
+};
+
+__device__ __forceinline__ BPair b_pair(const float4& b) {
+  return {b.x, b.y, b.z, b.w};
+}
+
+__device__ __forceinline__ BPair b_pair(const float2& b) {
+  uint32_t h0, l0, h1, l1;
+  split_bits(b.x, h0, l0);
+  split_bits(b.y, h1, l1);
+  return {__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+          __uint_as_float(l1)};
+}
+
+// A k8 chunk's C fragment (16 rows x 8 columns) -> the hi and lo of the A
+// fragment it serves as.
+struct ASplit {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ ASplit a_split(const float (&a)[4]) {
+  ASplit s;
+  split_bits(a[0], s.hi[0], s.lo[0]);
+  split_bits(a[2], s.hi[1], s.lo[1]);
+  split_bits(a[1], s.hi[2], s.lo[2]);
+  split_bits(a[3], s.hi[3], s.lo[3]);
+  return s;
+}
+
+// acc[nt] += a W for one k8 chunk, its A fragment split in a, W's
+// fragment nt at w[nt * 32] (w already offset by the lane and the chunk)
+// as a float4 (pre-split) or float2 (f32) pair.
+template <int NT, class Frag>
+__device__ __forceinline__ void mma_3x_tiles(float (&acc)[NT][4],
+                                             const ASplit& a, const Frag* w) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const BPair b = b_pair(w[nt * 32]);
+    mma(acc[nt], a.hi, b.h0, b.h1);
+    mma(acc[nt], a.hi, b.l0, b.l1);
+    mma(acc[nt], a.lo, b.h0, b.h1);
+  }
+}
+
+// mma_3x with B in either pair format: acc[nt] += A W over KT k8 chunks
+// of A in registers (chunk kc the C fragment a[kc]), W's fragment for
+// (kc, nt) at w[(kc * w_tiles + nt) * 32].
+template <int KT, int NT, int AT, class Frag>
+__device__ __forceinline__ void mma_3x_any(float (&acc)[NT][4],
+                                           const float (&a)[AT][4],
+                                           const Frag* w, int w_tiles) {
+  static_assert(KT <= AT, "more k chunks than A tiles");
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc)
+    mma_3x_tiles(acc, a_split(a[kc]), w + kc * w_tiles * 32);
+}
+
 }  // namespace tf32
 }  // namespace puflow

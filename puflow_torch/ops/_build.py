@@ -143,17 +143,19 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({what}) at launch")
 
 
-# Weights are packed for a kernel once, not once a launch: id()s of the
-# tensors packed -> (the tensors, which keeps the ids theirs; their
-# versions, which an in-place update moves; the pack).
+# Weights are packed for a kernel once, not once a launch: the packing's
+# kind and the id()s of the tensors packed -> (the tensors, which keeps
+# the ids theirs; their versions, which an in-place update moves; the
+# pack).
 _PACKS: dict = {}
 _MAX_PACKS = 64
 
 
-def packed(tensors, make):
+def packed(tensors, make, kind: str = ""):
     """``make()``, the kernel's packing of ``tensors``, made again only when
-    one of them is another tensor or was updated in place."""
-    key = tuple(map(id, tensors))
+    one of them is another tensor or was updated in place. ``kind`` tells
+    apart two packings of the same tensors."""
+    key = (kind, *map(id, tensors))
     versions = tuple(t._version for t in tensors)
     hit = _PACKS.get(key)
     if hit is not None and hit[1] == versions:

@@ -11,8 +11,10 @@ block's encoder features.
 The wrappers `flow_f`, `flow_g` and `flow_g_blend` (the latent blend of
 the interpolation, then the inverse flow) launch their kernel for CUDA
 tensors and run the plain version (`flow_f_plain`, `flow_g_plain`,
-`flow_g_blend_plain`) for CPU tensors. Inference only: no
-log-determinant, no gradient.
+`flow_g_blend_plain`) for CPU tensors. They pack the blocks' weights once
+per parameters (`_build.packed`): `_pack_f` for flow f's f32 kernel,
+`_pack_g` (the B fragments of its 3xTF32 products) for flow g's.
+Inference only: no log-determinant, no gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._pytree import tree_flatten
 
 from puflow_torch.flows.coupling import (
     additive_coupling_forward,
@@ -34,6 +37,7 @@ from puflow_torch.flows.permutate import (
     reverse_permute,
 )
 from puflow_torch.ops import _build
+from puflow_torch.ops.encoder import fragment_order, split_tf32
 from puflow_torch.ops.knn import check_graph, gather_points
 
 _REVERSE3 = (2, 1, 0)  # reverse permutation of 3 channels; self-inverse
@@ -101,20 +105,14 @@ def flow_g_blend_plain(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
     return flow_g_plain(flow_blocks, fz, cs)
 
 
-def _pack_weights(flow_blocks, inverse: bool):
+def _pack_f(flow_blocks):
     """Flow-block params -> (flat f32 weights, per-block offsets) in the
-    layout of `csrc/flow_common.cuh`. Matrices keep their [in, out] layout;
-    the inverse flow stores W^-1 and exp(-logs)."""
+    layout of `csrc/flow_common.cuh` that flow_f reads. Matrices keep their
+    [in, out] layout."""
     pieces, woff = [], [0]
     for bp in flow_blocks:
-        an, w = bp["actnorm"], bp["inv1x1"]["W"]
-        if inverse:
-            # linalg.inv without its error check, whose read of the status
-            # would stop the host until the card drains its queue
-            w_inv = torch.linalg.inv_ex(w).inverse
-            head = [an["bias"], torch.exp(-an["logs"]), w_inv]
-        else:
-            head = [torch.exp(an["logs"]), an["bias"], w]
+        an = bp["actnorm"]
+        head = [torch.exp(an["logs"]), an["bias"], bp["inv1x1"]["W"]]
         nets = (bp["coupling1"]["bias_net"], bp["coupling2"]["scale_net"],
                 bp["coupling2"]["bias_net"])
         block = head + [net[k] for net in nets
@@ -122,6 +120,74 @@ def _pack_weights(flow_blocks, inverse: bool):
         pieces.extend(t.reshape(-1) for t in block)
         woff.append(woff[-1] + sum(t.numel() for t in block))
     return torch.cat(pieces).to(torch.float32).contiguous(), woff
+
+
+def g_chunks(cdim: int) -> int:
+    """k8 chunks the g kernel takes over a condition of width cdim
+    (`csrc/flow_g.cu:kt_of`): 4, 8 or 16, zero rows past cdim."""
+    return 4 if cdim <= 32 else 8 if cdim <= 64 else 16
+
+
+def _pad(t: torch.Tensor, rows: int | None = None, cols: int | None = None):
+    """Zero-pad a vector to ``rows`` entries or a matrix to ``[rows,
+    cols]``."""
+    if t.ndim == 1:
+        return torch.cat([t, t.new_zeros(rows - t.shape[0])])
+    rows = t.shape[0] if rows is None else rows
+    cols = t.shape[1] if cols is None else cols
+    out = t.new_zeros(rows, cols)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def _frags(w: torch.Tensor, presplit: bool) -> torch.Tensor:
+    """``[K, N]`` -> its B fragments (`fragment_order`), flat: each lane's
+    pair of weights as f32, or as tf32 {hi0, hi1, lo0, lo1}."""
+    pairs = fragment_order(w).reshape(-1, 2)
+    if presplit:
+        pairs = torch.cat(split_tf32(pairs), dim=1)
+    return pairs.reshape(-1)
+
+
+def _pack_g(flow_blocks):
+    """Flow-block params -> (flat f32 weights, per-block offsets) in the
+    layout `csrc/flow_g.cu` reads: per block the head (ActNorm bias,
+    exp(-logs), W^-1), c_w0's h1 rows, the biases, then the B fragments of
+    s_w0, b_w0, c_w0's condition rows, s_w2, b_w2, c_w2 (f32 pairs) and
+    s_w1, b_w1, c_w1 (pre-split); the 64 -> 3 layers zero-padded to 8
+    columns, the first layers' rows to 8 `g_chunks`."""
+    pieces, woff = [], [0]
+    for i, bp in enumerate(flow_blocks):
+        split = _split(i)
+        an = bp["actnorm"]
+        c1 = bp["coupling1"]["bias_net"]
+        sn, bn = bp["coupling2"]["scale_net"], bp["coupling2"]["bias_net"]
+        kp = 8 * g_chunks(sn["w0"].shape[0])
+        # linalg.inv without its error check, whose read of the status
+        # would stop the host until the card drains its queue
+        w_inv = torch.linalg.inv_ex(bp["inv1x1"]["W"]).inverse
+        block = [an["bias"].reshape(-1), torch.exp(-an["logs"]).reshape(-1),
+                 w_inv.reshape(-1), w_inv.new_zeros(1),
+                 _pad(c1["w0"][:split], rows=2).reshape(-1),
+                 c1["b1"], sn["b1"], bn["b1"],
+                 _pad(c1["b2"], 8), _pad(sn["b2"], 8), _pad(bn["b2"], 8)]
+        block += [_frags(_pad(w0, rows=kp), False)
+                  for w0 in (sn["w0"], bn["w0"], c1["w0"][split:])]
+        block += [_frags(_pad(net["w2"], cols=8), False)
+                  for net in (sn, bn, c1)]
+        block += [_frags(net["w1"], True) for net in (sn, bn, c1)]
+        pieces.extend(block)
+        woff.append(woff[-1] + sum(t.numel() for t in block))
+    return torch.cat(pieces).to(torch.float32).contiguous(), woff
+
+
+def _packed(flow_blocks, inverse: bool):
+    """The kernel's packing of the flow blocks, made once per parameters
+    (`_build.packed`)."""
+    leaves = tree_flatten(list(flow_blocks))[0]
+    if inverse:
+        return _build.packed(leaves, lambda: _pack_g(flow_blocks), "flow_g")
+    return _build.packed(leaves, lambda: _pack_f(flow_blocks), "flow_f")
 
 
 def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
@@ -154,6 +220,16 @@ def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
     return c_ptrs, cdims
 
 
+def _check_g_conditions(name: str, cs):
+    """The g kernel reads a condition's columns in pairs: even widths,
+    8-byte aligned."""
+    for i, c in enumerate(cs):
+        if c.shape[-1] % 2 or c.data_ptr() % 8:
+            raise ValueError(f"{name}: condition {i} must have an even width "
+                             f"and 8-byte aligned rows, got width "
+                             f"{c.shape[-1]} at address {c.data_ptr()}")
+
+
 def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
     """Forward flow, points ``[B, N, 3]`` -> latents ``[B, N, 3]``, with no
     log-det: the CUDA kernel for CUDA tensors, `flow_f_plain` for CPU."""
@@ -164,7 +240,7 @@ def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
     if x.ndim != 3 or x.shape[2] != 3:
         raise ValueError(f"flow_f: expects [B, N, 3], got {tuple(x.shape)}")
     c_ptrs, cdims = _check_inputs("flow_f", flow_blocks, x, cs)
-    weights, woff = _pack_weights(flow_blocks, inverse=False)
+    weights, woff = _packed(flow_blocks, inverse=False)
     woff_c = (ctypes.c_int * len(woff))(*woff)
     z = torch.empty_like(x)
     lib = _build.library()
@@ -191,7 +267,8 @@ def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
         raise ValueError("flow_g: expects [B, N, 3, r] with r <= "
                          f"{MAX_UPRATIO}, got {tuple(fz.shape)}")
     c_ptrs, cdims = _check_inputs("flow_g", flow_blocks, fz, cs)
-    weights, woff = _pack_weights(flow_blocks, inverse=True)
+    _check_g_conditions("flow_g", cs)
+    weights, woff = _packed(flow_blocks, inverse=True)
     woff_c = (ctypes.c_int * len(woff))(*woff)
     B, N, C, r = fz.shape
     out = torch.empty((B, N * r, C), dtype=torch.float32, device=fz.device)
@@ -228,7 +305,8 @@ def flow_g_blend(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
                          f"[{B}, {N}, {k}, r <= {MAX_UPRATIO}], got "
                          f"{ws.dtype} {tuple(ws.shape)}")
     c_ptrs, cdims = _check_inputs("flow_g_blend", flow_blocks, z, cs)
-    weights, woff = _pack_weights(flow_blocks, inverse=True)
+    _check_g_conditions("flow_g_blend", cs)
+    weights, woff = _packed(flow_blocks, inverse=True)
     woff_c = (ctypes.c_int * len(woff))(*woff)
     r = ws.shape[3]
     out = torch.empty((B, N * r, C), dtype=torch.float32, device=z.device)

@@ -9,6 +9,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
 from puflow_torch import checkpoint
 from puflow_torch.models import continuous, discrete
@@ -109,7 +110,10 @@ def test_fps_seeded_kernel_ties(card):
         farthest_point_sample_seeded_plain(x, sd, 900).cpu().numpy())
 
 
-@pytest.mark.parametrize("r", [1, 4, 5])
+# r = 32 (the head's most) and 5 as well as the path's 4; 37 patches of
+# 61 points leave the last tile of each kernel partial. Every call runs
+# the model's condition widths 32, 64 and 128 (one a flow block).
+@pytest.mark.parametrize("r", [1, 4, 5, 32])
 def test_flow_kernels_match_plain(card, r):
     gen = torch.Generator().manual_seed(0)
     params, state = checkpoint.to_numpy_tree(
@@ -117,8 +121,7 @@ def test_flow_kernels_match_plain(card, r):
     discrete.perturb_init(params, state, 0)
     tp, ts = checkpoint.from_numpy_tree(params, state, card).trees()
     rng = np.random.RandomState(r)
-    # 37 patches: the last tile of each kernel is partial
-    x = torch.from_numpy((rng.randn(37, 64, 3) * 0.3).astype(np.float32))
+    x = torch.from_numpy((rng.randn(37, 61, 3) * 0.3).astype(np.float32))
     x = x.to(card)
     idx = knn_indices(x, x, 16)
     cs, _ = discrete.feat_extract(tp, ts, x, idx)
@@ -130,10 +133,45 @@ def test_flow_kernels_match_plain(card, r):
     fz, _ = interpolation_apply(tp["interp"], ts["interp"], z_ref, x, r,
                                 knn_idx=idx)
     fz = fz.contiguous()
+    before = flow.flow_g.launches
     g = flow.flow_g(blocks, fz, cs)
+    assert flow.flow_g.launches == before + 1
     g_ref = flow.flow_g_plain(blocks, fz, cs)
     tol = 1e-5 * max(1.0, float(g_ref.abs().max()))
     assert float((g - g_ref).abs().max()) <= tol
+    # one fixed order, no atomics: a rerun is bit-equal
+    assert torch.equal(g, flow.flow_g(blocks, fz, cs))
+
+
+def test_flow_g_kernel_other_condition_widths(card):
+    """Condition widths no model block has (40 and 8, padded to whole k
+    chunks; 128): the kernel matches its plain version. It reads a
+    condition's columns in pairs, so an odd width or rows 4-byte aligned
+    only raise."""
+    gen = torch.Generator().manual_seed(5)
+    cdims = (40, 8, 128)
+    blocks = [discrete.flow_block_init(gen, cd, i % 2 == 0, device="cpu")
+              for i, cd in enumerate(cdims)]
+    # noise on every weight: seeded init leaves the nets' last layers zero
+    blocks = tree_map(
+        lambda t: (t + 0.1 * torch.randn(t.shape, generator=gen)).to(card),
+        blocks)
+    rng = np.random.RandomState(5)
+    n, r = 333, 4
+    fz = torch.from_numpy(rng.randn(1, n, 3, r).astype(np.float32)).to(card)
+    cs = [torch.from_numpy(rng.randn(1, n, cd).astype(np.float32)).to(card)
+          for cd in cdims]
+    got = flow.flow_g(blocks, fz, cs)
+    ref = flow.flow_g_plain(blocks, fz, cs)
+    assert float((got - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
+    odd = [discrete.flow_block_init(gen, 33, True, device="cpu")]
+    odd = tree_map(lambda t: t.to(card), odd)
+    with pytest.raises(ValueError, match="even width"):
+        flow.flow_g(odd, fz, [torch.zeros(1, n, 33, device=card)])
+    shifted = torch.zeros(n * 128 + 1, device=card)[1:].view(1, n, 128)
+    with pytest.raises(ValueError, match="even width"):
+        flow.flow_g(blocks, fz, cs[:2] + [shifted])
 
 
 @pytest.fixture(scope="module")
@@ -212,9 +250,15 @@ def test_interp_kernel_matches_plain(card, folded, mode, bound):
     assert float((got - ref).abs().max()) < bound
 
 
-@pytest.mark.parametrize("r", [1, 4, 5])
-def test_flow_g_blend_kernel_matches_plain(card, folded, r):
+# as test_flow_kernels_match_plain: r up to 32, and patches of 61 points
+# (the last tile partial) beside the fixture's 64
+@pytest.mark.parametrize("r", [1, 4, 5, 32])
+@pytest.mark.parametrize("n", [64, 61])
+def test_flow_g_blend_kernel_matches_plain(card, folded, r, n):
     params, x, idx = folded
+    if n != x.shape[1]:
+        x = x[:, :n].contiguous()
+        idx = knn_self_plain(x, 16)
     cs = encoder.encoder_conditions_plain(params, x, idx)
     blocks = params["flow_blocks"]
     z = flow.flow_f_plain(blocks, x, cs)
@@ -224,6 +268,30 @@ def test_flow_g_blend_kernel_matches_plain(card, folded, r):
     ref = flow.flow_g_blend_plain(blocks, z, ws, idx8, cs)
     tol = 1e-5 * max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= tol
+    assert torch.equal(got, flow.flow_g_blend(blocks, z, ws, idx8, cs))
+
+
+def test_flow_g_repacks_after_an_in_place_update(card, folded):
+    """The kernel's weights are packed once per parameters; an in-place
+    update of a flow weight (an MLP's and inv1x1's W, whose inverse the
+    pack holds) makes a fresh packing."""
+    params, x, idx = folded
+    blocks = [{k: {kk: (vv.clone() if torch.is_tensor(vv) else
+                        {m: t.clone() for m, t in vv.items()})
+                   for kk, vv in v.items()}
+               for k, v in bp.items()} for bp in params["flow_blocks"]]
+    cs = encoder.encoder_conditions_plain(params, x, idx)
+    z = flow.flow_f_plain(blocks, x, cs)
+    idx8 = idx[..., :8]
+    ws = interp.interp_head_plain(params["interp"], x, idx8, 4)
+    first = flow.flow_g_blend(blocks, z, ws, idx8, cs)
+    blocks[3]["coupling2"]["scale_net"]["w1"].mul_(1.25)
+    blocks[1]["inv1x1"]["W"].add_(0.01)
+    got = flow.flow_g_blend(blocks, z, ws, idx8, cs)
+    ref = flow.flow_g_blend_plain(blocks, z, ws, idx8, cs)
+    assert not torch.equal(got, first)
+    assert float((got - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
 
 
 def test_folded_sample_runs_every_kernel(card, folded):
