@@ -35,9 +35,10 @@ Phases:
   3. compares each kernel with its plain PyTorch version on the card at
      the main path's shapes (256 patches of 256 points, r=4), times both,
      and works out each kernel's bound from the work these inputs need
-     (the encoder's and flow g's products at the TF32 peak as three TF32
-     products an f32 one, their FP32 bounds printed beside; two runs of
-     each of these three kernels bit-equal);
+     (the encoder's, the interpolation head's and flow g's products at the
+     TF32 peak as three TF32 products an f32 one, their FP32 bounds
+     printed beside; two runs of each of these kernels bit-equal, the head
+     in each of its three modes at K = 8, 5 and 16);
      the merge FPS at 1, 8 and 32 clouds under every plan of `SWEEP`
      (one block a cloud, clusters of C blocks), ties between blocks
      included, with each plan's time a step and the chosen plan timed in
@@ -739,16 +740,25 @@ def compare_folded(folded, x, results, rng):
 
     blocks, ip = fp["flow_blocks"], fp["interp"]
     z = flow_ops.flow_f_plain(blocks, x, cs_ref)
+    # the JAX package's gates for the exact head; k = 8 (the path's, the
+    # softmax in registers), then 5 and 16 (logits staged in shared memory),
+    # slices of the 24-neighbour graph
     for mode, tol in (("logits", 2e-3), ("weights", 5e-4),
                       ("latents", 5e-4)):
-        log(f"interp_head mode {mode}:")
-        check_close(results, "interp_head",
-                    interp_ops.interp_head(ip, x, idx8, UPRATIO, mode, z),
-                    interp_ops.interp_head_plain(ip, x, idx8, UPRATIO, mode,
-                                                 z), tol)
+        for label, graph in (("K=8", idx8), ("K=5 sliced", idx24[..., :5]),
+                             ("K=16 sliced", idx24[..., :16])):
+            log(f"interp_head mode {mode} {label}:")
+            got = interp_ops.interp_head(ip, x, graph, UPRATIO, mode, z)
+            check_close(results, "interp_head", got,
+                        interp_ops.interp_head_plain(ip, x, graph, UPRATIO,
+                                                     mode, z), tol)
+            check_rerun(f"interp_head mode {mode} {label}", got,
+                        interp_ops.interp_head(ip, x, graph, UPRATIO, mode,
+                                               z))
     ws = interp_ops.interp_head_plain(ip, x, idx8, UPRATIO)
-    set_bound(results["interp_head"], nbytes(x, idx8, ws) + tree_bytes(ip),
-              2 * interp_macs(ip, M * n * INTERP_K))
+    set_bound_3xtf32(results["interp_head"],
+                     nbytes(x, idx8, ws) + tree_bytes(ip),
+                     2 * interp_macs(ip, M * n * INTERP_K))
     time_pair(results, "interp_head",
               lambda: interp_ops.interp_head(ip, x, idx8, UPRATIO),
               lambda: interp_ops.interp_head_plain(ip, x, idx8, UPRATIO))

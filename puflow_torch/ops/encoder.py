@@ -70,6 +70,15 @@ def fragment_order(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(K // 8, 4, 2, N // 8, 8).permute(0, 3, 4, 1, 2)
 
 
+def b_fragments(w: torch.Tensor, presplit: bool) -> torch.Tensor:
+    """``[K, N]`` -> its B fragments (`fragment_order`), flat: each lane's
+    pair of weights as f32, or as tf32 {hi0, hi1, lo0, lo1}."""
+    pairs = fragment_order(w).reshape(-1, 2)
+    if presplit:
+        pairs = torch.cat(split_tf32(pairs), dim=1)
+    return pairs.reshape(-1)
+
+
 def pad_slots(knn_idx: torch.Tensor) -> torch.Tensor:
     """``[B, n, K]`` graph -> ``[B, n, K']`` with K' the next multiple of
     SLOT_TILE, each point's first neighbour repeated in the new slots: the

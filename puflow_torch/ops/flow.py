@@ -37,7 +37,7 @@ from puflow_torch.flows.permutate import (
     reverse_permute,
 )
 from puflow_torch.ops import _build
-from puflow_torch.ops.encoder import fragment_order, split_tf32
+from puflow_torch.ops.encoder import b_fragments
 from puflow_torch.ops.knn import check_graph, gather_points
 
 _REVERSE3 = (2, 1, 0)  # reverse permutation of 3 channels; self-inverse
@@ -140,15 +140,6 @@ def _pad(t: torch.Tensor, rows: int | None = None, cols: int | None = None):
     return out
 
 
-def _frags(w: torch.Tensor, presplit: bool) -> torch.Tensor:
-    """``[K, N]`` -> its B fragments (`fragment_order`), flat: each lane's
-    pair of weights as f32, or as tf32 {hi0, hi1, lo0, lo1}."""
-    pairs = fragment_order(w).reshape(-1, 2)
-    if presplit:
-        pairs = torch.cat(split_tf32(pairs), dim=1)
-    return pairs.reshape(-1)
-
-
 def _pack_g(flow_blocks):
     """Flow-block params -> (flat f32 weights, per-block offsets) in the
     layout `csrc/flow_g.cu` reads: per block the head (ActNorm bias,
@@ -171,11 +162,11 @@ def _pack_g(flow_blocks):
                  _pad(c1["w0"][:split], rows=2).reshape(-1),
                  c1["b1"], sn["b1"], bn["b1"],
                  _pad(c1["b2"], 8), _pad(sn["b2"], 8), _pad(bn["b2"], 8)]
-        block += [_frags(_pad(w0, rows=kp), False)
+        block += [b_fragments(_pad(w0, rows=kp), False)
                   for w0 in (sn["w0"], bn["w0"], c1["w0"][split:])]
-        block += [_frags(_pad(net["w2"], cols=8), False)
+        block += [b_fragments(_pad(net["w2"], cols=8), False)
                   for net in (sn, bn, c1)]
-        block += [_frags(net["w1"], True) for net in (sn, bn, c1)]
+        block += [b_fragments(net["w1"], True) for net in (sn, bn, c1)]
         pieces.extend(block)
         woff.append(woff[-1] + sum(t.numel() for t in block))
     return torch.cat(pieces).to(torch.float32).contiguous(), woff

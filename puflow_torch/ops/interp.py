@@ -16,10 +16,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._pytree import tree_flatten
 
 from puflow_torch.models.encoder import (R_MAX, knn_context_apply,
                                          weight_unit_apply)
 from puflow_torch.ops import _build
+from puflow_torch.ops.encoder import b_fragments
 from puflow_torch.ops.knn import check_graph, check_patches, gather_points
 
 MODES = ("logits", "weights", "latents")
@@ -55,11 +57,27 @@ def interp_head_plain(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
     return out
 
 
-def _pack(params):
-    """Folded head params -> (flat f32 weights, offsets of the 15 weight
-    matrices then of the 15 biases) in `csrc/interp.cu`'s order. Each
-    context EdgeConv layer gets the rows [W_self; W_nbr; 0 (4 rows); W_h]
-    over the kernel's [f10, h] row layout."""
+# B fragments pre-split into tf32 {hi0, hi1, lo0, lo1} (csrc/interp.cu:
+# Frag = float4), or f32 pairs the kernel splits as it reads them (float2)
+_PRESPLIT = True
+_GROUP = 32               # columns of a group of d or e (csrc/interp.cu)
+_F10 = 16                 # f10's columns, zero-padded to two k8 chunks
+
+
+def _edge_rows(w: torch.Tensor) -> torch.Tensor:
+    """A context EdgeConv layer's ``[9 + h, N]`` weights over [x_p, x_q,
+    x_q - x_p, h] -> ``[16 + h, N]`` over the kernel's [f10, h]: rows
+    [W_self; W_nbr; 0] over f10's 16 columns."""
+    zero = w.new_zeros((_F10 - 6, w.shape[1]))
+    return torch.cat([w[:3] - w[6:9], w[3:6] + w[6:9], zero, w[9:]])
+
+
+def _matrices(params):
+    """Folded head params -> (the head's [in, out] matrices as the kernel
+    takes them: lin0 of the distance MLP padded to f10's 16 rows, the
+    EdgeConv layers by `_edge_rows`; the 736 biases in `csrc/interp.cu`'s
+    order). Raises unless the params are folded and of the published
+    shapes."""
     kc = params["knn_context"]
     de, fe, wu = kc["distance_encoder"], kc["feat_conv"], params["weight_unit"]
     if "bn0" in de or "bn0" in wu or any("bn" in c for c in fe["convs"]):
@@ -78,20 +96,60 @@ def _pack(params):
         raise ValueError("interp_head: the kernel is built for the published "
                          "head (distance MLP 10-64-64-128, growth-16 x 8 "
                          "EdgeConv, weight MLP 256-128-64-32)")
-    mats = [de[f"lin{i}"]["w"] for i in range(3)]
-    biases = [de[f"lin{i}"]["b"] for i in range(3)]
-    for lay in layers:
-        w = lay["w"]
-        zero = torch.zeros((4, w.shape[1]), dtype=w.dtype, device=w.device)
-        mats.append(torch.cat([w[:3] - w[6:9], w[3:6] + w[6:9], zero, w[9:]]))
-        biases.append(lay["b"])
-    mats += [wu[f"lin{i}"]["w"] for i in range(3)]
-    biases += [wu[f"lin{i}"]["b"] for i in range(3)]
-    pieces = [t.reshape(-1) for t in mats + biases]
-    offsets = [0]
-    for t in pieces[:-1]:
-        offsets.append(offsets[-1] + t.numel())
+    de0 = de["lin0"]["w"]
+    mats = {"de0": torch.cat([de0, de0.new_zeros((_F10 - 10,
+                                                   de0.shape[1]))]),
+            "de1": de["lin1"]["w"], "de2": de["lin2"]["w"],
+            "fe": [_edge_rows(lay["w"]) for lay in layers[:-1]],
+            "fo": _edge_rows(layers[-1]["w"]),
+            "w0": wu["lin0"]["w"], "w1": wu["lin1"]["w"],
+            "w2": wu["lin2"]["w"]}
+    biases = torch.cat([de[f"lin{i}"]["b"] for i in range(3)]
+                       + [lay["b"] for lay in layers]
+                       + [wu[f"lin{i}"]["b"] for i in range(3)])
+    return mats, biases
+
+
+def _phases(mats) -> list[list[torch.Tensor]]:
+    """The matrices of each phase of `csrc/interp.cu`'s round, in its
+    `Phase` order: G (the growth layers), E0-E3 (group i of e: conv_out's
+    columns [32 i, +32), W0's rows [128 + 32 i, +32)), D0 (lin0, lin1,
+    group 0 of d), D1 (groups 1, 2), D2 (group 3) (group i of d: lin2's
+    columns [32 i, +32), W0's rows [32 i, +32)), T (W1, W2)."""
+    fo, de2, w0 = mats["fo"], mats["de2"], mats["w0"]
+
+    def e_group(i):
+        cols = slice(_GROUP * i, _GROUP * (i + 1))
+        return [fo[:, cols], w0[128 + _GROUP * i:128 + _GROUP * (i + 1)]]
+
+    def d_group(i):
+        return [de2[:, _GROUP * i:_GROUP * (i + 1)],
+                w0[_GROUP * i:_GROUP * (i + 1)]]
+
+    return [mats["fe"], *(e_group(i) for i in range(4)),
+            [mats["de0"], mats["de1"], *d_group(0)], d_group(1) + d_group(2),
+            d_group(3), [mats["w1"], mats["w2"]]]
+
+
+def _pack(params):
+    """Folded head params -> (flat f32 weights, offsets) in the layout
+    `csrc/interp.cu` reads: the biases, then each phase's B fragments
+    (`_phases`, `b_fragments`); offsets: the biases', each phase's, the
+    end."""
+    mats, biases = _matrices(params)
+    pieces, offsets = [biases], [0, biases.numel()]
+    for phase in _phases(mats):
+        pieces += [b_fragments(w, _PRESPLIT) for w in phase]
+        offsets.append(offsets[-1] + sum(w.numel() for w in phase)
+                       * (2 if _PRESPLIT else 1))
     return torch.cat(pieces).to(torch.float32).contiguous(), offsets
+
+
+def _packed(params):
+    """The kernel's packing of the head, made once per parameters
+    (`_build.packed`)."""
+    return _build.packed(tree_flatten(params)[0], lambda: _pack(params),
+                         "interp_head")
 
 
 def interp_head(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
@@ -119,7 +177,7 @@ def interp_head(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
     shape = {"logits": (B, n, k, R_MAX), "weights": (B, n, k, upratio),
              "latents": (B, n, 3, upratio)}[mode]
     out = torch.empty(shape, dtype=torch.float32, device=xyz.device)
-    weights, offsets = _pack(params)
+    weights, offsets = _packed(params)
     off_c = (ctypes.c_int * len(offsets))(*offsets)
     lib = _build.library()
     with torch.cuda.device(xyz.device):

@@ -125,7 +125,8 @@ VARIANTS = {
     # the same way)
     "split_at_read": [
         (FLOW_G, swap("using HidFrag = float4; ", "using HidFrag = float2; ")),
-        (OPS, swap('_frags(net["w1"], True)', '_frags(net["w1"], False)'))],
+        (OPS, swap('b_fragments(net["w1"], True)',
+                    'b_fragments(net["w1"], False)'))],
     # tf32 rounding by `cvt.rna.tf32.f32`, as the encoder's `split`
     "cvt_round": [(MMA, swap(ROUND_INT, ROUND_CVT))],
     # the injector's two first layers in two passes over the conditions

@@ -25,6 +25,7 @@ from puflow_tpu.models import continuous as j_cont
 from puflow_tpu.models.ode import odeint_dopri5 as j_odeint
 from puflow_tpu.ops.pallas.cnf_adjoint_pallas import cnf_adjoint_bwd_pallas
 from puflow_tpu.ops.pallas.cnf_pallas import cnf_solve_logp_pallas
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 

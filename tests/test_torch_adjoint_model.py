@@ -14,6 +14,7 @@ import torch
 
 from puflow_torch.models import continuous as t_cont
 from puflow_tpu.models import continuous as j_cont
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 

@@ -18,6 +18,7 @@ from puflow_torch.models import continuous as t_cont
 from puflow_tpu.models import continuous as j_cont
 
 from torch_cnf_cases import KEY, _inputs, _to_torch, net32  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------------

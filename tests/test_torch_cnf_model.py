@@ -33,6 +33,7 @@ from puflow_tpu.models import continuous as j_cont
 from puflow_tpu.models import fold_bn as j_fold
 
 from torch_cnf_cases import B, KEY, N, R, case  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------------

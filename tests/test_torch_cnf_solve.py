@@ -28,6 +28,7 @@ from puflow_tpu.models.ode import odeint_dopri5 as j_odeint
 from puflow_tpu.ops.pallas.cnf_pallas import cnf_solve_pallas
 
 from torch_cnf_cases import KEY, _inputs, _to_torch, net32  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------------

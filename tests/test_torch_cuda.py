@@ -238,16 +238,45 @@ def test_encoder_kernel_rerun_is_bit_equal(card, folded):
         assert torch.equal(a, b)
 
 
+# the JAX package's gates for the exact head (tests/test_fused_kernels.py:
+# 149, 125, 183); k = 8 is the path's (the softmax in registers), 5 and 16
+# stage the logits in shared memory; every graph is a slice of a
+# 24-neighbour one (row stride 24); 61 points a patch leave the last round
+# ragged
 @pytest.mark.parametrize("mode,bound", [("logits", 2e-3), ("weights", 5e-4),
                                         ("latents", 5e-4)])
-def test_interp_kernel_matches_plain(card, folded, mode, bound):
-    params, x, idx = folded
+@pytest.mark.parametrize("k", [8, 5, 16])
+@pytest.mark.parametrize("n", [64, 61])
+def test_interp_kernel_matches_plain(card, folded, mode, bound, k, n):
+    params, x, _ = folded
+    x = x[:, :n].contiguous()
+    idx = knn_indices(x, x, 24)[..., :k]
     z = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
     z = z.to(card)
+    for r in (1, 4, 32):
+        before = interp.interp_head.launches
+        got = interp.interp_head(params["interp"], x, idx, r, mode, z)
+        assert interp.interp_head.launches == before + 1
+        ref = interp.interp_head_plain(params["interp"], x, idx, r, mode, z)
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) < bound, r
+        # one fixed order, no atomics: a rerun is bit-equal
+        assert torch.equal(got, interp.interp_head(params["interp"], x, idx,
+                                                   r, mode, z))
+
+
+def test_interp_repacks_after_an_in_place_update(card, folded):
+    """The head's weights are packed once per parameters; an in-place
+    update of a head weight makes a fresh packing."""
+    params, x, idx = folded
+    head = tree_map(lambda t: t.clone(), params["interp"])
     idx8 = idx[..., :8]
-    got = interp.interp_head(params["interp"], x, idx8, 4, mode, z)
-    ref = interp.interp_head_plain(params["interp"], x, idx8, 4, mode, z)
-    assert float((got - ref).abs().max()) < bound
+    first = interp.interp_head(head, x, idx8, 4)
+    head["knn_context"]["feat_conv"]["conv_out"]["w"].mul_(1.25)
+    got = interp.interp_head(head, x, idx8, 4)
+    ref = interp.interp_head_plain(head, x, idx8, 4)
+    assert not torch.equal(got, first)
+    assert float((got - ref).abs().max()) < 5e-4
 
 
 # as test_flow_kernels_match_plain: r up to 32, and patches of 61 points

@@ -10,6 +10,7 @@ from puflow_torch.data import synthetic as t_synthetic
 from puflow_tpu.data import augment as j_augment
 from puflow_tpu.data import pu1k as j_pu1k
 from puflow_tpu.data import synthetic as j_synthetic
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_synthetic_epochs_match():

@@ -17,6 +17,7 @@ import torch
 from puflow_torch.ops import emd as t_emd
 from puflow_tpu.ops.emd import auction_from_value as j_auction_from_value
 from puflow_tpu.ops.emd import emd_auction as j_emd_auction
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def cuda_auction_oracle(base_value: np.ndarray, eps: float, iters: int):

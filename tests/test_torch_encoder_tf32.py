@@ -31,6 +31,7 @@ from puflow_torch.ops import encoder as t_encoder
 from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.models import fold_bn as j_fold
 from puflow_tpu.ops.pallas import encoder_pallas, knn_pallas
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, K = 2, 64, 16
 

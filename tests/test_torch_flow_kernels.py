@@ -26,6 +26,7 @@ from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.models.encoder import interpolation_apply
 from puflow_tpu.ops.knn import knn_indices
 from puflow_tpu.ops.pallas import flow_pallas
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, R = 2, 64, 4
 

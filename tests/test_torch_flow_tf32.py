@@ -36,6 +36,7 @@ from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.models.encoder import interpolation_apply
 from puflow_tpu.ops.knn import knn_indices
 from puflow_tpu.ops.pallas import flow_pallas
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, K = 2, 64, 8
 # offsets of a block's weights in csrc/flow_g.cu (kW0h ... kFrags)

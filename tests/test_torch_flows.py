@@ -17,6 +17,7 @@ from puflow_tpu.flows import coupling as j_coupling
 from puflow_tpu.flows import normalize as j_normalize
 from puflow_tpu.flows import permutate as j_permutate
 from puflow_tpu.models import discrete as j_discrete
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 B, N, C, CDIM, H = 2, 17, 3, 32, 64

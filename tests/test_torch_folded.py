@@ -36,6 +36,7 @@ from puflow_tpu.inference import patch as j_patch
 from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.models import fold_bn as j_fold
 from puflow_tpu.ops.pallas import encoder_pallas, flow_pallas, knn_pallas
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, R = 2, 64, 4
 

@@ -26,6 +26,7 @@ from puflow_torch.utils.device import resolve_device
 from puflow_tpu.checkpoint import save_checkpoint
 from puflow_tpu.models import continuous as j_continuous
 from puflow_tpu.models import discrete as j_discrete
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -25,6 +25,7 @@ from puflow_tpu.ops import fps as j_fps
 from puflow_tpu.ops.pallas.fps_pallas import (
     farthest_point_sample_seeded_pallas,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -14,6 +14,7 @@ from puflow_torch.ops.knn import knn_indices as t_knn
 from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.models import encoder as j_encoder
 from puflow_tpu.ops.knn import knn_indices
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, R = 2, 64, 4
 ATOL = 1e-4   # elementwise on whole-model outputs, both sides f32

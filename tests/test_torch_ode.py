@@ -14,6 +14,7 @@ import torch
 
 from puflow_torch.models.ode import odeint_dopri5 as t_odeint
 from puflow_tpu.models.ode import odeint_dopri5 as j_odeint
+from torch_threads import one_torch_thread  # noqa: F401
 
 A = np.array([[-0.5, -3.0, 0.0], [3.0, -0.5, 0.0], [0.0, 0.0, -4.0]],
              np.float32)

@@ -22,6 +22,7 @@ from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.ops import chamfer as j_chamfer
 from puflow_tpu.ops import fps as j_fps
 from puflow_tpu.ops import knn as j_knn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [8, 16])

@@ -26,6 +26,7 @@ from puflow_tpu.checkpoint import save_checkpoint
 from puflow_tpu.checkpoint import _discrete_sample_fn
 from puflow_tpu.inference import patch as j_patch
 from puflow_tpu.models import discrete as j_discrete
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, PATCH, R, OUTLIERS = 512, 64, 4, 24
 NPOINT = N * R + OUTLIERS
