@@ -381,10 +381,11 @@ def flow_macs(blocks, points: int, r: int | None) -> int:
     return macs
 
 
-def flow_g_fma_macs(blocks, rows: int) -> int:
-    """The inverse flow's multiply-adds outside its products over ``rows``
-    rows: the h1 term of the coupling's first layer and W^-1, which
-    `csrc/flow_g.cu` takes as f32 FMAs (part of `flow_macs`)."""
+def flow_fma_macs(blocks, rows: int) -> int:
+    """The flows' multiply-adds outside their products over ``rows`` rows:
+    the h1 term of the coupling's first layer and W (f) or W^-1 (g), which
+    `csrc/flow_f.cu` and `csrc/flow_g.cu` take as f32 FMAs (part of
+    `flow_macs`)."""
     return sum(rows * ((1 if i % 2 == 0 else 2)
                        * bp["coupling1"]["bias_net"]["w0"].shape[1] + 9)
                for i, bp in enumerate(blocks))
@@ -557,7 +558,8 @@ def check_fps(name, xyz, m, results, plan=None, ref=None):
 def check_close(results, name, got, ref, tol):
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    log(f"{name} {tuple(got.shape)}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    log(f"{name} {tuple(got.shape)}: max_abs_err {err:.3e} (tol {tol:.3e}, "
+        f"{err / tol:.1%} of it)")
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
     results[name]["max_abs_err"] = max(
@@ -777,7 +779,7 @@ def compare_folded(folded, x, results, rng):
     check_rerun("flow_g_blend", got,
                 flow_ops.flow_g_blend(blocks, z, ws, idx8, cs_ref))
     # the blend, the h1 terms and W^-1 are f32 FMAs
-    fma = flow_g_fma_macs(blocks, M * n * UPRATIO)
+    fma = flow_fma_macs(blocks, M * n * UPRATIO)
     set_bound_3xtf32(results["flow_g_blend"],
                      nbytes(z, ws, idx8, ref, *cs_ref) + tree_bytes(blocks),
                      2 * (flow_macs(blocks, M * n, UPRATIO) - fma),
@@ -800,17 +802,21 @@ def compare_flows(model, x, results):
                                 UPRATIO, knn_idx=knn_idx)
     fz = fz.contiguous()
     g_ref = flow_ops.flow_g_plain(blocks, fz, cs)
-    # flow f exact f32, flow g 3xTF32 (the exact function's bound); the
-    # summation order differs from the plain version's
+    # both kernels 3xTF32 (the exact function's bound); the summation
+    # order differs from the plain version's
+    z = flow_ops.flow_f(blocks, x, cs)
     g = flow_ops.flow_g(blocks, fz, cs)
-    for name, got, ref in (("flow_f", flow_ops.flow_f(blocks, x, cs), z_ref),
-                           ("flow_g", g, g_ref)):
+    for name, got, ref in (("flow_f", z, z_ref), ("flow_g", g, g_ref)):
         check_close(results, name, got, ref,
                     1e-5 * max(1.0, float(ref.abs().max())))
+    check_rerun("flow_f", z, flow_ops.flow_f(blocks, x, cs))
     check_rerun("flow_g", g, flow_ops.flow_g(blocks, fz, cs))
-    set_bound(results["flow_f"], nbytes(x, z_ref, *cs) + tree_bytes(blocks),
-              2 * flow_macs(blocks, M * n, None))
-    fma = flow_g_fma_macs(blocks, M * n * UPRATIO)
+    # the h1 terms and W (f) or W^-1 (g) are f32 FMAs
+    fma = flow_fma_macs(blocks, M * n)
+    set_bound_3xtf32(results["flow_f"],
+                     nbytes(x, z_ref, *cs) + tree_bytes(blocks),
+                     2 * (flow_macs(blocks, M * n, None) - fma), 2 * fma)
+    fma = flow_fma_macs(blocks, M * n * UPRATIO)
     set_bound_3xtf32(results["flow_g"],
                      nbytes(fz, g_ref, *cs) + tree_bytes(blocks),
                      2 * (flow_macs(blocks, M * n, UPRATIO) - fma), 2 * fma)

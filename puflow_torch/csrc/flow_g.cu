@@ -30,9 +30,10 @@
 // 3-wide steps (the blend, the injector's scale and bias, the h1 term of
 // the coupling's first layer, W^-1, ActNorm) stay f32 FMAs.
 //
-// Design: a persistent grid of one block an SM walks the flow blocks in
-// turn; for each it stages the block's weights in shared memory once and
-// its warps then walk the thread block's share of point tiles. Every
+// Design (its pieces shared with flow_f.cu in flow_common.cuh): a
+// persistent grid of one block an SM walks the flow blocks in turn; for
+// each it stages the block's weights in shared memory once and its warps
+// then walk the thread block's share of point tiles. Every
 // product is a warp's m16n8k8 `mma.sync` on a tile of 16 points:
 //   per point: the three first layers read the tile's conditions straight
 //     from device memory as A fragments, the injector's two in one pass
@@ -64,76 +65,15 @@
 // is each warp's chain of splits, fragment reads and dependent products,
 // as in the encoder (PERF.md, section 6).
 
-#include <algorithm>
 #include <cstdint>
 
 #include "flow_common.cuh"
-#include "mma_tf32.cuh"
 
 namespace puflow {
 namespace {
 
 constexpr int kGThreads = 384;     // 12 warps an SM
 constexpr int kGWarps = kGThreads / 32;
-constexpr int kTile = 16;          // points of a warp's tile (m16)
-constexpr int kHt = kHidden / 8;   // n8 tiles of a hidden layer
-using HidFrag = float4;            // a 64 x 64 layer's pre-split pair
-
-// Layout of one flow block's weights, as `_pack_g` in
-// puflow_torch/ops/flow.py writes it (floats): the head (bias[3],
-// exp(-logs)[3], W^-1[9], 0); c_w0's h1 rows [2][64] (row 1 zero at split
-// 1); the biases c_b1, s_b1, b_b1 [64]; c_b2, s_b2, b_b2 [8] (zero past
-// the net's outputs); then B fragments (32 lanes each, k chunk major):
-// the first layers s_w0, b_w0 and c_w0's condition rows [8 kt x 64] and
-// the 64 -> 3 layers s_w2, b_w2, c_w2 [64 x 8] as f32 pairs, the hidden
-// layers s_w1, b_w1, c_w1 [64 x 64] as HidFrag. kt k chunks cover the
-// condition (zero rows past cdim).
-constexpr int kW0h = 16, kCB1 = 144, kSB1 = 208, kBB1 = 272, kCB2 = 336,
-              kSB2 = 344, kBB2 = 352, kFrags = 360;
-constexpr int kPair = 64;                         // floats of an f32 fragment
-constexpr int kHidFloats = 8 * sizeof(HidFrag);   // ... of a hidden one
-
-__host__ __device__ constexpr int kt_of(int cdim) {
-  return cdim <= 32 ? 4 : cdim <= 64 ? 8 : 16;
-}
-
-__host__ __device__ constexpr int g_block_floats(int kt) {
-  return kFrags + kPair * 3 * (8 * kt + kHt) + kHidFloats * 3 * kHt * kHt;
-}
-
-struct GBlock {
-  const float* head;
-  const float* w0h;
-  const float *c_b1, *s_b1, *b_b1, *c_b2, *s_b2, *b_b2;
-  const float2 *s_w0, *b_w0, *c_w0, *s_w2, *b_w2, *c_w2;
-  const HidFrag *s_w1, *b_w1, *c_w1;
-};
-
-// Block pointers into shared memory w; fragment pointers offset by the
-// lane, except the 64 -> 3 layers' (narrow_out offsets them itself).
-__device__ __forceinline__ GBlock g_block(const float* w, int kt, int lane) {
-  GBlock p;
-  p.head = w;
-  p.w0h = w + kW0h;
-  p.c_b1 = w + kCB1;
-  p.s_b1 = w + kSB1;
-  p.b_b1 = w + kBB1;
-  p.c_b2 = w + kCB2;
-  p.s_b2 = w + kSB2;
-  p.b_b2 = w + kBB2;
-  const float2* f = reinterpret_cast<const float2*>(w + kFrags);
-  p.s_w0 = f + lane;
-  p.b_w0 = p.s_w0 + 32 * 8 * kt;
-  p.c_w0 = p.b_w0 + 32 * 8 * kt;
-  p.s_w2 = f + 3 * 32 * 8 * kt;
-  p.b_w2 = p.s_w2 + 32 * kHt;
-  p.c_w2 = p.b_w2 + 32 * kHt;
-  const HidFrag* h = reinterpret_cast<const HidFrag*>(p.c_w2 + 32 * kHt);
-  p.s_w1 = h + lane;
-  p.b_w1 = p.s_w1 + 32 * kHt * kHt;
-  p.c_w1 = p.b_w1 + 32 * kHt * kHt;
-  return p;
-}
 
 // The blend's inputs; z == nullptr selects flow_g's latents `fz`.
 struct Blend {
@@ -144,97 +84,12 @@ struct Blend {
   int idx_stride, n, k;
 };
 
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-}
-
-__device__ __forceinline__ float2 lds2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// acc[j] = c W0_j for NW first layers on the tile's condition rows c0
-// (point g) and c1 (point g + 8): A fragments loaded chunk by chunk and
-// split once for the NW layers, zero past column cdim (even: a lane reads
-// its two columns in one 8-byte load).
-template <int KT, int NW>
-__device__ __forceinline__ void first_layers(float (&acc)[NW][kHt][4],
-                                             const float* __restrict__ c0,
-                                             const float* __restrict__ c1,
-                                             int cdim, int t2,
-                                             const float2* const (&w0)[NW]) {
-#pragma unroll
-  for (int j = 0; j < NW; ++j) zero(acc[j]);
-#pragma unroll
-  for (int kc = 0; kc < KT; ++kc) {
-    const int col = 8 * kc + t2;
-    const float2 zero2 = make_float2(0.f, 0.f);
-    const float2 u =
-        col < cdim ? __ldg(reinterpret_cast<const float2*>(c0 + col)) : zero2;
-    const float2 v =
-        col < cdim ? __ldg(reinterpret_cast<const float2*>(c1 + col)) : zero2;
-    const float a[4] = {u.x, u.y, v.x, v.y};
-    const tf32::ASplit as = tf32::a_split(a);
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-      tf32::mma_3x_tiles(acc[j], as, w0[j] + kc * kHt * 32);
-  }
-}
-
-// h = lrelu(h + bias) over a hidden layer's C fragments (bias nullptr:
-// none), bias offset by the lane's columns 2t.
-__device__ __forceinline__ void bias_lrelu(float (&h)[kHt][4],
-                                           const float* bias) {
-#pragma unroll
-  for (int nt = 0; nt < kHt; ++nt) {
-    const float2 b = bias ? lds2(bias + 8 * nt) : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[nt][i] = lrelu(h[nt][i] + (i % 2 ? b.y : b.x));
-  }
-}
-
-// The 64 -> 3 layer of a tile: v[h][o] = (x W2 + b2)[row g + 8 h][o] for
-// o < 3, in every lane of group g. An n8 tile whose columns past the
-// net's outputs are zero; columns 0, 1 sit in lane 4 g, column 2 in lane
-// 4 g + 1.
-__device__ __forceinline__ void narrow_out(const float (&x)[kHt][4],
-                                           const float2* w2, const float* b2,
-                                           int lane, float (&v)[2][3]) {
-  float acc[1][4];
-  zero(acc);
-  tf32::mma_3x_any<kHt>(acc, x, w2 + lane, 1);
-  const int l0 = lane & ~3;
-  constexpr unsigned kAll = 0xffffffffu;
-  v[0][0] = __shfl_sync(kAll, acc[0][0], l0) + b2[0];
-  v[0][1] = __shfl_sync(kAll, acc[0][1], l0) + b2[1];
-  v[0][2] = __shfl_sync(kAll, acc[0][0], l0 + 1) + b2[2];
-  v[1][0] = __shfl_sync(kAll, acc[0][2], l0) + b2[0];
-  v[1][1] = __shfl_sync(kAll, acc[0][3], l0) + b2[1];
-  v[1][2] = __shfl_sync(kAll, acc[0][2], l0 + 1) + b2[2];
-}
-
-// Layers 1 and 2 of a LinearA1D from its lrelu'd first layer h.
-template <class Frag>
-__device__ __forceinline__ void mlp_tail(const float (&h)[kHt][4],
-                                         const Frag* w1, const float* b1,
-                                         const float2* w2, const float* b2,
-                                         int lane, float (&v)[2][3]) {
-  float acc[kHt][4];
-  zero(acc);
-  tf32::mma_3x_any<kHt>(acc, h, w1, kHt);
-  bias_lrelu(acc, b1 + 2 * (lane % 4));
-  narrow_out(acc, w2, b2, lane, v);
-}
-
 // Sample s of the tile's 16 points (row tile s, row i of it point i):
 // the injector inverse and the reverse permutation, the coupling (its
 // first layer the point's projection hc plus the h1 columns in f32), W^-1
 // and ActNorm. The state comes from and goes to the rows zrow[i] + 3 s of
 // points g and g + 8; lane t < 3 stores channel t.
-__device__ __forceinline__ void row_step(const GBlock& W,
+__device__ __forceinline__ void row_step(const FlowBlock& W,
                                          const float (&hc)[kHt][4],
                                          const float (&esc)[2][3],
                                          const float (&bi)[2][3], int split,
@@ -250,22 +105,7 @@ __device__ __forceinline__ void row_step(const GBlock& W,
       z[i][2 - ch] =
           (ok[i] ? zrow[i][s * 3 + ch] : 0.f) * esc[i][ch] + bi[i][ch];
   float h[kHt][4];
-#pragma unroll
-  for (int nt = 0; nt < kHt; ++nt) {
-    const float2 w = lds2(W.w0h + 8 * nt + t2);
-    h[nt][0] = fmaf(z[0][0], w.x, hc[nt][0]);
-    h[nt][1] = fmaf(z[0][0], w.y, hc[nt][1]);
-    h[nt][2] = fmaf(z[1][0], w.x, hc[nt][2]);
-    h[nt][3] = fmaf(z[1][0], w.y, hc[nt][3]);
-    if (split == 2) {
-      const float2 u = lds2(W.w0h + kHidden + 8 * nt + t2);
-      h[nt][0] = fmaf(z[0][1], u.x, h[nt][0]);
-      h[nt][1] = fmaf(z[0][1], u.y, h[nt][1]);
-      h[nt][2] = fmaf(z[1][1], u.x, h[nt][2]);
-      h[nt][3] = fmaf(z[1][1], u.y, h[nt][3]);
-    }
-  }
-  bias_lrelu(h, nullptr);
+  coupling_first(h, hc, W.w0h, z, split, t2);
   float add[2][3];
   mlp_tail(h, W.c_w1, W.c_b1, W.c_w2, W.c_b2, lane, add);
 #pragma unroll
@@ -290,7 +130,7 @@ __device__ __forceinline__ void row_step(const GBlock& W,
 // One flow block on a tile of 16 points from pt0 and their r rows each,
 // the state in out's rows; KT k chunks cover the condition.
 template <int KT>
-__device__ __forceinline__ void g_tile(const GBlock& W,
+__device__ __forceinline__ void g_tile(const FlowBlock& W,
                                        const float* __restrict__ c, int cdim,
                                        int split, int pt0, int n_points,
                                        int r, float* out, int lane) {
@@ -367,24 +207,17 @@ flow_g_kernel(const float* __restrict__ fz, Blend blend, FlowArgs args,
   extern __shared__ float4 wsm[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  // a thread block's share of the point tiles, the same for every flow
-  // block: a warp reads back only rows it wrote
-  const int n_tiles = (n_points + kTile - 1) / kTile;
-  const int tile0 = static_cast<int>(static_cast<int64_t>(n_tiles) *
-                                     blockIdx.x / gridDim.x);
-  const int tile1 = static_cast<int>(static_cast<int64_t>(n_tiles) *
-                                     (blockIdx.x + 1) / gridDim.x);
+  int tile0, tile1;
+  tile_share(n_points, tile0, tile1);
   for (int b = args.nblocks - 1; b >= 0; --b) {
     __syncthreads();   // every warp is done with the last block's weights
-    const float4* src =
-        reinterpret_cast<const float4*>(weights + args.woff[b]);
-    const int n4 = (args.woff[b + 1] - args.woff[b]) / 4;
-    for (int i = threadIdx.x; i < n4; i += kGThreads) wsm[i] = __ldg(src + i);
+    stage_block<kGThreads>(weights, args, b, wsm);
     __syncthreads();
     const int cdim = args.cdim[b];
     const int kt = kt_of(cdim);
     const int split = (b % 2 == 0) ? 1 : 2;
-    const GBlock W = g_block(reinterpret_cast<const float*>(wsm), kt, lane);
+    const FlowBlock W =
+        flow_block(reinterpret_cast<const float*>(wsm), kt, lane);
     for (int tile = tile0 + warp; tile < tile1; tile += kGWarps) {
       const int pt0 = tile * kTile;
       if (b == args.nblocks - 1) {
@@ -406,34 +239,16 @@ cudaError_t launch_g(const float* fz, const Blend& blend, const void* weights,
                      int nblocks, int n_points, int r, void* out,
                      void* stream) {
   FlowArgs args;
-  const int cmax = fill_args(&args, static_cast<const long long*>(c_ptrs),
-                             static_cast<const int*>(cdims),
-                             static_cast<const int*>(woff), nblocks);
-  if (cmax < 0 || cmax > 8 * kt_of(128) || r < 1 ||
-      reinterpret_cast<uintptr_t>(weights) % 16 != 0)
-    return cudaErrorInvalidValue;
-  for (int b = 0; b < nblocks; ++b)
-    if (args.cdim[b] < 1 || args.cdim[b] % 2 != 0 ||
-        reinterpret_cast<uintptr_t>(args.cs[b]) % 8 != 0 ||
-        args.woff[b] % 4 != 0 ||
-        args.woff[b + 1] - args.woff[b] != g_block_floats(kt_of(args.cdim[b])))
-      return cudaErrorInvalidValue;
+  cudaError_t err = check_blocks(&args, weights, c_ptrs, cdims, woff, nblocks);
+  if (err != cudaSuccess) return err;
+  if (r < 1) return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
   const size_t smem = sizeof(float) * args.wmax;
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flow_g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, flow_g_kernel, kGThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int grid = 0;
   // as many SMs as there are tiles, each walking its share
-  const int grid = std::min(sms * per_sm, (n_points + kTile - 1) / kTile);
+  err = persistent_grid(flow_g_kernel, kGThreads, smem,
+                        (n_points + kTile - 1) / kTile, &grid);
+  if (err != cudaSuccess) return err;
   flow_g_kernel<<<grid, kGThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       fz, blend, args, static_cast<const float*>(weights),
       static_cast<float*>(out), n_points, r);
@@ -446,7 +261,7 @@ cudaError_t launch_g(const float* fz, const Blend& blend, const void* weights,
 // fz [n_points, 3, r] -> out [n_points * r, 3], point-major. c_ptrs /
 // cdims / woff are host arrays of nblocks, nblocks and nblocks + 1 entries;
 // the conditions are [n_points, cdim] (not repeated), cdim even and <= 128,
-// 8-byte aligned; the weights (16-byte aligned) are `_pack_g`'s.
+// 8-byte aligned; the weights (16-byte aligned) are `_pack`'s, inverse.
 extern "C" int puflow_flow_g(const void* fz, const void* weights,
                              const void* c_ptrs, const void* cdims,
                              const void* woff, int nblocks, int n_points,

@@ -126,30 +126,44 @@ __device__ __forceinline__ ASplit a_split(const float (&a)[4]) {
 
 // acc[nt] += a W for one k8 chunk, its A fragment split in a, W's
 // fragment nt at w[nt * 32] (w already offset by the lane and the chunk)
-// as a float4 (pre-split) or float2 (f32) pair.
-template <int NT, class Frag>
+// as a float4 (pre-split) or float2 (f32) pair. kBatch n8 tiles at a time
+// take their three products in turn (hi*hi of each, then hi*lo, then
+// lo*hi), so that a tile's dependent products stand kBatch apart; every
+// tile sees its products in the same order whatever kBatch is, so the
+// result is too.
+template <int NT, class Frag, int kBatch = 1>
 __device__ __forceinline__ void mma_3x_tiles(float (&acc)[NT][4],
                                              const ASplit& a, const Frag* w) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const BPair b = b_pair(w[nt * 32]);
-    mma(acc[nt], a.hi, b.h0, b.h1);
-    mma(acc[nt], a.hi, b.l0, b.l1);
-    mma(acc[nt], a.lo, b.h0, b.h1);
+  for (int n0 = 0; n0 < NT; n0 += kBatch) {
+    BPair b[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (n0 + j < NT) b[j] = b_pair(w[(n0 + j) * 32]);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (n0 + j < NT) mma(acc[n0 + j], a.hi, b[j].h0, b[j].h1);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (n0 + j < NT) mma(acc[n0 + j], a.hi, b[j].l0, b[j].l1);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (n0 + j < NT) mma(acc[n0 + j], a.lo, b[j].h0, b[j].h1);
   }
 }
 
 // mma_3x with B in either pair format: acc[nt] += A W over KT k8 chunks
 // of A in registers (chunk kc the C fragment a[kc]), W's fragment for
 // (kc, nt) at w[(kc * w_tiles + nt) * 32].
-template <int KT, int NT, int AT, class Frag>
+template <int KT, int NT, int AT, class Frag, int kBatch = 1>
 __device__ __forceinline__ void mma_3x_any(float (&acc)[NT][4],
                                            const float (&a)[AT][4],
                                            const Frag* w, int w_tiles) {
   static_assert(KT <= AT, "more k chunks than A tiles");
 #pragma unroll
   for (int kc = 0; kc < KT; ++kc)
-    mma_3x_tiles(acc, a_split(a[kc]), w + kc * w_tiles * 32);
+    mma_3x_tiles<NT, Frag, kBatch>(acc, a_split(a[kc]),
+                                   w + kc * w_tiles * 32);
 }
 
 }  // namespace tf32

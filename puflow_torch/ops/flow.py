@@ -12,8 +12,8 @@ The wrappers `flow_f`, `flow_g` and `flow_g_blend` (the latent blend of
 the interpolation, then the inverse flow) launch their kernel for CUDA
 tensors and run the plain version (`flow_f_plain`, `flow_g_plain`,
 `flow_g_blend_plain`) for CPU tensors. They pack the blocks' weights once
-per parameters (`_build.packed`): `_pack_f` for flow f's f32 kernel,
-`_pack_g` (the B fragments of its 3xTF32 products) for flow g's.
+per parameters and direction (`_build.packed`, `_pack`): the B fragments
+of both kernels' 3xTF32 products in one layout, whose head differs.
 Inference only: no log-determinant, no gradient.
 """
 
@@ -105,26 +105,9 @@ def flow_g_blend_plain(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
     return flow_g_plain(flow_blocks, fz, cs)
 
 
-def _pack_f(flow_blocks):
-    """Flow-block params -> (flat f32 weights, per-block offsets) in the
-    layout of `csrc/flow_common.cuh` that flow_f reads. Matrices keep their
-    [in, out] layout."""
-    pieces, woff = [], [0]
-    for bp in flow_blocks:
-        an = bp["actnorm"]
-        head = [torch.exp(an["logs"]), an["bias"], bp["inv1x1"]["W"]]
-        nets = (bp["coupling1"]["bias_net"], bp["coupling2"]["scale_net"],
-                bp["coupling2"]["bias_net"])
-        block = head + [net[k] for net in nets
-                        for k in ("w0", "w1", "b1", "w2", "b2")]
-        pieces.extend(t.reshape(-1) for t in block)
-        woff.append(woff[-1] + sum(t.numel() for t in block))
-    return torch.cat(pieces).to(torch.float32).contiguous(), woff
-
-
-def g_chunks(cdim: int) -> int:
-    """k8 chunks the g kernel takes over a condition of width cdim
-    (`csrc/flow_g.cu:kt_of`): 4, 8 or 16, zero rows past cdim."""
+def k_chunks(cdim: int) -> int:
+    """k8 chunks the kernels take over a condition of width cdim
+    (`csrc/flow_common.cuh:kt_of`): 4, 8 or 16, zero rows past cdim."""
     return 4 if cdim <= 32 else 8 if cdim <= 64 else 16
 
 
@@ -140,28 +123,34 @@ def _pad(t: torch.Tensor, rows: int | None = None, cols: int | None = None):
     return out
 
 
-def _pack_g(flow_blocks):
+def _pack(flow_blocks, inverse: bool):
     """Flow-block params -> (flat f32 weights, per-block offsets) in the
-    layout `csrc/flow_g.cu` reads: per block the head (ActNorm bias,
-    exp(-logs), W^-1), c_w0's h1 rows, the biases, then the B fragments of
-    s_w0, b_w0, c_w0's condition rows, s_w2, b_w2, c_w2 (f32 pairs) and
-    s_w1, b_w1, c_w1 (pre-split); the 64 -> 3 layers zero-padded to 8
-    columns, the first layers' rows to 8 `g_chunks`."""
+    layout `csrc/flow_common.cuh` describes: per block a head of 16 floats,
+    c_w0's h1 rows, the biases, then the B fragments of s_w0, b_w0, c_w0's
+    condition rows, s_w2, b_w2, c_w2 (f32 pairs) and s_w1, b_w1, c_w1
+    (pre-split); the 64 -> 3 layers zero-padded to 8 columns, the first
+    layers' rows to 8 `k_chunks`. The head is what each direction's 3-wide
+    steps take: forward (flow f) exp(logs), the ActNorm bias and W;
+    inverse (flow g) the bias, exp(-logs) and W^-1."""
     pieces, woff = [], [0]
     for i, bp in enumerate(flow_blocks):
         split = _split(i)
         an = bp["actnorm"]
         c1 = bp["coupling1"]["bias_net"]
         sn, bn = bp["coupling2"]["scale_net"], bp["coupling2"]["bias_net"]
-        kp = 8 * g_chunks(sn["w0"].shape[0])
-        # linalg.inv without its error check, whose read of the status
-        # would stop the host until the card drains its queue
-        w_inv = torch.linalg.inv_ex(bp["inv1x1"]["W"]).inverse
-        block = [an["bias"].reshape(-1), torch.exp(-an["logs"]).reshape(-1),
-                 w_inv.reshape(-1), w_inv.new_zeros(1),
-                 _pad(c1["w0"][:split], rows=2).reshape(-1),
-                 c1["b1"], sn["b1"], bn["b1"],
-                 _pad(c1["b2"], 8), _pad(sn["b2"], 8), _pad(bn["b2"], 8)]
+        kp = 8 * k_chunks(sn["w0"].shape[0])
+        w = bp["inv1x1"]["W"]
+        if inverse:
+            # linalg.inv without its error check, whose read of the status
+            # would stop the host until the card drains its queue
+            w = torch.linalg.inv_ex(w).inverse
+            head = [an["bias"], torch.exp(-an["logs"])]
+        else:
+            head = [torch.exp(an["logs"]), an["bias"]]
+        block = [t.reshape(-1) for t in head + [w]] + [w.new_zeros(1)]
+        block += [_pad(c1["w0"][:split], rows=2).reshape(-1),
+                  c1["b1"], sn["b1"], bn["b1"],
+                  _pad(c1["b2"], 8), _pad(sn["b2"], 8), _pad(bn["b2"], 8)]
         block += [b_fragments(_pad(w0, rows=kp), False)
                   for w0 in (sn["w0"], bn["w0"], c1["w0"][split:])]
         block += [b_fragments(_pad(net["w2"], cols=8), False)
@@ -176,9 +165,8 @@ def _packed(flow_blocks, inverse: bool):
     """The kernel's packing of the flow blocks, made once per parameters
     (`_build.packed`)."""
     leaves = tree_flatten(list(flow_blocks))[0]
-    if inverse:
-        return _build.packed(leaves, lambda: _pack_g(flow_blocks), "flow_g")
-    return _build.packed(leaves, lambda: _pack_f(flow_blocks), "flow_f")
+    return _build.packed(leaves, lambda: _pack(flow_blocks, inverse),
+                         "flow_g" if inverse else "flow_f")
 
 
 def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
@@ -211,9 +199,9 @@ def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
     return c_ptrs, cdims
 
 
-def _check_g_conditions(name: str, cs):
-    """The g kernel reads a condition's columns in pairs: even widths,
-    8-byte aligned."""
+def _check_conditions(name: str, cs):
+    """The kernels read a condition's columns in pairs: even widths, 8-byte
+    aligned."""
     for i, c in enumerate(cs):
         if c.shape[-1] % 2 or c.data_ptr() % 8:
             raise ValueError(f"{name}: condition {i} must have an even width "
@@ -231,6 +219,7 @@ def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
     if x.ndim != 3 or x.shape[2] != 3:
         raise ValueError(f"flow_f: expects [B, N, 3], got {tuple(x.shape)}")
     c_ptrs, cdims = _check_inputs("flow_f", flow_blocks, x, cs)
+    _check_conditions("flow_f", cs)
     weights, woff = _packed(flow_blocks, inverse=False)
     woff_c = (ctypes.c_int * len(woff))(*woff)
     z = torch.empty_like(x)
@@ -258,7 +247,7 @@ def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
         raise ValueError("flow_g: expects [B, N, 3, r] with r <= "
                          f"{MAX_UPRATIO}, got {tuple(fz.shape)}")
     c_ptrs, cdims = _check_inputs("flow_g", flow_blocks, fz, cs)
-    _check_g_conditions("flow_g", cs)
+    _check_conditions("flow_g", cs)
     weights, woff = _packed(flow_blocks, inverse=True)
     woff_c = (ctypes.c_int * len(woff))(*woff)
     B, N, C, r = fz.shape
@@ -296,7 +285,7 @@ def flow_g_blend(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
                          f"[{B}, {N}, {k}, r <= {MAX_UPRATIO}], got "
                          f"{ws.dtype} {tuple(ws.shape)}")
     c_ptrs, cdims = _check_inputs("flow_g_blend", flow_blocks, z, cs)
-    _check_g_conditions("flow_g_blend", cs)
+    _check_conditions("flow_g_blend", cs)
     weights, woff = _packed(flow_blocks, inverse=True)
     woff_c = (ctypes.c_int * len(woff))(*woff)
     r = ws.shape[3]

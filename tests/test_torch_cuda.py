@@ -323,6 +323,43 @@ def test_flow_g_repacks_after_an_in_place_update(card, folded):
         1.0, float(ref.abs().max()))
 
 
+# 17, 63 and 2,257 rows: each leaves the last 16-row tile partial
+@pytest.mark.parametrize("b,n", [(1, 17), (3, 21), (37, 61)])
+def test_flow_f_kernel_ragged_rows(card, folded, b, n):
+    """The forward flow on row counts no multiple of 16 matches its plain
+    version, and a rerun is bit-equal (one fixed order, no atomics)."""
+    params, x, _ = folded
+    x = x[:b, :n].contiguous()
+    cs = encoder.encoder_conditions_plain(params, x, knn_self_plain(x, 16))
+    blocks = params["flow_blocks"]
+    before = flow.flow_f.launches
+    got = flow.flow_f(blocks, x, cs)
+    assert flow.flow_f.launches == before + 1
+    ref = flow.flow_f_plain(blocks, x, cs)
+    assert float((got - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
+    assert torch.equal(got, flow.flow_f(blocks, x, cs))
+
+
+def test_flow_f_repacks_after_an_in_place_update(card, folded):
+    """As for flow g: an in-place update of a flow weight (an MLP's, and
+    ActNorm's logs, whose exp the pack holds) makes a fresh packing."""
+    params, x, idx = folded
+    blocks = [{k: {kk: (vv.clone() if torch.is_tensor(vv) else
+                        {m: t.clone() for m, t in vv.items()})
+                   for kk, vv in v.items()}
+               for k, v in bp.items()} for bp in params["flow_blocks"]]
+    cs = encoder.encoder_conditions_plain(params, x, idx)
+    first = flow.flow_f(blocks, x, cs)
+    blocks[2]["coupling1"]["bias_net"]["w1"].mul_(1.25)
+    blocks[4]["actnorm"]["logs"].add_(0.01)
+    got = flow.flow_f(blocks, x, cs)
+    ref = flow.flow_f_plain(blocks, x, cs)
+    assert not torch.equal(got, first)
+    assert float((got - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
+
+
 def test_folded_sample_runs_every_kernel(card, folded):
     params, x, idx = folded
     wrappers = (knn_self, encoder.encoder_conditions, interp.interp_head,
