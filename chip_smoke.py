@@ -692,18 +692,38 @@ def compare_folded(folded, x, results, rng):
     M, n = x.shape[:2]
     grid = torch.from_numpy(
         rng.randint(0, 7, (M, n, 3)).astype(np.float32)).cuda()
-    for label, pts in (("float", x), ("integer grid", grid)):
+    x32 = main_path_patches(32)                  # 1,024 patches
+    for label, pts in (("float", x), ("integer grid", grid),
+                       ("repeated half",
+                        repeated_half(np.random.RandomState(n), M, n)),
+                       ("float, 1,024 patches", x32)):
         got, ref = knn_self(pts, K), knn_self_plain(pts, K)
         torch.cuda.synchronize()
         if not bool((got == ref).all()):
             raise AssertionError(f"knn_self {label}: {int((got != ref).sum())}"
                                  " indices differ from the plain version")
         log(f"knn_self {label} {tuple(pts.shape)} -> {K}: indices equal")
+        check_rerun(f"knn_self {label}", got, knn_self(pts, K))
     results["knn_self"]["max_abs_err"] = 0.0
-    # per patch: n^2 distances (8 flops each) and as many compares
-    set_bound(results["knn_self"], nbytes(x) + M * n * K * 8, 9 * M * n * n)
+
+    def knn_bound(entry, pts):
+        # per patch: n^2 distances (8 flops each) and as many compares
+        m = pts.shape[0]
+        set_bound(entry, nbytes(pts) + m * n * K * 8, 9 * m * n * n)
+
+    knn_bound(results["knn_self"], x)
     time_pair(results, "knn_self", lambda: knn_self(x, K),
               lambda: knn_self_plain(x, K))
+    at32 = {"name": "knn_self"}
+    knn_bound(at32, x32)
+    time_pair({"knn_self": at32}, "knn_self", lambda: knn_self(x32, K),
+              lambda: knn_self_plain(x32, K))
+    card = card_line()
+    for m, e in ((M, results["knn_self"]), (x32.shape[0], at32)):
+        log(f"knn_self [{m}, {n}] -> {K}: kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) on {card}")
+    del x32
 
     fp, _ = folded.trees()
     idx = knn_self_plain(x, K)

@@ -19,8 +19,17 @@ import torch
 
 from puflow_torch.ops import _build
 
-KNN_MAX_K = 16            # the kernel's register list
-_SMEM_BYTES = 232448      # shared memory a block may use: 12 bytes a point
+KNN_MAX_K = 16            # the kernel's longest register list
+_SMEM_BYTES = 232448      # shared memory a block may use
+KNN_MAX_N = 10432         # the largest patch `knn_smem_bytes` lets in
+
+
+def knn_smem_bytes(n: int) -> int:
+    """Shared memory of `csrc/knn.cu` for a patch of ``n`` points at its
+    widest launch: the patch as float4 (16 bytes a point), then the larger
+    of its Morton sort words (4 bytes each, a power of two of them) and a
+    block's output rows (at most 256 rows of 16 int64)."""
+    return 16 * n + max(4 * (1 << max(n - 1, 0).bit_length()), 8 * 256 * 16)
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -112,9 +121,9 @@ def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
     B, n, _ = xyz.shape
     if not 1 <= k <= min(KNN_MAX_K, n):
         raise ValueError(f"knn_self: k={k} outside [1, min({KNN_MAX_K}, n)]")
-    if n * 12 > _SMEM_BYTES:
+    if knn_smem_bytes(n) > _SMEM_BYTES:
         raise ValueError(f"knn_self: a patch of {n} points does not fit "
-                         "shared memory")
+                         f"shared memory (at most {KNN_MAX_N})")
     out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
     lib = _build.library()
     with torch.cuda.device(xyz.device):

@@ -17,6 +17,7 @@ from puflow_torch.models.encoder import interpolation_apply
 from puflow_torch.models.fold_bn import fold_bn_inference
 from puflow_torch.ops import cnf, emd, encoder, flow, interp
 from puflow_torch.ops import fps as fps_ops
+from puflow_torch.ops import knn as knn_ops
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain,
                                   farthest_point_sample_seeded,
@@ -199,6 +200,40 @@ def test_knn_self_kernel_matches_plain(card, grid):
     assert knn_self.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   knn_self_plain(x, 16).cpu().numpy())
+
+
+# (patches, points, k): ragged n (no multiple of a block's queries or of
+# the lanes' streams), k 1 / 5 / 8 / 16 (lists of 1, 8, 8, 16 keys), one
+# patch and the main path's 1,024 (4 and 2 lanes a query)
+@pytest.mark.parametrize("b,n,k", [
+    (5, 17, 16), (5, 300, 1), (5, 300, 5), (3, 300, 8), (5, 300, 16),
+    (1, 256, 16), (1024, 256, 16)])
+@pytest.mark.parametrize("kind", ["float", "grid", "repeated"])
+def test_knn_self_kernel_cases(card, b, n, k, kind):
+    rng = np.random.RandomState(n + k)
+    if kind == "grid":
+        pts = rng.randint(0, 5, (b, n, 3))
+    elif kind == "repeated":
+        # the second half repeats the first: slot 0 of a copy is the first
+        pts = rng.rand(b, n - n // 2, 3)
+        pts = np.concatenate([pts, pts[:, :n // 2]], 1)
+    else:
+        pts = rng.rand(b, n, 3)
+    x = torch.from_numpy(pts.astype(np.float32)).to(card)
+    got = knn_self(x, k)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  knn_self_plain(x, k).cpu().numpy())
+    assert torch.equal(got, knn_self(x, k))
+
+
+def test_knn_self_kernel_largest_patch(card):
+    n = knn_ops.KNN_MAX_N
+    x = torch.from_numpy(np.random.RandomState(3).rand(1, n, 3).astype(
+        np.float32)).to(card)
+    np.testing.assert_array_equal(knn_self(x, 16).cpu().numpy(),
+                                  knn_self_plain(x, 16).cpu().numpy())
+    with pytest.raises(ValueError, match="shared memory"):
+        knn_self(torch.zeros((1, n + 1, 3), device=card), 16)
 
 
 def test_encoder_kernel_matches_plain(card, folded):
