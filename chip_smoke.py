@@ -253,6 +253,11 @@ TANGENT_MACS = 3 * 64 * 64 + 3 * 64
 # the weight gradients of the three tangents through W2 and W3
 VJP_MACS = 2 * FIELD_MACS
 VJP_TRACE_MACS = 3 * 64 * 64 + 3 * 64 * 64 + 64
+# of those, the 64 x 64 layer's products, which the adjoint kernel takes on
+# the tensor cores: x1 W2, dh2 W2^T and W2's gradient; with the trace u1_k
+# W2, cv2_k W2^T and the tangents' part of W2's gradient
+ADJ_TC_MACS = 3 * 64 * 64
+ADJ_TC_TRACE_MACS = 9 * 64 * 64
 # the training loss's launches of each kernel (6 blocks: f forward solves,
 # g forward solves, their 12 backward solves, the EMD)
 GRAD_LAUNCHES = {"cnf_solve_logp": continuous.NUM_BLOCKS,
@@ -1823,9 +1828,12 @@ def compare_cnf_adjoint(model, results):
     # times and the bound at cdim 128, perturbed: the inputs and outputs
     # once; 1 + 6 augmented-field evaluations a step attempted on every row
     # (the field, with the trace its tangent chains, and the vjp), the two
-    # products of the projections' cotangents once a step, one more field
-    # evaluation at t0, and the projections. The kernel line keeps the f
-    # path, with the trace.
+    # products of the projections' cotangents once a step (Wc Q per row of
+    # y, c^T Q per condition row, Q summed over its repeats; for Q5 and
+    # QE), one more field evaluation at t0, and the projections. The
+    # 64 x 64 layer's products and the condition products count at 3xTF32
+    # on the tensor cores, the rest at the FP32 peak (`set_bound_3xtf32`).
+    # The kernel line keeps the f path, with the trace.
     for path in ("g", "f"):
         args, kw = case(weights[1][1], 3, path)
         trace = kw["with_trace"]
@@ -1833,16 +1841,22 @@ def compare_cnf_adjoint(model, results):
         attempted = out[-1].tolist()[0]
         y1, cdim = args[2], args[1].shape[-1]
         rows = y1.shape[0] * y1.shape[1]
+        cond_rows = args[1].shape[0] * args[1].shape[1]
         per_eval = FIELD_MACS + VJP_MACS + (
             TANGENT_MACS + VJP_TRACE_MACS if trace else 0)
+        tc_eval = ADJ_TC_MACS + (ADJ_TC_TRACE_MACS if trace else 0)
+        tc_t0 = 64 * 64 * (4 if trace else 1)
+        tc_macs = (rows * ((1 + 6 * attempted) * tc_eval + tc_t0)
+                   + attempted * 2 * 262 * cdim * (rows + cond_rows))
         macs = (rows * ((1 + 6 * attempted) * per_eval
-                        + attempted * 4 * 262 * cdim
                         + FIELD_MACS + (TANGENT_MACS if trace else 0))
-                + args[1].shape[0] * args[1].shape[1] * cdim * 262)
+                + attempted * 2 * 262 * cdim * (rows + cond_rows)
+                + cond_rows * cdim * 262)
         n_bytes = (2 * nbytes(y1, args[3]) + nbytes(args[1], out[2])
                    + 2 * tree_bytes(args[0]) + rows * 8 * 4
                    + (2 * nbytes(args[4]) if trace else 0))
-        set_bound(results["cnf_adjoint_bwd"], n_bytes, 2 * macs)
+        set_bound_3xtf32(results["cnf_adjoint_bwd"], n_bytes, 2 * tc_macs,
+                         2 * (macs - tc_macs))
         log(f"cnf_adjoint_bwd {path} path (trace {trace}), R = {rows}, cdim "
             f"{cdim}: {attempted} steps attempted, {1 + 6 * attempted} "
             f"augmented evaluations a row")
@@ -1882,17 +1896,39 @@ def cnf_grad_loss(params, state, sparse, dense, plain: bool, smooth: bool):
     return nll * cfg.logpx_weight + torch.sum(dist) * cfg.emd_weight
 
 
+def cnf_grad_inputs():
+    """The full-width CNF model at seeded weights (its parameter leaves
+    requiring grad) and a batch at `bench.py:bench_cnf_train`'s shape
+    (batch 32, 256 -> 1024 points) -> (params, state, sparse, dense)."""
+    params, state = seeded_cnf_model().trees()
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    sp, de = synthetic_pairs(np.random.RandomState(1), TRAIN_B, TRAIN_N,
+                             UPRATIO)
+    return params, state, torch.from_numpy(sp).cuda(), torch.from_numpy(
+        de).cuda()
+
+
+def cnf_grad_ms(params, state, sparse, dense, plain):
+    """Host ms of one training loss's forward and of its gradients'
+    backward (`cnf_grad_loss`), each ending in a synchronize."""
+    leaves = [t for _, t in tree_paths(params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = cnf_grad_loss(params, state, sparse, dense, plain, False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
 def phase_cnf_grad(results, card):
     """One training loss's gradients through the full-width CNF model at
     seeded weights and `bench.py:bench_cnf_train`'s shape (batch 32, 256 ->
     1024 points)."""
-    params, state = seeded_cnf_model().trees()
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    params, state, sparse, dense = cnf_grad_inputs()
     paths = tree_paths(params)
     leaves = [t for _, t in paths]
-    sp, de = synthetic_pairs(np.random.RandomState(1), TRAIN_B, TRAIN_N,
-                             UPRATIO)
-    sparse, dense = torch.from_numpy(sp).cuda(), torch.from_numpy(de).cuda()
 
     logged = ("cnf_solve_logp", "cnf_solve", "cnf_adjoint_bwd")
     for fn in WRAPPERS.values():
@@ -1964,14 +2000,7 @@ def phase_cnf_grad(results, card):
                     for p, r in zero_plain.items()))
 
     def forward_backward(plain):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = cnf_grad_loss(params, state, sparse, dense, plain, False)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        torch.autograd.grad(loss, leaves)
-        torch.cuda.synchronize()
-        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        return cnf_grad_ms(params, state, sparse, dense, plain)
 
     runs = [forward_backward(False) for _ in range(3)]
     fwd = statistics.median(r[0] for r in runs)
@@ -1983,6 +2012,41 @@ def phase_cnf_grad(results, card):
         f"backward {pb:.3f}, total {pf + pb:.3f} on {card}")
     trace_idle("cnf_grad loss forward + backward on kernels",
                lambda: forward_backward(False), (fwd + bwd) / 1e3)
+    cnf_kernel_ms(lambda: forward_backward(False))
+
+
+def cnf_kernel_ms(fn):
+    """The device ms of each CNF kernel in one call of ``fn`` (a loss's
+    forward and backward) from torch.profiler, and its share of the card's
+    busy time in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"cnf_solve_logp (f forward)": ("solve_kernel", "LogpField"),
+             "cnf_solve (g forward)": ("solve_kernel", "PlainField"),
+             "cnf_adjoint_bwd with the trace (f)": ("cnf_adjoint_kernel",
+                                                    "<true>"),
+             "cnf_adjoint_bwd without (g)": ("cnf_adjoint_kernel",
+                                             "<false>")}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop, _ in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    parts = []
+    for label, pattern in names.items():
+        hits = [stop - start for start, stop, name in spans
+                if all(p in name for p in pattern)]
+        us = sum(hits)
+        parts.append(f"{label} {us / 1e3:.3f} ms in {len(hits)} launches "
+                     f"({us / busy_us:.1%})")
+    log(f"cnf_grad one loss on kernels, device ms by CNF kernel (profiler; "
+        f"busy {busy_us / 1e3:.3f} ms): " + "; ".join(parts))
 
 
 def main():

@@ -41,6 +41,7 @@ from puflow_torch.models.continuous import (exact_div_field, field_plain_csl,
                                             field_with_exact_div, plain_field)
 from puflow_torch.models.ode import adjoint_backward, odeint_dopri5
 from puflow_torch.ops import _build
+from puflow_torch.ops.encoder import b_fragments
 
 IDIM, HDIM = 3, 64                 # the field the kernel is built for
 _PROJ = 4 * HDIM + 2 * IDIM        # projections of one condition row
@@ -366,7 +367,37 @@ def cnf_adjoint_bwd_plain(layers, c: torch.Tensor, y1: torch.Tensor,
 # two columns padding)
 _G_OWN = 5004
 _LD_PROJ = 264
-_ROW_FLOATS = 32 + 2 * _LD_PROJ      # per row: y, a, FSAL stages, q
+# per row: y, a and the FSAL stage (two copies each), q of the FSAL stage
+# (two copies); per condition row and block, the stage sums Q5, QE of q
+_ROW_FLOATS = 32 + 2 * _LD_PROJ
+_ADJ_CDIM = 16                       # the kernel's condition widths' multiple
+
+
+def _adjoint_pack(layers, cpad: int):
+    """What `csrc/cnf_adjoint.cu` reads of a net -> (weights, wct): the
+    layers' own weights as `_pack` lays them out, zeros to a multiple of 4
+    floats, then the B fragments (`ops/encoder.py:fragment_order`, f32
+    pairs) of W2 and of W2^T; and the projection matrix transposed,
+    zero-padded to [264, cpad], as B fragments."""
+    own, proj_w, _ = _pack(layers)
+    w2 = layers[1]["layer"]["w"].to(torch.float32)
+    with torch.no_grad():
+        weights = torch.cat([own, own.new_zeros(-own.numel() % 4),
+                             b_fragments(w2, False),
+                             b_fragments(w2.t().contiguous(), False)])
+        wct = F.pad(proj_w.t(), (0, cpad - proj_w.shape[0],
+                                 0, _LD_PROJ - proj_w.shape[1]))
+        return weights.contiguous(), b_fragments(wct, False).contiguous()
+
+
+def _adjoint_packed(layers, cpad: int):
+    """`_adjoint_pack` once a net and condition width."""
+    tensors = [t for p in layers
+               for t in (p["layer"]["w"], p["layer"]["b"],
+                         p["hyper_gate"]["w"], p["hyper_gate"]["b"],
+                         p["hyper_bias"]["w"])]
+    return _build.packed(tensors, lambda: _adjoint_pack(layers, cpad),
+                         f"cnf_adjoint_{cpad}")
 
 
 def _unpack_grads(layers, g: torch.Tensor, cdim: int):
@@ -401,18 +432,19 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
     B, N, _ = y1.shape
     n_rows, cdim = B * N, c.shape[-1]
     y1, a1, ap, logp1 = (t.contiguous() for t in (y1, a1, ap, logp1))
-    weights, proj_w, proj_b = _packed(layers)
+    _, proj_w, proj_b = _packed(layers)
     c2 = c.reshape(c.shape[0] * c.shape[1], cdim)
     proj = torch.addmm(proj_b, c2, proj_w)
-    # the kernel reads c and the projection matrix four columns at a time:
-    # zero columns pad them to a multiple of 4
-    pad = max(4, -(-cdim // 4) * 4) - cdim
+    # the kernel's condition products take whole m16 tiles of c's columns:
+    # zero columns pad c and the projection matrix to a multiple of 16
+    pad = -cdim % _ADJ_CDIM
+    weights, wct = _adjoint_packed(layers, cdim + pad)
     c2 = F.pad(c2, (0, pad)).contiguous()
-    wct = F.pad(proj_w.t(), (0, pad)).contiguous()      # [262, cdim + pad]
     ng = _G_OWN + (cdim + pad) * _LD_PROJ
     grid = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    rows = torch.empty((n_rows * (_ROW_FLOATS + 2 * (cdim + pad)),), **f32)
+    rows = torch.empty((n_rows * (_ROW_FLOATS + 2 * (cdim + pad))
+                        + 2 * _LD_PROJ * (n_rows // r + grid),), **f32)
     per_grid = torch.empty((grid * (2 * ng + 2 * _G_OWN) + 2 * ng,), **f32)
     partials = torch.empty((4 * grid,), dtype=torch.float64, device=dev)
     y0, a0 = torch.empty_like(y1), torch.empty_like(a1)

@@ -703,16 +703,23 @@ def _float32_spread(args, kw, r, plain, truth, orders=5):
 @pytest.mark.parametrize("with_trace", [False, True])
 @pytest.mark.parametrize("b,n,r,cdim,time_scale", [
     (1, 60, 1, 32, 0.0), (2, 333, 1, 128, 20.0), (4, 231, 3, 64, 20.0),
-    (8, 256, 4, 128, 0.0), (2, 40, 1, 6, 0.0), (2, 40, 1, 6, 20.0)])
+    (8, 256, 4, 128, 0.0), (2, 40, 1, 6, 0.0), (2, 40, 1, 6, 20.0),
+    (1, 1, 1, 32, 0.0), (8, 2048, 4, 128, 0.0), (4, 4096, 1, 32, 0.0),
+    (2, 77, 1, 40, 20.0), (2, 50, 1, 144, 0.0)])
 def test_cnf_adjoint_kernel_matches_plain(card, with_trace, b, n, r, cdim,
                                           time_scale):
     """The adjoint's backward-solve kernel against `cnf_adjoint_bwd_plain`
     with and without the trace: equal step counts, two runs bit-equal, y0,
     a0, dc and every parameter gradient within 2e-3 max-relative (the JAX
     package's gate for its kernel, tests/test_cnf.py:216-336), the field
-    and its trace at t1 within 5e-5. 333 and 231 rows a cloud leave a
-    partial tile; r > 1 indexes the conditions in place; a condition
-    width of 6 is padded to the kernel's multiple of 4.
+    and its trace at t1 within 5e-5. 333, 231 and 77 rows a cloud leave a
+    partial tile (16 rows with the trace, 32 without), one row a tile of
+    one; r > 1 indexes the
+    conditions in place, and at r = 3 a condition row's repeats straddle
+    two blocks' rows; condition widths 6 and 40 are padded to the kernel's
+    multiple of 16, and 144 takes two chunks of Wc's 128 staged columns;
+    8 x 2,048 rows give each block about 8 tiles, and 4 x 4,096 rows at
+    r = 1 about 124 condition rows, two chunks of the staged c^T Q.
 
     With time rows of scale 20 both are also held against the plain
     version in float64: in every leaf the kernel may lie at most 1.25
