@@ -61,7 +61,12 @@ Phases:
      per step, peak memory), and one traced step;
   8. runs `python -m puflow_torch.cli.train_pu1k --synthetic 2` on the
      card, loads the checkpoint it saved (BN folded) and upsamples one
-     2048-point cloud with it;
+     2048-point cloud with it; then holds the streaming self k-NN kernel
+     (patches over the shared-memory kernel's `KNN_MAX_N`) to its plain
+     version, runs the folded path on one patch of `KNN_MAX_N` + 1 points
+     with the launch counts set to 0 before and read after, against the
+     plain composition, and serves a 12,000-point cloud in such patches
+     with `cli/upsample.py --num_patch`;
   9. compares the CNF whole-solve kernel with its plain version (both
      directions, condition widths 32 and 128, R = 8,192, R = 32,768 with
      the conditions of 8,192 points, and an R that leaves a partial tile):
@@ -140,8 +145,8 @@ from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_seeded,
                                   farthest_point_sample_seeded_morton,
                                   farthest_point_sample_seeded_plain)
-from puflow_torch.ops.knn import (gather_points, knn_indices, knn_self,
-                                  knn_self_plain)
+from puflow_torch.ops.knn import (KNN_MAX_N, gather_points, knn_indices,
+                                  knn_self, knn_self_plain, knn_self_stream)
 from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
 
 SEED = 2021
@@ -178,6 +183,9 @@ KERNELS = {
             "replaces": PALLAS + "fps_pallas.py:254"},
     "knn_self": {"route": "cuda", "source": "puflow_torch/csrc/knn.cu",
                  "replaces": PALLAS + "knn_pallas.py:81"},
+    "knn_self_stream": {"route": "cuda",
+                        "source": "puflow_torch/csrc/knn.cu",
+                        "replaces": PALLAS + "knn_pallas.py:81"},
     "encoder": {"route": "cuda", "source": "puflow_torch/csrc/encoder.cu",
                 "replaces": PALLAS + "encoder_pallas.py:411"},
     "interp_head": {"route": "cuda", "source": "puflow_torch/csrc/interp.cu",
@@ -202,6 +210,7 @@ KERNELS = {
                         "replaces": PALLAS + "cnf_adjoint_pallas.py:378"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
+            "knn_self_stream": knn_self_stream,
             "encoder": enc_ops.encoder_conditions,
             "interp_head": interp_ops.interp_head, "flow_f": flow_ops.flow_f,
             "flow_g": flow_ops.flow_g, "flow_g_blend": flow_ops.flow_g_blend,
@@ -221,7 +230,10 @@ PATHS = {"folded": ("fps", "knn_self", "encoder", "interp_head", "flow_f",
          "union_groups": ("fps", "knn_self", "encoder", "interp_head",
                           "flow_f", "flow_g_blend"),
          "cnf_grad": ("cnf_solve_logp", "cnf_solve", "cnf_adjoint_bwd",
-                      "emd")}
+                      "emd"),
+         # the folded path on patches over the k-NN's shared memory
+         "large_patch": ("knn_self_stream", "encoder", "interp_head",
+                         "flow_f", "flow_g_blend")}
 # the seeded merge once more, behind the CNF folded model
 PATHS["cnf_seeded_merge"] = PATHS["cnf_folded"] + ("fps_seeded",)
 # the merge each path runs (`upsample_cloud` keywords; none: the union)
@@ -233,7 +245,8 @@ COUNT_FROM = {"fps": "folded", "knn_self": "folded", "encoder": "folded",
               "interp_head": "folded", "flow_f": "folded",
               "flow_g_blend": "folded", "flow_g": "exact", "emd": "train",
               "cnf_solve": "cnf_folded", "fps_seeded": "seeded_merge",
-              "cnf_solve_logp": "cnf_grad", "cnf_adjoint_bwd": "cnf_grad"}
+              "cnf_solve_logp": "cnf_grad", "cnf_adjoint_bwd": "cnf_grad",
+              "knn_self_stream": "large_patch"}
 KERNEL_OPS = dict(WRAPPERS, knn=knn_indices, cnf_solve_t=cnf_ops.cnf_solve_t)
 PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "knn": knn_indices,
@@ -245,6 +258,7 @@ PLAIN_OPS = {"fps": farthest_point_sample_plain, "knn_self": knn_self_plain,
              "fps_seeded": farthest_point_sample_seeded_plain}
 CNF_SOLVES = 2 * continuous.NUM_BLOCKS      # block-solves a `sample`
 FIELD_MACS = 3 * 64 + 64 * 64 + 64 * 3      # multiply-adds, row x evaluation
+TC_MACS = 64 * 64                           # of those, the 64 x 64 product
 # the three tangent chains of the exact trace: v2 = u1 W2 for each, and
 # the diagonal of v3
 TANGENT_MACS = 3 * 64 * 64 + 3 * 64
@@ -396,11 +410,13 @@ def flow_fma_macs(blocks, rows: int) -> int:
                for i, bp in enumerate(blocks))
 
 
-def synthetic_clouds(batch: int, seed: int) -> torch.Tensor:
-    """Seeded surfaces: points on ellipsoids with random axes and a
-    low-frequency radial bump, made with numpy and moved to the card."""
+def synthetic_clouds(batch: int, seed: int,
+                     n: int = N_POINTS) -> torch.Tensor:
+    """Seeded surfaces of ``n`` points: points on ellipsoids with random
+    axes and a low-frequency radial bump, made with numpy and moved to the
+    card."""
     rng = np.random.RandomState(seed)
-    v = rng.randn(batch, N_POINTS, 3)
+    v = rng.randn(batch, n, 3)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
     axes = rng.uniform(0.5, 1.5, (batch, 1, 3))
     bump = 1.0 + 0.2 * np.sin(3.0 * v[..., :1]) * np.cos(2.0 * v[..., 1:2])
@@ -1247,6 +1263,100 @@ def phase_cli():
             f"{tuple(out.shape)}, finite")
 
 
+LARGE_CLOUD = 12000  # points of the cloud served in patches over the limit
+
+
+def compare_knn_stream(results, x, big):
+    """The streaming self k-NN kernel (patches over shared memory) against
+    the plain version: at the main path's 256 patches of 256 points (one
+    lane a query) and at one patch of `KNN_MAX_N` + 1 points (four; float,
+    integer grid and repeated points); equal indices, two runs bit-equal;
+    timed at the large patch."""
+    n = big.shape[1]
+    grid = torch.from_numpy(np.random.RandomState(n).randint(
+        0, 31, (1, n, 3)).astype(np.float32)).cuda()
+    for label, pts in (("float, 256 patches", x), ("float", big),
+                       ("integer grid", grid),
+                       ("repeated half",
+                        repeated_half(np.random.RandomState(n), 1, n))):
+        got, ref = knn_self_stream(pts, K), knn_self_plain(pts, K)
+        torch.cuda.synchronize()
+        if not bool((got == ref).all()):
+            raise AssertionError(f"knn_self_stream {label}: "
+                                 f"{int((got != ref).sum())} indices differ "
+                                 "from the plain version")
+        log(f"knn_self_stream {label} {tuple(pts.shape)} -> {K}: indices "
+            "equal")
+        check_rerun(f"knn_self_stream {label}", got, knn_self_stream(pts, K))
+    entry = results["knn_self_stream"]
+    entry["max_abs_err"] = 0.0
+    # n^2 distances (8 flops each) and as many compares
+    set_bound(entry, nbytes(big) + n * K * 8, 9 * n * n)
+    time_pair(results, "knn_self_stream", lambda: knn_self_stream(big, K),
+              lambda: knn_self_plain(big, K), reps=5)
+    log(f"knn_self_stream [1, {n}] -> {K}: kernel {entry['ms']:.4f} ms, "
+        f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+        f"({entry['bound_by']}) on {card_line()}")
+
+
+def phase_large_patch(results, model, folded):
+    """The folded path on patches one point over the shared-memory self
+    k-NN kernel's limit (`KNN_MAX_N` + 1): the streaming kernel is held to
+    its plain version, `discrete.forward` takes it and its four other
+    kernels and matches the plain composition; then the upsample CLI (BN
+    folded) serves a cloud of `LARGE_CLOUD` points in such patches
+    (`--num_patch`)."""
+    n = KNN_MAX_N + 1
+    x = synthetic_clouds(1, SEED + 9, n)
+    with torch.no_grad():
+        compare_knn_stream(results, main_path_patches(8), x)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    with torch.no_grad():
+        got = folded(x, UPRATIO)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+        ref = sample_staged(folded, x, PLAIN_OPS, lambda stage: None)
+    err = float((got - ref).abs().max())
+    log(f"folded sample on a patch of {n} points (KNN_MAX_N + 1): launches "
+        f"{launches}; vs the plain composition max_abs_err {err:.3e} (atol "
+        "1e-4)")
+    path = PATHS["large_patch"]
+    if launches != {k: int(k in path) for k in launches}:
+        raise AssertionError("a patch over the k-NN limit: the folded path "
+                             f"did not launch each of {path} once")
+    results["knn_self_stream"]["launches"] = launches["knn_self_stream"]
+    if not err <= 1e-4:
+        raise AssertionError(f"a patch over the k-NN limit: max_abs_err {err}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "m.npz")
+        checkpoint.save_checkpoint(ckpt, *checkpoint.to_numpy_tree(model))
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        cloud = synthetic_clouds(1, SEED + 10, LARGE_CLOUD)[0]
+        np.savetxt(os.path.join(src, "cloud.xyz"), cloud.cpu().numpy(),
+                   fmt="%.6f")
+        cmd = [sys.executable, "-m", "puflow_torch.cli.upsample",
+               "--source", src, "--target", os.path.join(tmp, "out"),
+               "--checkpoint", ckpt, "--device", "cuda",
+               "--num_patch", str(n)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        log(f"upsample CLI ({time.perf_counter() - t0:.1f} s, exit "
+            f"{proc.returncode}): {' '.join(cmd[3:])}: {proc.stdout.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError("upsample CLI over the k-NN limit failed:\n"
+                                 + proc.stderr[-4000:])
+        pts = np.loadtxt(os.path.join(tmp, "out", "cloud.xyz"))
+        if pts.shape != (LARGE_CLOUD * UPRATIO, 3) or not np.isfinite(
+                pts).all():
+            raise AssertionError(f"upsample CLI over the k-NN limit wrote "
+                                 f"{pts.shape}")
+        log(f"upsample CLI --num_patch {n}: {LARGE_CLOUD} -> {pts.shape[0]} "
+            "finite points")
+
+
 SOLVER_TOL = 5e-5   # kernel against plain where a step size is not clipped
 WITNESS_STEPS = 1024
 
@@ -1371,20 +1481,24 @@ def compare_cnf(model, results):
     # times and the bound at the two shapes of `bench_cnf`'s sample, cdim
     # 128: the function reads y, c, the layers and t0, t1 and writes y(t1);
     # it makes 1 + 6 field evaluations a step attempted on every row
-    # (4,480 multiply-adds each) and projects the conditions once
+    # (4,480 multiply-adds each, 4,096 of them the 64 x 64 product, which
+    # counts at 3xTF32 on the tensor cores, `set_bound_3xtf32`; its log
+    # gives the FP32 bound beside) and projects the conditions once
     for label, y, reverse in (("f, R = 8,192", x, False),
                               ("g, R = 32,768, r = 4", latents, True)):
         args = solve_args(blocks, 3, cs[3], y, reverse)
         _, stats = cnf_ops.cnf_solve_t(*args, return_stats=True)
-        attempted = stats.tolist()[0]
+        attempted, accepted = stats.tolist()
         rows, c_rows = y.shape[0] * y.shape[1], B * n
         layers = args[0]
-        set_bound(results["cnf_solve"],
-                  2 * nbytes(y) + nbytes(cs[3]) + tree_bytes(layers) + 8,
-                  2 * (rows * FIELD_MACS * (1 + 6 * attempted)
-                       + c_rows * cs[3].shape[-1] * (4 * 64 + 6)))
-        log(f"cnf_solve {label}: {attempted} steps attempted, "
-            f"{1 + 6 * attempted} field evaluations a row")
+        evals = rows * (1 + 6 * attempted)
+        log(f"cnf_solve {label}: steps [attempted, accepted] [{attempted}, "
+            f"{accepted}], {1 + 6 * attempted} field evaluations a row")
+        set_bound_3xtf32(results["cnf_solve"],
+                         2 * nbytes(y) + nbytes(cs[3]) + tree_bytes(layers)
+                         + 8, 2 * evals * TC_MACS,
+                         2 * (evals * (FIELD_MACS - TC_MACS)
+                              + c_rows * cs[3].shape[-1] * (4 * 64 + 6)))
         # the kernel line keeps the last: the g solve
         time_pair(results, "cnf_solve", lambda: cnf_ops.cnf_solve_t(*args),
                   lambda: cnf_ops.cnf_solve_plain(*args), reps=5)
@@ -1722,16 +1836,20 @@ def compare_cnf_logp(model, results):
     bp = weights[1][1][3]
     T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
     args = (bp["layers"], cs[3], x, logp0, torch.zeros_like(T), T)
+    # the four 64 x 64 products a row and evaluation (x1 W2, u1_k W2) count
+    # at 3xTF32, the rest at the FP32 peak
     _, stats = cnf_ops.cnf_solve_logp(*args, return_stats=True)
-    attempted = stats.tolist()[0]
+    attempted, accepted = stats.tolist()
     rows = x.shape[0] * x.shape[1]
-    set_bound(results["cnf_solve_logp"],
-              2 * nbytes(x, logp0) + nbytes(cs[3]) + tree_bytes(bp["layers"])
-              + 8,
-              2 * (rows * (FIELD_MACS + TANGENT_MACS) * (1 + 6 * attempted)
-                   + rows * cs[3].shape[-1] * (4 * 64 + 6)))
-    log(f"cnf_solve_logp f, R = 8,192, cdim 128: {attempted} steps "
-        f"attempted, {1 + 6 * attempted} field evaluations a row")
+    evals = rows * (1 + 6 * attempted)
+    log(f"cnf_solve_logp f, R = 8,192, cdim 128: steps [attempted, "
+        f"accepted] [{attempted}, {accepted}], {1 + 6 * attempted} field "
+        "evaluations a row")
+    set_bound_3xtf32(results["cnf_solve_logp"],
+                     2 * nbytes(x, logp0) + nbytes(cs[3])
+                     + tree_bytes(bp["layers"]) + 8, 2 * evals * 4 * TC_MACS,
+                     2 * (evals * (FIELD_MACS + TANGENT_MACS - 4 * TC_MACS)
+                          + rows * cs[3].shape[-1] * (4 * 64 + 6)))
     time_pair(results, "cnf_solve_logp",
               lambda: cnf_ops.cnf_solve_logp(*args),
               lambda: cnf_ops.cnf_solve_logp_plain(*args), reps=5,
@@ -2021,8 +2139,8 @@ def cnf_kernel_ms(fn):
     busy time in it."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = {"cnf_solve_logp (f forward)": ("solve_kernel", "LogpField"),
-             "cnf_solve (g forward)": ("solve_kernel", "PlainField"),
+    names = {"cnf_solve_logp (f forward)": ("solve_kernel<true",),
+             "cnf_solve (g forward)": ("solve_kernel<false",),
              "cnf_adjoint_bwd with the trace (f)": ("cnf_adjoint_kernel",
                                                     "<true>"),
              "cnf_adjoint_bwd without (g)": ("cnf_adjoint_kernel",
@@ -2085,6 +2203,7 @@ def main():
     phase_emd(results, params, state, sparse, dense)
     phase_train(results, params, state, sparse, dense, card)
     phase_cli()
+    phase_large_patch(results, model, folded)
 
     cnf_model, cnf_folded = seeded_models("cnf")
     with torch.no_grad():

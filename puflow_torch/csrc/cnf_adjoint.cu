@@ -97,25 +97,37 @@
 #include <cstdio>
 
 #include "cnf_field.cuh"
-#include "mma_tf32.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace puflow {
 namespace {
 
+using cnf_field::cp16;
+using cnf_field::cp8;
+using cnf_field::cp_wait;
 using cnf_field::err_weight;
 using cnf_field::kA;
 using cnf_field::kB5;
 using cnf_field::kC;
+using cnf_field::kFrag;
+using cnf_field::kFragOff;
 using cnf_field::kH;
 using cnf_field::kLdP;
+using cnf_field::kOwnW;
 using cnf_field::kProj;
+using cnf_field::mma3;
+using cnf_field::oV1;
+using cnf_field::oV2;
+using cnf_field::oV3;
+using cnf_field::oW1;
+using cnf_field::oW3;
+using cnf_field::product;
+using cnf_field::quad_sum;
 using cnf_field::sigmoid;
 using tf32::ASplit;
 using tf32::BPair;
 using tf32::b_pair;
-using tf32::mma;
 using tf32::split_bits;
 
 // the parts that scripts/adjoint_variants.py's diagnostic variants drop
@@ -154,19 +166,9 @@ constexpr int sV3 = gV3 - kH * kH;
 __device__ __forceinline__ int small_g(int s) {
   return s < gW2 ? s : s + kH * kH;
 }
-// the weights as the wrapper packs them (`ops/cnf.py:_adjoint_pack`): the
-// layers' own (`cnf_field.cuh`, kWeights floats), padding to a multiple of
-// 4, then W2's and W2^T's B fragments (`fragment_order`, f32 pairs)
-constexpr int kFrag = kH * kH;        // floats of one 64 x 64 matrix
-constexpr int kFragOff = (cnf_field::kWeights + 3) / 4 * 4;
-// the small weights in shared memory: W1 [3][64], b1 | gate_t1 | bias_t1,
-// the same of layer 2, W3 [64][3], b3 | gate_t3 | bias_t3
-constexpr int oW1 = 0;
-constexpr int oV1 = oW1 + 3 * kH;
-constexpr int oV2 = oV1 + 3 * kH;
-constexpr int oW3 = oV2 + 3 * kH;
-constexpr int oV3 = oW3 + 3 * kH;
-constexpr int kOwnW = (oV3 + 9 + 3) / 4 * 4;
+// the weights as the wrapper packs them (`ops/cnf.py:_field_weights`,
+// `cnf_field.cuh`: the layers' own, then W2's and W2^T's B fragments as
+// f32 pairs from kFragOff); the small ones in shared memory at `oW1` ...
 // column sums of a tile (12 kinds x 64 columns), one per row group rg (rows
 // rg, rg + 4, ...)
 constexpr int kKinds = 12;
@@ -246,55 +248,6 @@ struct Weights {
   float w5, wE, w7;
 };
 
-// acc += a b as 3xTF32: hi*hi, hi*lo, lo*hi
-__device__ __forceinline__ void mma3(float (&acc)[4], const ASplit& a,
-                                     const BPair& b) {
-  mma(acc, a.hi, b.h0, b.h1);
-  mma(acc, a.hi, b.l0, b.l1);
-  mma(acc, a.lo, b.h0, b.h1);
-}
-
-// acc[m][n] += A W for MT m16 row tiles: A [16 MT][kLdA] in shared
-// memory, its k chunks read in `fragment_order`'s order (columns 2t, 2t + 1
-// of a chunk as one float2), W's fragment (kc, nt) at w[(kc * 8 + nt) * 32]
-// (w already offset by the lane and the first n tile), split once for all
-// the row tiles. With one n tile and one row tile a warp the even and odd
-// k chunks go to two accumulators, added at the end: two chains of
-// dependent products instead of one.
-template <int MT, int NT>
-__device__ __forceinline__ void product(float (&acc)[MT][NT][4],
-                                        const float* A, const float2* w,
-                                        int lane) {
-  constexpr int kChains = MT * NT == 1 ? 2 : 1;
-  float part[kChains][MT][NT][4] = {};
-  const float* a0 = A + (lane >> 2) * kLdA + 2 * (lane & 3);
-#pragma unroll
-  for (int kc = 0; kc < kH / 8; ++kc) {
-    BPair b[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) b[n] = b_pair(w[(kc * 8 + n) * 32]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float* am = a0 + 16 * m * kLdA + 8 * kc;
-      const float2 top = *reinterpret_cast<const float2*>(am);
-      const float2 bot = *reinterpret_cast<const float2*>(am + 8 * kLdA);
-      const float c[4] = {top.x, top.y, bot.x, bot.y};
-      const ASplit a = tf32::a_split(c);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) mma3(part[kc % kChains][m][n], a, b[n]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        acc[m][n][k] = kChains == 2
-                           ? part[0][m][n][k] + part[kChains - 1][m][n][k]
-                           : part[0][m][n][k];
-}
-
 // T[n] += X^T D over rows 0..8 KT - 1: X [rows][ldx], D [rows][ldd] in
 // shared memory (natural k order); T's rows are X's columns m0..m0+15,
 // its n tiles D's columns 8 (nt0 + n) ...
@@ -315,32 +268,6 @@ __device__ __forceinline__ void product_t(float (&T)[NT][4], const float* X,
     for (int n = 0; n < NT; ++n)
       mma3(T[n], a, b_pair(make_float2(d[8 * n], d[4 * ldd + 8 * n])));
   }
-}
-
-// The sum of a value over the 4 lanes of a quad (lanes 4i .. 4i + 3); the
-// same bits in all four.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Copies of 8 and 16 bytes from device to shared memory that do not wait
-// (all of a staging loop's loads in flight at once); cp_wait waits for all
-// of this thread's.
-__device__ __forceinline__ void cp8(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The phases block 0's thread 0 clocks with kClock.
@@ -416,7 +343,7 @@ __device__ __forceinline__ void aug_field(const Smem& s, float t,
   // u1_k W2 (warp: product p, n tiles nt0 ..)
   {
     float acc[kMt][NP][4];
-    product<kMt, NP>(acc, p == 0 ? s.x1 : s.u1 + (p - 1) * kArr,
+    product<kMt, NP, kLdA>(acc, p == 0 ? s.x1 : s.u1 + (p - 1) * kArr,
                      s.wfw + nt0 * 32 + lane, lane);
 #pragma unroll
     for (int m = 0; m < kMt; ++m)
@@ -586,7 +513,7 @@ __device__ __forceinline__ void aug_field(const Smem& s, float t,
   // rows x 4 n tiles of it
   {
     float acc[kMt][NP][4];
-    product<kMt, NP>(acc, p == 0 ? s.dh2 : s.cv2 + (p - 1) * kArr,
+    product<kMt, NP, kLdA>(acc, p == 0 ? s.dh2 : s.cv2 + (p - 1) * kArr,
                      s.wrv + nt0 * 32 + lane, lane);
     float* out = p == 0 ? s.h2 : s.v2 + (p - 1) * kArr;
 #pragma unroll
@@ -903,14 +830,7 @@ cnf_adjoint_kernel(AdjArgs a) {
     const float4* src = reinterpret_cast<const float4*>(a.weights + kFragOff);
     float4* dst = reinterpret_cast<float4*>(smem);
     for (int e = tid; e < kFrag / 2; e += kThreads) dst[e] = __ldg(src + e);
-    using namespace cnf_field;
-    for (int e = tid; e < 3 * kH; e += kThreads) {
-      ws[oW1 + e] = __ldg(a.weights + kW1 + e);
-      ws[oV1 + e] = __ldg(a.weights + kV1 + e);
-      ws[oV2 + e] = __ldg(a.weights + kV2 + e);
-      ws[oW3 + e] = __ldg(a.weights + kW3 + e);
-    }
-    if (tid < 9) ws[oV3 + tid] = __ldg(a.weights + kV3 + tid);
+    cnf_field::load_small(a.weights, ws, tid, kThreads);
   }
 
   // a tile's projections into proj (131 pairs a row, copies in flight

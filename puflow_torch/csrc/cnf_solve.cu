@@ -9,57 +9,77 @@
 //   h = x W + b;  out = h * sigmoid(t gate_t + gate_c) + (t bias_t + bias_c)
 // with tanh between layers, either alone (`puflow_cnf_solve`) or with
 // d logp / dt = -div f, div the exact trace from three tangent chains
-// (`puflow_cnf_solve_logp`). ONE step size is shared by all rows: the
-// error ratio of a step is the RMS over every entry of the state (3 R, or
-// 4 R with logp), and accept / reject is one decision a step. Same
-// tableau, controller and FSAL as the plain versions, `cnf_solve_plain`
-// and `cnf_solve_logp_plain` in puflow_torch/ops/cnf.py
-// (`models.ode.odeint_dopri5` on `field_plain_csl` / `field_with_exact_div`).
-// The TPU's log-density kernel instead lets each block of up to 8,192 rows
-// adapt its own step; the port follows the plain version, so that the
-// kernel and its oracle take the same steps and agree to rounding wherever
-// a step size is set by a clip. The per-row condition projections gate_c /
-// bias_c are constant during a solve and come precomputed (one matrix
-// product in the wrapper), 262 floats a condition row; a condition row may
-// serve `rep` consecutive rows of y, so the inverse pass never repeats its
-// conditions. The three products of the field are computed here, in f32
-// on the CUDA cores.
+// (`puflow_cnf_solve_logp`):
+//   u1_k = W1[k] s1 (1 - x1^2);  v2_k = u1_k W2;
+//   v3_k[k] = sum_j v2_k[j] s2[j] (1 - x2[j]^2) W3[j][k];
+//   div = sum_k v3_k[k] s3[k]
+// (the TPU kernel's `_cnf_solve_logp_kernel`, cnf_pallas.py:176-278). ONE
+// step size is shared by all rows: the error ratio of a step is the RMS
+// over every entry of the state (3 R, or 4 R with logp), and accept /
+// reject is one decision a step. Same tableau, controller and FSAL as the
+// plain versions, `cnf_solve_plain` and `cnf_solve_logp_plain` in
+// puflow_torch/ops/cnf.py (`models.ode.odeint_dopri5` on `field_plain_csl`
+// / `field_with_exact_div`). The TPU's log-density kernel instead lets each
+// block of up to 8,192 rows adapt its own step; the port follows the plain
+// version, so that the kernel and its oracle take the same steps and agree
+// to rounding wherever a step size is set by a clip. The per-row condition
+// projections gate_c / bias_c are constant during a solve and come
+// precomputed (one matrix product in the wrapper), 262 floats a condition
+// row; a condition row may serve `rep` consecutive rows of y, so the
+// inverse pass never repeats its conditions.
 //
-// What bounds it on the H100: FP32 operations. A row costs 4,480
-// multiply-adds and 259 transcendentals per plain field evaluation (about
-// 13k more for the tangent chains), six evaluations a step, against 24
-// bytes of state and 1,048 bytes of projections read once a step. With
-// everything in shared memory and the 64 x 64 product at most a third of
-// the instructions, what limits it in practice is the instruction issue
-// rate of the small layers, the epilogues and the barriers around them.
+// What bounds it on the H100. A row costs, per field evaluation, the 64 x
+// 64 product x1 W2 (4,096 multiply-adds; with the trace also u1_k W2, 3 x
+// 4,096) and 384 more multiply-adds and 259 transcendentals (tanh and the
+// sigmoid gates) in f32; six evaluations a step, against 24 bytes of state
+// and 1,048 bytes of projections. The products run on the tensor cores as
+// 3xTF32 `mma.sync` (`cnf_field.cuh:product`); what sets the pace is each
+// warp's chain through its tile: block 0's clock (the diag_clock variant
+// of scripts/cnf_solve_variants.py) gives layer 1 about 30% of a warp's
+// cycles, the product 25%, layer 2's epilogue 15%, the stage sums, the
+// gate table and the step's grid barrier the rest; more warps an SM did
+// not help, 8-row tiles where the rows are few did.
 //
 // Design. The solve needs the error norm over every row before any row
 // may go on, so it is one cooperative launch (`cudaLaunchCooperativeKernel`)
 // of as many blocks as fit the card at once (the occupancy API decides),
 // with one `grid.sync()` a step and no host read from start to end; t0 and
 // t1 come from device memory. One step loop, `solve_kernel`, is templated
-// on the field: rows are cut into tiles of the field's height; block b
-// owns tiles b, b + grid, ... and, for each, runs the step's six stages
-// out of shared memory (weights resident, the tile's projections loaded
-// once a step and used by all six evaluations, hidden activations never in
-// device memory), so there is no cap on rows. The plain field takes tiles
-// of 48 rows, two blocks an SM: one block's barriers and transcendental
-// chains overlap the other's products, and the shared-memory traffic of
-// the 64 x 64 layer is 16-byte loads. The tangent chains of the log-density
-// field triple the hidden tiles, so its tile holds 16 rows. Between steps
-// the state (y[, logp] and the FSAL stage k1) lives in device memory in two
-// copies: a step reads copy `cur` and writes its candidate (y5, k7) to the
-// other, and an accepted step flips `cur`, so nothing is copied. The norm
-// is summed in a fixed order: within a tile by a shuffle tree, over a
-// block's tiles in index order, over blocks in a fixed order after the
-// sync, each block repeating the same sum, so every block takes the same
-// decision and two runs agree bit for bit (no float atomics). A partial
-// last tile adds nothing to the sum.
+// on the field. Rows are cut into tiles of 16, one m16 row tile of the
+// tensor cores, or of 8 (the tile's other 8 rows of A zero) where tiles of
+// 8 give every warp the card holds at most one; tile i goes to warp i /
+// grid of block i % grid and its repeats every grid x kWarps tiles, so a
+// short solve spreads over all the SMs. A warp takes its tile through the
+// step's six stages alone, with __syncwarp and no block barrier: lane (g,
+// t) computes layer 1 for rows g and g + 8 and columns 8 n + 2t, 8 n + 2t
+// + 1 (n = 0..7), the very cells of the A operand its `product` reads back
+// (a region of its own in shared memory, so no lane waits for another),
+// the product leaves layer 2 in the same cells as C fragments, whose
+// epilogue and layer 3's partial sums stay in registers, and a quad's
+// butterfly ends layer 3. W2's B fragments are split once into shared
+// memory (from the f32 pairs of `ops/cnf.py:_field_weights`, the pack the
+// adjoint reads too). The gates of layers 1 and 2 depend only on the
+// stage's time and the condition row: with rep > 1 a warp computes them
+// once a condition row and stage time into a table its rows read (with
+// the same `gate`, so the bits are those a row would compute); with rep =
+// 1 each row computes its own in place; which of the two is a template
+// parameter, so no evaluation branches on it. A tile's projections are
+// staged when its warp takes it up, and stay staged while the warp owns
+// that one tile. Between steps the state (y[, logp] and the FSAL stage k1)
+// lives in device memory in two copies: a step reads copy `cur` and writes
+// its candidate (y5, k7) to the other, and an accepted step flips `cur`,
+// so nothing is copied. The norm is summed in a fixed order: within a tile
+// by a shuffle tree, over a warp's tiles in index order, over a block's
+// warps in index order, over blocks in a fixed order after the sync, each
+// block repeating the same sum, so every block takes the same decision and
+// two runs agree bit for bit (no float atomics). A partial last tile adds
+// nothing to the sum.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cstdint>
 
 #include "cnf_field.cuh"
 
@@ -70,26 +90,47 @@ namespace {
 
 using namespace cnf_field;
 
-constexpr int kThreads = 256;        // 16 x 16 threads
+// Warps a block (one block an SM fills shared memory; timed by
+// scripts/cnf_solve_variants.py).
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxDevices = 64;      // cards a process may launch on
-// The plain field's tile height (a multiple of 16, at most 80) and blocks
-// an SM. Timed side by side on the H100: 48 x 2 (102 KB of shared memory a
-// block) ties with 32 x 3, which fills shared memory to the brim, and
-// beats 32 x 2 (by 10% at 262,144 rows), 64 x 1 and 16 x 4 (by 37%).
-constexpr int kPlainRows = 48;
-constexpr int kRowBlocks = kPlainRows / 16;
-static_assert(kPlainRows % 16 == 0 && kPlainRows * 3 <= kThreads,
-              "tile height");
-constexpr int kLdH = kH + 4;         // row stride of hidden tiles: rows stay
-                                     // 16-byte aligned, two rows 4 banks apart
-constexpr int kPlainTile = kPlainRows * 3;
-constexpr int kWeightsPad = (kWeights + 3) / 4 * 4;
+constexpr int kLdA = kH + 8;         // the A operand's row stride (16 rows)
+
+// A warp's tile and shared memory. kHalves: the rows a lane takes, g and
+// g + 8 of an m16 row tile (2: tiles of 16 rows), or g alone (1: tiles of
+// 8 rows and half the A rows zero, twice the warps at a given R; the
+// launch takes them where they all fit the card at once). kTable: the
+// gates of layers 1 and 2 come from a table made once a condition row
+// and stage time (r > 1), else each row computes its own in place (r = 1:
+// a table would save no sigmoid, and at 16-row tiles a block's tables of
+// 16 condition rows would outgrow shared memory). Both are template
+// parameters, so that no evaluation branches on them.
+template <bool kTrace, int kHalves, bool kTable>
+struct Layout {
+  static constexpr int kRows = 8 * kHalves;   // a tile's rows
+  static constexpr int kCh = kTrace ? 4 : 3;
+  // the tile's condition rows' projections (kRows of them at r = 1, at
+  // most kRows / 2 + 1 at r > 1), then the gate table of layers 1 and 2
+  static constexpr int kConds = kTable ? kRows / 2 + 1 : kRows;
+  static constexpr int kTableOff = kConds * kProj;
+  static constexpr int kProjFloats = kTableOff + (kTable ? kConds * 2 * kH
+                                                         : 0);
+  static_assert(kTableOff % 2 == 0 && kProj % 2 == 0, "float2 alignment");
+  // W2's pre-split fragments, the small weights, then each warp's A,
+  // projections, stages, state and input; the warps' partial sums and the
+  // controller's scalars
+  static constexpr int kWarpFloats =
+      16 * kLdA + kProjFloats + 9 * kRows * kCh;
+  static constexpr int kFloats =
+      2 * kFrag + kOwnW + kWarps * kWarpFloats + 2 * kWarps + 8;
+};
 
 struct SolveArgs {
   const float* y0;       // [n_rows, 3]
   const float* logp0;    // [n_rows] (the log-density solve)
   const float* proj;     // [n_rows / rep, kProj]
-  const float* weights;  // [kWeights]
+  const float* weights;  // [kFragOff + 2 kFrag] (`_field_weights`)
   const float* t01;      // t0, t1
   float* state;          // y[, logp] [2][n_rows][kCh], then k1 the same
   double* partials;      // [2][gridDim.x]
@@ -100,253 +141,330 @@ struct SolveArgs {
   float rtol, atol;
 };
 
-__device__ __forceinline__ float squash(float h, float t, float gate_t,
-                                        float gate_c, float bias_t,
-                                        float bias_c) {
-  return h * sigmoid(t * gate_t + gate_c) + (t * bias_t + bias_c);
-}
-
-// One field evaluation on a tile: xin [kPlainRows][3] -> kout [kPlainRows][3].
-// Contains __syncthreads: call it from every thread, after xin is written
-// and synchronised. It returns unsynchronised: thread tid < 3 kPlainRows has
-// written kout[tid], the element it alone reads until the next barrier.
-// Each epilogue first loads all of a thread's operands, then computes its
-// outputs side by side, then stores them, so that the chains of the
-// transcendentals overlap.
-__device__ void field(const float* __restrict__ w_s,
-                      const float* __restrict__ proj_s, float t,
-                      const float* __restrict__ xin, float* __restrict__ ha,
-                      float* __restrict__ hb, float* __restrict__ kout) {
-  const int tid = threadIdx.x;
-  // layer 1, 3 -> 64: thread = column tid % 64 of rows tid / 64 + 4 u
-  {
-    constexpr int kPer = kPlainRows * kH / kThreads;
-    constexpr int kStep = kThreads / kH;
-    const int o = tid % kH, r0 = tid / kH;
-    const float w0 = w_s[kW1 + o], w1 = w_s[kW1 + kH + o],
-                w2 = w_s[kW1 + 2 * kH + o], b = w_s[kV1 + o],
-                gate_t = t * w_s[kV1 + kH + o],
-                bias_t = t * w_s[kV1 + 2 * kH + o];
-    float h[kPer], g[kPer], c[kPer];
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int r = r0 + kStep * u;
-      h[u] = fmaf(xin[r * 3 + 2], w2,
-                  fmaf(xin[r * 3 + 1], w1, xin[r * 3] * w0)) + b;
-      g[u] = gate_t + proj_s[r * kLdP + o];
-      c[u] = bias_t + proj_s[r * kLdP + kH + o];
-    }
-#pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      h[u] = tanhf(h[u] * sigmoid(g[u]) + c[u]);
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) ha[(r0 + kStep * u) * kLdH + o] = h[u];
-  }
-  __syncthreads();
-  // layer 2, 64 -> 64: thread (ty, tx) owns rows ty + 16 i and columns
-  // 4 tx .. 4 tx + 3, a kRowBlocks x 4 register tile; activations and
-  // weights come as 16-byte loads, four k at a time
-  {
-    const int tx = tid & 15, ty = tid >> 4;
-    float acc[kRowBlocks][4];
-#pragma unroll
-    for (int i = 0; i < kRowBlocks; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    const float4* w4 = reinterpret_cast<const float4*>(w_s + kW2) + tx;
-#pragma unroll 4
-    for (int k = 0; k < kH; k += 4) {
-      float4 a[kRowBlocks];
-#pragma unroll
-      for (int i = 0; i < kRowBlocks; ++i)
-        a[i] = *reinterpret_cast<const float4*>(ha + (ty + 16 * i) * kLdH + k);
-      const float4 w0 = w4[k * (kH / 4)], w1 = w4[(k + 1) * (kH / 4)],
-                   w2 = w4[(k + 2) * (kH / 4)], w3 = w4[(k + 3) * (kH / 4)];
-#pragma unroll
-      for (int i = 0; i < kRowBlocks; ++i) {
-        acc[i][0] = fmaf(a[i].x, w0.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i].x, w0.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i].x, w0.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i].x, w0.w, acc[i][3]);
-        acc[i][0] = fmaf(a[i].y, w1.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i].y, w1.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i].y, w1.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i].y, w1.w, acc[i][3]);
-        acc[i][0] = fmaf(a[i].z, w2.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i].z, w2.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i].z, w2.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i].z, w2.w, acc[i][3]);
-        acc[i][0] = fmaf(a[i].w, w3.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i].w, w3.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i].w, w3.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i].w, w3.w, acc[i][3]);
-      }
-    }
-    const float4 b4 = *reinterpret_cast<const float4*>(w_s + kV2 + 4 * tx);
-    const float4 gt4 =
-        *reinterpret_cast<const float4*>(w_s + kV2 + kH + 4 * tx);
-    const float4 bt4 =
-        *reinterpret_cast<const float4*>(w_s + kV2 + 2 * kH + 4 * tx);
-    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-    const float gate_t[4] = {t * gt4.x, t * gt4.y, t * gt4.z, t * gt4.w};
-    const float bias_t[4] = {t * bt4.x, t * bt4.y, t * bt4.z, t * bt4.w};
-    float g[kRowBlocks][4], c[kRowBlocks][4];
-#pragma unroll
-    for (int i = 0; i < kRowBlocks; ++i) {
-      const float* p = proj_s + (ty + 16 * i) * kLdP + 2 * kH + 4 * tx;
-      const float4 gc = *reinterpret_cast<const float4*>(p);
-      const float4 bc = *reinterpret_cast<const float4*>(p + kH);
-      const float gcv[4] = {gc.x, gc.y, gc.z, gc.w};
-      const float bcv[4] = {bc.x, bc.y, bc.z, bc.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] += b[j];
-        g[i][j] = gate_t[j] + gcv[j];
-        c[i][j] = bias_t[j] + bcv[j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRowBlocks; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = tanhf(acc[i][j] * sigmoid(g[i][j]) + c[i][j]);
-#pragma unroll
-    for (int i = 0; i < kRowBlocks; ++i)
-      *reinterpret_cast<float4*>(hb + (ty + 16 * i) * kLdH + 4 * tx) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-  __syncthreads();
-  // layer 3, 64 -> 3: thread = (row, channel), four partial sums over
-  // k = u mod 4, the row read as 16-byte loads
-  if (tid < kPlainTile) {
-    const int r = tid / 3, o = tid - r * 3;
-    const float4* hrow = reinterpret_cast<const float4*>(hb + r * kLdH);
-    const float* w3 = w_s + kW3 + o;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < kH; k += 4) {
-      const float4 hv = hrow[k / 4];
-      acc[0] = fmaf(hv.x, w3[k * 3], acc[0]);
-      acc[1] = fmaf(hv.y, w3[(k + 1) * 3], acc[1]);
-      acc[2] = fmaf(hv.z, w3[(k + 2) * 3], acc[2]);
-      acc[3] = fmaf(hv.w, w3[(k + 3) * 3], acc[3]);
-    }
-    const float h = (acc[0] + acc[1]) + (acc[2] + acc[3]) + w_s[kV3 + o];
-    const float* p = proj_s + r * kLdP + 4 * kH;
-    kout[tid] = squash(h, t, w_s[kV3 + 3 + o], p[o], w_s[kV3 + 6 + o],
-                       p[3 + o]);
-  }
-}
-
-// The plain field on tiles of 48 rows: the weights as `_pack` writes them
-// (W2's rows kH apart, read as 16-byte words), two hidden tiles.
-struct PlainField {
-  static constexpr int kRows = kPlainRows, kCh = 3, kBlocksPerSm = 2;
-  static constexpr int kWeightFloats = kWeightsPad;
-  static constexpr int kScratchFloats = 2 * kRows * kLdH;
-  __device__ static void load(const float* __restrict__ g, float* w_s) {
-    for (int i = threadIdx.x; i < kWeights; i += kThreads)
-      w_s[i] = __ldg(g + i);
-  }
-  // xin [kRows][3] -> kout [kRows][3]; returns unsynchronised, as `field`
-  __device__ static void eval(const float* w_s, const float* proj_s, float t,
-                              const float* xin, float* scratch, float* kout) {
-    field(w_s, proj_s, t, xin, scratch, scratch + kRows * kLdH, kout);
-  }
+// A warp's tile: its shared memory and which condition row its lane's
+// rows read.
+struct Tile {
+  float* a;             // [16][kLdA] the A operand of the products
+  float* proj;          // [<= kRows][kProj], the gate table at kTableOff
+  float* ks;            // [7][kRows][kCh] the stages
+  float* ys;            // [kRows][kCh] the state
+  float* xin;           // [kRows][kCh] a stage's input
+  int cl[2];            // local condition row of rows g and g + 8
 };
 
-// The field and its exact trace on tiles of 16 rows: (y, logp) [kRows][4]
-// -> (f, -div) [kRows][4], `cnf_field.cuh`'s `forward`.
-struct LogpField {
-  static constexpr int kRows = 16, kCh = 4, kBlocksPerSm = 1;
-  static constexpr int kWeightFloats = kSmemW;
-  static constexpr int kScratchFloats = 12 * kRows * kH + 12 * kRows;
-  __device__ static void load(const float* __restrict__ g, float* w_s) {
-    load_weights(g, w_s);
-  }
-  __device__ static void eval(const float* w_s, const float* proj_s, float t,
-                              const float* xin, float* scratch, float* kout) {
-    Act act;
-    float* p = scratch;
-    act.h1 = p; act.s1 = p + kRows * kH; act.x1 = p + 2 * kRows * kH;
-    act.h2 = p + 3 * kRows * kH; act.s2 = p + 4 * kRows * kH;
-    act.x2 = p + 5 * kRows * kH;
-    p += 6 * kRows * kH;
-    act.u1 = p; act.v2 = p + 3 * kRows * kH;
-    p += 6 * kRows * kH;
-    act.h3 = p; act.s3 = p + 3 * kRows; act.v3 = p + 6 * kRows;
-    act.dterm = p + 9 * kRows;
-    forward<kRows, true>(w_s, proj_s, t, xin, kCh, act, kout, kCh, 3);
-  }
-};
-
-template <class F>
-constexpr int smem_floats() {
-  return F::kWeightFloats + F::kRows * kLdP + F::kScratchFloats +
-         9 * F::kRows * F::kCh + 16;
+// The f32 pair (columns j, j + 1) of a row of shared memory.
+__device__ __forceinline__ float2 pair(const float* p, int j) {
+  return *reinterpret_cast<const float2*>(p + j);
 }
 
-template <class F>
-__global__ void __launch_bounds__(kThreads, F::kBlocksPerSm)
-solve_kernel(SolveArgs a) {
-  constexpr int kRows = F::kRows, kCh = F::kCh, kTile = kRows * kCh;
-  static_assert(kTile <= kThreads, "a thread an entry of the tile");
+// The gates of a column pair: read from the gate table g, or computed
+// here from the projections g.
+template <bool kTable>
+__device__ __forceinline__ float2 gates(float t, const float* g, int j,
+                                        float2 gt) {
+  const float2 v = pair(g, j);
+  if constexpr (kTable)
+    return v;
+  else
+    return make_float2(gate(t, gt.x, v.x), gate(t, gt.y, v.y));
+}
+
+// The gate table of layers 1 and 2 at time t: for each of the tile's
+// `n_cond` condition rows (at most kConds), 64 gates of layer 1 then 64 of
+// layer 2; lane l takes entries l, l + 32, ... (unrolled: its gates'
+// chains side by side).
+template <int kConds, int kTableOff>
+__device__ __forceinline__ void gate_table(const float* w, const Tile& tl,
+                                           float t, int n_cond, int lane) {
+#pragma unroll
+  for (int i = 0; i < kConds * 2 * kH / 32; ++i) {
+    const int e = lane + 32 * i;
+    const int cl = e / (2 * kH), j = e % (2 * kH);
+    const int layer = j / kH, col = j % kH;
+    if (cl < n_cond)
+      tl.proj[kTableOff + e] =
+          gate(t, w[(layer ? oV2 : oV1) + kH + col],
+               tl.proj[cl * kProj + 2 * kH * layer + col]);
+  }
+}
+
+// One field evaluation of a warp's tile at time t: xin [kRows][kCh] ->
+// kout [kRows][kCh], f in channels 0..2 and, with kTrace, -div in channel
+// 3. Lane (g, t) holds rows g and g + 8 and columns 8 n + 2t, 8 n + 2t + 1
+// of the hidden layers (C-fragment index 2 h + e: row g + 8 h, column
+// 8 n + 2t + e). Sums over the 64 columns: a lane's own in the order n, e,
+// then its quad's butterfly. The caller synchronises the warp before
+// (xin) and after (kout).
+template <bool kTrace, int kHalves, bool kTable>
+__device__ __forceinline__ void field(const float* __restrict__ w,
+                                      const float4* __restrict__ w2,
+                                      const Tile& tl, float t,
+                                      const float* xin, float* kout) {
+  using L = Layout<kTrace, kHalves, kTable>;
+  constexpr int kCh = L::kCh, kTableOff = L::kTableOff;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const float* pr[kHalves];
+  // the gates of layer l of row half h: from pr[h] + 2 kH l, or the table
+  const float* gs[kHalves][2];
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      pr[h] = tl.proj + tl.cl[h] * kProj;
+      gs[h][l] = kTable ? tl.proj + kTableOff + tl.cl[h] * 2 * kH + kH * l
+                        : pr[h] + 2 * kH * l;
+    }
+  float y[kHalves][3];
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) y[h][c] = xin[(g + 8 * h) * kCh + c];
+
+  // layer 1 into the lane's cells of A; with the trace s1 (1 - x1^2)
+  float sm1[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int j = 8 * n + 2 * tq;
+    const float2 w0 = pair(w + oW1, j), w1 = pair(w + oW1 + kH, j),
+                 w2r = pair(w + oW1 + 2 * kH, j), b = pair(w + oV1, j),
+                 gt = pair(w + oV1 + kH, j), bt = pair(w + oV1 + 2 * kH, j);
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const float2 s = gates<kTable>(t, gs[h][0], j, gt);
+      const float2 bc = pair(pr[h] + kH, j);
+      const float hx = fmaf(y[h][2], w2r.x,
+                            fmaf(y[h][1], w1.x, y[h][0] * w0.x)) + b.x;
+      const float hy = fmaf(y[h][2], w2r.y,
+                            fmaf(y[h][1], w1.y, y[h][0] * w0.y)) + b.y;
+      const float xx = tanhf(fmaf(hx, s.x, fmaf(t, bt.x, bc.x)));
+      const float xy = tanhf(fmaf(hy, s.y, fmaf(t, bt.y, bc.y)));
+      *reinterpret_cast<float2*>(tl.a + (g + 8 * h) * kLdA + j) =
+          make_float2(xx, xy);
+      if constexpr (kTrace) {
+        sm1[n][2 * h] = s.x * (1.f - xx * xx);
+        sm1[n][2 * h + 1] = s.y * (1.f - xy * xy);
+      }
+    }
+  }
+  // layer 2: x1 W2 on the tensor cores, its epilogue, and layer 3's
+  // partial sums (rows g, g + 8; channels 0..2)
+  float acc[1][8][4];
+  product<1, 8, kLdA>(acc, tl.a, w2 + lane, lane);
+  float p3[kHalves][3] = {};
+  float s2[kTrace ? 8 : 1][4], m2[kTrace ? 8 : 1][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int j = 8 * n + 2 * tq;
+    const float2 b = pair(w + oV2, j), gt = pair(w + oV2 + kH, j),
+                 bt = pair(w + oV2 + 2 * kH, j);
+    // W3 rows j and j + 1: (j, 0) (j, 1) | (j, 2) (j + 1, 0) | (j + 1, 1)
+    // (j + 1, 2)
+    const float2 wa = pair(w + oW3, 3 * j), wb = pair(w + oW3, 3 * j + 2),
+                 wc = pair(w + oW3, 3 * j + 4);
+    const float w3[2][3] = {{wa.x, wa.y, wb.x}, {wb.y, wc.x, wc.y}};
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const float2 s = gates<kTable>(t, gs[h][1], j, gt);
+      const float2 bc = pair(pr[h] + 3 * kH, j);
+      const float sv[2] = {s.x, s.y}, bv[2] = {b.x, b.y},
+                  btv[2] = {bt.x, bt.y}, bcv[2] = {bc.x, bc.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float h2 = acc[0][n][2 * h + e] + bv[e];
+        const float x2 = tanhf(fmaf(h2, sv[e], fmaf(t, btv[e], bcv[e])));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) p3[h][c] = fmaf(x2, w3[e][c], p3[h][c]);
+        if constexpr (kTrace) {
+          s2[n][2 * h + e] = sv[e];
+          m2[n][2 * h + e] = 1.f - x2 * x2;
+        }
+      }
+    }
+  }
+  // with the trace, the diagonal v3_k[k] of each tangent chain: u1_k W2 on
+  // the tensor cores (u1_k written over x1's cells), then u2_k = (v2_k s2)
+  // (1 - x2^2) against W3's column k
+  float v3[3][kHalves];
+  if constexpr (kTrace) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int j = 8 * n + 2 * tq;
+        const float2 wk = pair(w + oW1 + k * kH, j);
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h)
+          *reinterpret_cast<float2*>(tl.a + (g + 8 * h) * kLdA + j) =
+              make_float2(wk.x * sm1[n][2 * h], wk.y * sm1[n][2 * h + 1]);
+      }
+      product<1, 8, kLdA>(acc, tl.a, w2 + lane, lane);
+      float v[kHalves] = {};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int j = 8 * n + 2 * tq;
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[h] = fmaf(acc[0][n][2 * h + e] * s2[n][2 * h + e] *
+                            m2[n][2 * h + e],
+                        w[oW3 + 3 * (j + e) + k], v[h]);
+      }
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) v3[k][h] = quad_sum(v[h]);
+    }
+  }
+  float h3[kHalves][3];
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) h3[h][c] = quad_sum(p3[h][c]);
+  // layer 3's epilogue: lane t of a quad takes outputs q = t and t + 4 of
+  // its rows' six (q < 3: row g, channel q; else row g + 8, channel q - 3);
+  // the sums picked by unrolled compares, so that they stay in registers
+  float d[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = tq + 4 * i;
+    if (q < 3 * kHalves) {
+      const int h = q / 3, c = q % 3;
+      float hs = 0.f, vs = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc)
+          if (q == 3 * hh + cc) {
+            hs = h3[hh][cc];
+            if constexpr (kTrace) vs = v3[cc][hh];
+          }
+      const float* p = (h ? pr[kHalves - 1] : pr[0]) + 4 * kH;
+      const float s3 = gate(t, w[oV3 + 3 + c], p[c]);
+      kout[(g + 8 * h) * kCh + c] =
+          fmaf(hs + w[oV3 + c], s3, fmaf(t, w[oV3 + 6 + c], p[3 + c]));
+      if constexpr (kTrace) d[i] = vs * s3;
+    }
+  }
+  if constexpr (kTrace) {
+    // -div of row g from the quad's q = 0, 1, 2, of row g + 8 from q = 3,
+    // 4, 5, summed in channel order
+    const int base = lane & ~3;
+    const float d0 = __shfl_sync(0xffffffffu, d[0], base);
+    const float d1 = __shfl_sync(0xffffffffu, d[0], base + 1);
+    const float d2 = __shfl_sync(0xffffffffu, d[0], base + 2);
+    const float d3 = __shfl_sync(0xffffffffu, d[0], base + 3);
+    const float d4 = __shfl_sync(0xffffffffu, d[1], base);
+    const float d5 = __shfl_sync(0xffffffffu, d[1], base + 1);
+    if (tq == 2) kout[g * kCh + 3] = -((d0 + d1) + d2);
+    if (kHalves == 2 && tq == 3)
+      kout[(g + 8) * kCh + 3] = -((d3 + d4) + d5);
+  }
+}
+
+template <bool kTrace, int kHalves, bool kTable>
+__global__ void __launch_bounds__(kThreads, 1) solve_kernel(SolveArgs a) {
+  using L = Layout<kTrace, kHalves, kTable>;
+  constexpr int kRows = L::kRows, kCh = L::kCh, kTile = kRows * kCh;
   extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                          // [F::kWeightFloats]
-  float* proj_s = w_s + F::kWeightFloats;     // [kRows][kLdP]
-  float* scratch = proj_s + kRows * kLdP;     // the field's activations
-  float* ks = scratch + F::kScratchFloats;    // [7][kRows][kCh] stages
-  float* ys = ks + 7 * kTile;                 // [kRows][kCh] state
-  float* xin = ys + kTile;                    // [kRows][kCh] stage input
-  float* red = xin + kTile;                   // [8] warp sums
-  float* ctrl = red + 8;                      // [8] the controller's scalars
+  float4* w2_s = reinterpret_cast<float4*>(smem);   // [kFrag / 2] pre-split
+  float* w_s = smem + 2 * kFrag;                    // [kOwnW]
+  float* warps = w_s + kOwnW;
+  double* red = reinterpret_cast<double*>(warps + kWarps * L::kWarpFloats);
+  float* ctrl = reinterpret_cast<float*>(red + kWarps);   // [8]
 
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2;
   const int n_state = a.n_rows * kCh;
   const int n_tiles = (a.n_rows + kRows - 1) / kRows;
-  float* sbuf = a.state;                      // [2][n_state]
+  const int stride = gridDim.x * kWarps;              // tiles a round
+  const int first = warp * gridDim.x + blockIdx.x;    // this warp's first
+  float* sbuf = a.state;                              // [2][n_state]
   float* kbuf = a.state + 2 * static_cast<size_t>(n_state);
 
-  F::load(a.weights, w_s);
-
-  // a tile's projections, zero beyond the last row: warp w loads rows w,
-  // w + 8, ... as 8-byte words (a row is 131 of them)
-  auto load_proj = [&](int row0, int rows) {
-    const int lane = tid & 31;
-    for (int r = tid >> 5; r < kRows; r += kThreads / 32) {
-      const float2* src = reinterpret_cast<const float2*>(
-          a.proj + static_cast<size_t>((row0 + r) / a.rep) * kProj);
-      float2* dst = reinterpret_cast<float2*>(proj_s + r * kLdP);
-      for (int col = lane; col < kProj / 2; col += 32)
-        dst[col] = r < rows ? __ldg(src + col) : make_float2(0.f, 0.f);
+  Tile tl;
+  {
+    float* p = warps + warp * L::kWarpFloats;
+    tl.a = p;
+    tl.proj = p + 16 * kLdA;
+    tl.ks = tl.proj + L::kProjFloats;
+    tl.ys = tl.ks + 7 * kTile;
+    tl.xin = tl.ys + kTile;
+  }
+  // W2's fragments split once into {hi0, hi1, lo0, lo1}, and the small
+  // weights
+  {
+    const float2* src = reinterpret_cast<const float2*>(a.weights + kFragOff);
+    for (int e = tid; e < kFrag / 2; e += kThreads) {
+      const tf32::BPair b = tf32::b_pair(__ldg(src + e));
+      w2_s[e] = make_float4(b.h0, b.h1, b.l0, b.l1);
     }
+    load_small(a.weights, w_s, tid, kThreads);
+    for (int e = lane; e < 16 * kLdA; e += 32) tl.a[e] = 0.f;
+  }
+  __syncthreads();
+
+  // the warp's tile: its condition rows' projections, once while the warp
+  // owns one tile
+  int loaded = -1, n_cond = 0;
+  float table_t = 0.f;
+  bool table_ok = false;
+  auto take_tile = [&](int tile, int rows) {
+    const int row0 = tile * kRows;
+    const int cr0 = row0 / a.rep;
+    if (tile != loaded) {
+      n_cond = (row0 + rows - 1) / a.rep - cr0 + 1;
+      for (int e = lane; e < n_cond * (kProj / 2); e += 32) {
+        const int cl = e / (kProj / 2), c2 = 2 * (e % (kProj / 2));
+        cp8(tl.proj + cl * kProj + c2,
+            a.proj + static_cast<size_t>(cr0 + cl) * kProj + c2);
+      }
+      cp_wait();
+      loaded = tile;
+      table_ok = false;
+    }
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const int r = g + 8 * h;
+      tl.cl[h] = r < rows ? (row0 + r) / a.rep - cr0 : 0;
+    }
+    __syncwarp();
+  };
+  // the field at a stage time (the table made again only at a new time)
+  auto eval = [&](float ts, const float* xin, float* kout) {
+    if (kTable && !(table_ok && ts == table_t)) {
+      gate_table<L::kConds, L::kTableOff>(w_s, tl, ts, n_cond, lane);
+      table_t = ts;
+      table_ok = true;
+      __syncwarp();
+    }
+    field<kTrace, kHalves, kTable>(w_s, w2_s, tl, ts, xin, kout);
+    __syncwarp();
   };
 
   const float t0 = __ldg(a.t01), t1 = __ldg(a.t01 + 1);
   const float span = fabsf(t1 - t0);
   const float direction = t1 > t0 ? 1.f : (t1 < t0 ? -1.f : 0.f);
 
-  // k1 = f(t0, y0) for this block's tiles; state copy 0
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  // k1 = f(t0, y0) for this warp's tiles; state copy 0
+  for (int tile = first; tile < n_tiles; tile += stride) {
     const int row0 = tile * kRows;
     const int rows = min(kRows, a.n_rows - row0);
-    __syncthreads();  // the previous tile is done with the shared tiles
-    load_proj(row0, rows);
-    if (tid < kTile) {
-      const int r = tid / kCh, c = tid % kCh;
+    take_tile(tile, rows);
+    for (int v = lane; v < kTile; v += 32) {
+      const int r = v / kCh, c = v % kCh;
       const size_t row = static_cast<size_t>(row0) + r;
-      xin[tid] = r >= rows ? 0.f
-                 : c < 3   ? __ldg(a.y0 + row * 3 + c)
-                           : __ldg(a.logp0 + row);
+      tl.xin[v] = r >= rows ? 0.f
+                  : c < 3   ? __ldg(a.y0 + row * 3 + c)
+                            : __ldg(a.logp0 + row);
     }
-    __syncthreads();
-    F::eval(w_s, proj_s, t0, xin, scratch, ks);
-    if (tid < rows * kCh) {
-      const size_t g = static_cast<size_t>(row0) * kCh + tid;
-      sbuf[g] = xin[tid];
-      kbuf[g] = ks[tid];
+    __syncwarp();
+    eval(t0, tl.xin, tl.ks);
+    for (int v = lane; v < rows * kCh; v += 32) {
+      const size_t at = static_cast<size_t>(row0) * kCh + v;
+      sbuf[at] = tl.xin[v];
+      kbuf[at] = tl.ks[v];
     }
+    __syncwarp();
   }
 
   float t = t0, h = direction * span / 16.f;
@@ -360,55 +478,64 @@ solve_kernel(SolveArgs a) {
     const float* k_cur = kbuf + static_cast<size_t>(cur) * n_state;
     float* s_new = sbuf + static_cast<size_t>(1 - cur) * n_state;
     float* k_new = kbuf + static_cast<size_t>(1 - cur) * n_state;
-    double partial = 0.0;  // thread 0's: this block's tiles in index order
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    double partial = 0.0;  // lane 0's: this warp's tiles in index order
+    for (int tile = first; tile < n_tiles; tile += stride) {
       const int row0 = tile * kRows;
       const int rows = min(kRows, a.n_rows - row0);
-      __syncthreads();  // the previous tile is done with the shared tiles
-      load_proj(row0, rows);
-      if (tid < kTile) {
-        const size_t g = static_cast<size_t>(row0) * kCh + tid;
-        const bool valid = tid < rows * kCh;
-        ys[tid] = valid ? __ldcg(s_cur + g) : 0.f;
-        ks[tid] = valid ? __ldcg(k_cur + g) : 0.f;
+      take_tile(tile, rows);
+      for (int v = lane; v < kTile; v += 32) {
+        const size_t at = static_cast<size_t>(row0) * kCh + v;
+        const bool valid = v < rows * kCh;
+        tl.ys[v] = valid ? __ldcg(s_cur + at) : 0.f;
+        tl.ks[v] = valid ? __ldcg(k_cur + at) : 0.f;
       }
-      __syncthreads();
+      __syncwarp();
       // stages 2..7 (k1 is carried: first same as last)
 #pragma unroll 1
       for (int i = 1; i < 7; ++i) {
-        if (tid < kTile) {
-          float acc = ks[tid] * (kA[i][0] * h_c);
+        for (int v = lane; v < kTile; v += 32) {
+          float acc = tl.ks[v] * (kA[i][0] * h_c);
           for (int j = 1; j < i; ++j)
-            acc += ks[j * kTile + tid] * (kA[i][j] * h_c);
-          xin[tid] = ys[tid] + acc;
+            acc += tl.ks[j * kTile + v] * (kA[i][j] * h_c);
+          tl.xin[v] = tl.ys[v] + acc;
         }
-        __syncthreads();
-        F::eval(w_s, proj_s, t + kC[i] * h_c, xin, scratch, ks + i * kTile);
+        __syncwarp();
+        eval(t + kC[i] * h_c, tl.xin, tl.ks + i * kTile);
       }
       float sq = 0.f;
-      if (tid < rows * kCh) {
-        float s5 = ks[tid] * kB5[0];
-        float se = ks[tid] * err_weight(0);
+      for (int v = lane; v < rows * kCh; v += 32) {
+        float s5 = tl.ks[v] * kB5[0];
+        float se = tl.ks[v] * err_weight(0);
 #pragma unroll
         for (int j = 1; j < 7; ++j) {
-          const float kj = ks[j * kTile + tid];
+          const float kj = tl.ks[j * kTile + v];
           s5 += kB5[j] * kj;
           se += err_weight(j) * kj;
         }
-        const float y = ys[tid];
+        const float y = tl.ys[v];
         const float y5 = y + h_c * s5;
         const float r = (h_c * se) /
                         (a.atol + a.rtol * fmaxf(fabsf(y), fabsf(y5)));
-        sq = r * r;
-        const size_t g = static_cast<size_t>(row0) * kCh + tid;
-        s_new[g] = y5;
-        k_new[g] = ks[6 * kTile + tid];
+        sq += r * r;
+        const size_t at = static_cast<size_t>(row0) * kCh + v;
+        s_new[at] = y5;
+        k_new[at] = tl.ks[6 * kTile + v];
       }
-      const float tile_sum = block_sum(sq, red);
-      if (tid == 0) partial += static_cast<double>(tile_sum);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sq += __shfl_down_sync(0xffffffffu, sq, off);
+      if (lane == 0) partial += static_cast<double>(sq);
+      __syncwarp();
     }
+    // the block's warps in index order, then the blocks
+    if (lane == 0) red[warp] = partial;
+    __syncthreads();
     double* part = a.partials + static_cast<size_t>(n & 1) * gridDim.x;
-    if (tid == 0) part[blockIdx.x] = partial;
+    if (tid == 0) {
+      double block = 0.0;
+      for (int i = 0; i < kWarps; ++i) block += red[i];
+      part[blockIdx.x] = block;
+    }
     __threadfence();
     grid.sync();
     // every block sums the partials in the same fixed order and decides
@@ -433,17 +560,17 @@ solve_kernel(SolveArgs a) {
   }
 
   const float* s_fin = sbuf + static_cast<size_t>(cur) * n_state;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (int tile = first; tile < n_tiles; tile += stride) {
     const int row0 = tile * kRows;
     const int rows = min(kRows, a.n_rows - row0);
-    if (tid < rows * kCh) {
-      const size_t row = static_cast<size_t>(row0) + tid / kCh;
-      const int c = tid % kCh;
-      const float v = __ldcg(s_fin + row * kCh + c);
+    for (int v = lane; v < rows * kCh; v += 32) {
+      const size_t row = static_cast<size_t>(row0) + v / kCh;
+      const int c = v % kCh;
+      const float val = __ldcg(s_fin + row * kCh + c);
       if (c < 3)
-        a.out_y[row * 3 + c] = v;
+        a.out_y[row * 3 + c] = val;
       else
-        a.out_logp[row] = v;
+        a.out_logp[row] = val;
     }
   }
   if (blockIdx.x == 0 && tid == 0) {
@@ -452,61 +579,99 @@ solve_kernel(SolveArgs a) {
   }
 }
 
-// Launch `solve_kernel<F>` on the current card. The blocks that fit a card
-// at once are found (and the kernel's shared-memory limit set) at the
-// first launch on that card.
-template <class F>
-cudaError_t launch(const SolveArgs& args, int max_grid, cudaStream_t stream) {
-  if (args.n_rows < 1 || args.rep < 1 || args.n_rows % args.rep != 0 ||
-      max_grid < 1)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats<F>();
+// The blocks of a `solve_kernel` that fit the current card at once (the
+// kernel's shared-memory limit set), found at the first call on each card;
+// 0 and an error if the card cannot take it.
+template <bool kTrace, int kHalves, bool kTable>
+cudaError_t resident_blocks(int* blocks) {
+  using L = Layout<kTrace, kHalves, kTable>;
   static std::atomic<int> resident[kMaxDevices];
   cudaError_t err;
   int dev = 0;
+  *blocks = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = resident[dev].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int sms = 0, coop = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             solve_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             static_cast<int>(smem))) != cudaSuccess)
-      return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return err;
-    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                      dev)) != cudaSuccess)
-      return err;
-    if (!coop) return cudaErrorNotSupported;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, solve_kernel<F>, kThreads, smem)) != cudaSuccess)
-      return err;
-    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    blocks = sms * per_sm;
-    resident[dev].store(blocks, std::memory_order_relaxed);
-  }
-  const int tiles = (args.n_rows + F::kRows - 1) / F::kRows;
+  *blocks = resident[dev].load(std::memory_order_relaxed);
+  if (*blocks > 0) return cudaSuccess;
+  const auto kernel = solve_kernel<kTrace, kHalves, kTable>;
+  const int smem = static_cast<int>(sizeof(float) * L::kFloats);
+  int sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *blocks = sms * per_sm;
+  resident[dev].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+template <bool kTrace, int kHalves, bool kTable>
+cudaError_t launch_tiles(const SolveArgs& args, int max_grid,
+                         cudaStream_t stream) {
+  using L = Layout<kTrace, kHalves, kTable>;
+  int blocks = 0;
+  cudaError_t err = resident_blocks<kTrace, kHalves, kTable>(&blocks);
+  if (err != cudaSuccess) return err;
+  const int tiles = (args.n_rows + L::kRows - 1) / L::kRows;
   int grid = blocks;
   if (grid > tiles) grid = tiles;
   if (grid > max_grid) grid = max_grid;
   SolveArgs copy = args;
   void* params[] = {&copy};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(solve_kernel<F>), dim3(grid), dim3(kThreads),
-      params, smem, stream);
+      reinterpret_cast<void*>(solve_kernel<kTrace, kHalves, kTable>),
+      dim3(grid), dim3(kThreads), params, sizeof(float) * L::kFloats,
+      stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool kTrace, bool kTable>
+cudaError_t launch_gates(const SolveArgs& args, int max_grid,
+                         cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = resident_blocks<kTrace, 1, kTable>(&blocks);
+  if (err != cudaSuccess) return err;
+  const long long warps =
+      static_cast<long long>(blocks < max_grid ? blocks : max_grid) * kWarps;
+  if ((args.n_rows + 7) / 8 <= warps)
+    return launch_tiles<kTrace, 1, kTable>(args, max_grid, stream);
+  return launch_tiles<kTrace, 2, kTable>(args, max_grid, stream);
+}
+
+// Launch a `solve_kernel` on the current card: tiles of 8 rows where every
+// one of them has a warp of its own at once, else of 16; the gate table
+// where condition rows serve several rows.
+template <bool kTrace>
+cudaError_t launch(const SolveArgs& args, int max_grid, cudaStream_t stream) {
+  if (args.n_rows < 1 || args.rep < 1 || args.n_rows % args.rep != 0 ||
+      max_grid < 1 ||
+      reinterpret_cast<uintptr_t>(args.weights + kFragOff) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (args.rep > 1)
+    return launch_gates<kTrace, true>(args, max_grid, stream);
+  return launch_gates<kTrace, false>(args, max_grid, stream);
 }
 
 }  // namespace
 }  // namespace puflow
 
 // y0 [n_rows, 3] -> out [n_rows, 3] = y(t1), with t01 = {t0, t1} on the
-// device. proj is [n_rows / rep, 262]; state is scratch of 12 n_rows
-// floats, partials scratch of 2 max_grid doubles; stats gets the steps
-// attempted and accepted. n_rows > 0 and rep divides n_rows.
+// device. proj is [n_rows / rep, 262]; weights are `_field_weights`' (16-
+// byte aligned); state is scratch of 12 n_rows floats, partials scratch of
+// 2 max_grid doubles; stats gets the steps attempted and accepted. n_rows
+// > 0 and rep divides n_rows.
 extern "C" int puflow_cnf_solve(const void* y0, const void* proj,
                                 const void* weights, const void* t01,
                                 int n_rows, int rep, float rtol, float atol,
@@ -528,14 +693,14 @@ extern "C" int puflow_cnf_solve(const void* y0, const void* proj,
   args.max_steps = max_steps;
   args.rtol = rtol;
   args.atol = atol;
-  return launch<PlainField>(args, max_grid,
-                            static_cast<cudaStream_t>(stream));
+  return launch<false>(args, max_grid, static_cast<cudaStream_t>(stream));
 }
 
 // y0 [n_rows, 3], logp0 [n_rows] -> out_y, out_logp at t1, with t01 = {t0,
-// t1} on the device. proj is [n_rows / rep, 262]; state is scratch of
-// 16 n_rows floats, partials scratch of 2 max_grid doubles; stats gets the
-// steps attempted and accepted. n_rows > 0 and rep divides n_rows.
+// t1} on the device. proj is [n_rows / rep, 262]; weights as
+// `puflow_cnf_solve`'s; state is scratch of 16 n_rows floats, partials
+// scratch of 2 max_grid doubles; stats gets the steps attempted and
+// accepted. n_rows > 0 and rep divides n_rows.
 extern "C" int puflow_cnf_solve_logp(
     const void* y0, const void* logp0, const void* proj, const void* weights,
     const void* t01, int n_rows, int rep, float rtol, float atol,
@@ -558,6 +723,5 @@ extern "C" int puflow_cnf_solve_logp(
   args.max_steps = max_steps;
   args.rtol = rtol;
   args.atol = atol;
-  return launch<LogpField>(args, max_grid,
-                           static_cast<cudaStream_t>(stream));
+  return launch<true>(args, max_grid, static_cast<cudaStream_t>(stream));
 }

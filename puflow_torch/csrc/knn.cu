@@ -55,6 +55,10 @@
 //   chains (a warp of 32 queries shares them).
 // - Output. A block stages its rows in shared memory, then writes each
 //   row (k int64, one per query) with 16-byte stores.
+// - Patches over shared memory (n > 10,432: the patch and its sort words
+//   no longer fit a block) take `knn_stream_kernel` (`puflow_knn_self_stream`):
+//   the same keys, lists and merge, the candidates staged from device
+//   memory in chunks and walked in index order.
 // The TPU kernel's transposed layout and k min-sweeps were for the VPU's
 // sublane reductions and are not carried over.
 
@@ -327,6 +331,28 @@ __device__ __forceinline__ void consider(const float4* pts, float4 q,
   insert(list, key);
 }
 
+// Merges the sorted lists of a query's L lanes (xor partners) into each:
+// the KL smallest of two ascending lists form a bitonic sequence,
+// min(a[j], b[KL - 1 - j]).
+template <int KL, int L>
+__device__ __forceinline__ void merge_lanes(uint64_t (&list)[KL]) {
+#pragma unroll
+  for (int m = 1; m < L; m <<= 1) {
+    if (KL == 1) {
+      list[0] = kmin(list[0], __shfl_xor_sync(0xffffffffu, list[0], m));
+    } else {
+#pragma unroll
+      for (int j = 0; j < KL / 2; ++j) {
+        const uint64_t a = __shfl_xor_sync(0xffffffffu, list[KL - 1 - j], m);
+        const uint64_t b = __shfl_xor_sync(0xffffffffu, list[j], m);
+        list[j] = kmin(list[j], a);
+        list[KL - 1 - j] = kmin(list[KL - 1 - j], b);
+      }
+      bitonic_sort<KL, KL>(list);
+    }
+  }
+}
+
 // grid: ceil(n / (kThreads / L)) blocks a patch, patch-major; block:
 // kThreads threads, lane group g of L lanes holds query g.
 template <int KL, int L>
@@ -410,24 +436,7 @@ knn_self_kernel(const float* __restrict__ xyz, int n, int k,
         consider<KL, true>(pts, q, list, pos[u], full * kD + r < n);
       }
     }
-    // merge the L lanes' lists: the KL smallest of two ascending lists
-    // form a bitonic sequence, min(a[j], b[KL - 1 - j])
-#pragma unroll
-    for (int m = 1; m < L; m <<= 1) {
-      if (KL == 1) {
-        list[0] = kmin(list[0], __shfl_xor_sync(0xffffffffu, list[0], m));
-      } else {
-#pragma unroll
-        for (int j = 0; j < KL / 2; ++j) {
-          const uint64_t a =
-              __shfl_xor_sync(0xffffffffu, list[KL - 1 - j], m);
-          const uint64_t b = __shfl_xor_sync(0xffffffffu, list[j], m);
-          list[j] = kmin(list[j], a);
-          list[KL - 1 - j] = kmin(list[KL - 1 - j], b);
-        }
-        bitonic_sort<KL, KL>(list);
-      }
-    }
+    merge_lanes<KL, L>(list);
   }
   if (p < n) {                              // rows reuse the words
 #pragma unroll
@@ -456,6 +465,59 @@ knn_self_kernel(const float* __restrict__ xyz, int n, int k,
   }
 }
 
+// Patches larger than shared memory holds: the same keys, lists and lane
+// merge, the candidates streamed from device memory through shared memory
+// in chunks of kChunk points, each walked in index order (no Morton order:
+// a block cannot sort a patch it cannot hold). Lane s of a query's L takes
+// every L-th candidate of a chunk. grid and block as `knn_self_kernel`'s.
+constexpr int kChunk = 2048;        // 32 KB of float4
+
+template <int KL, int L>
+__global__ void __launch_bounds__(kThreads)
+knn_stream_kernel(const float* __restrict__ xyz, int n, int k,
+                  int64_t* __restrict__ out) {
+  constexpr int kQ = kThreads / L;          // queries a block
+  constexpr int kWarpQ = 32 / L;            // queries a warp
+  __shared__ float4 pts[kChunk];
+  const int blocks = (n + kQ - 1) / kQ;
+  const int patch = blockIdx.x / blocks;
+  const int q0 = (blockIdx.x - patch * blocks) * kQ;
+  const float* src = xyz + static_cast<size_t>(patch) * n * 3;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = tid / L, s = lane % L, p = q0 + g;
+  const bool active = q0 + (tid >> 5) * kWarpQ < n;   // warp-uniform
+  const float* qp = src + 3 * static_cast<size_t>(min(p, n - 1));
+  const float4 q = make_float4(qp[0], qp[1], qp[2], 0.f);
+  uint64_t list[KL];
+#pragma unroll
+  for (int j = 0; j < KL; ++j) list[j] = kNone;
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    const int m = min(kChunk, n - c0);
+    __syncthreads();                        // the last chunk is walked
+    for (int i = tid; i < m; i += kThreads) {
+      const float* v = src + 3 * static_cast<size_t>(c0 + i);
+      pts[i] = make_float4(v[0], v[1], v[2], __int_as_float(c0 + i));
+    }
+    __syncthreads();
+    if (active) {
+      const int whole = m - m % L;          // steps with every lane valid
+      int j = 0;
+#pragma unroll 4
+      for (; j < whole; j += L) consider<KL, false>(pts, q, list, j + s, true);
+      if (whole < m) consider<KL, true>(pts, q, list, j + s, j + s < m);
+    }
+  }
+  if (active) merge_lanes<KL, L>(list);
+  if (p < n) {
+    int64_t* row = out + (static_cast<size_t>(patch) * n + p) * k;
+#pragma unroll
+    for (int j = 0; j < KL; ++j) {
+      if (j % L == s && j < k)
+        row[j] = static_cast<int64_t>(static_cast<uint32_t>(list[j]));
+    }
+  }
+}
+
 // Shared memory of a launch: the patch as float4, then the larger of its
 // sort words (a power of two of them) and the block's output rows.
 size_t smem_bytes(int n, int k, int lanes) {
@@ -464,33 +526,55 @@ size_t smem_bytes(int n, int k, int lanes) {
   return 16 * static_cast<size_t>(n) + (words > rows ? words : rows);
 }
 
-template <int KL, int L>
+// kStream: `knn_stream_kernel`, else `knn_self_kernel`.
+template <bool kStream, int KL, int L>
 cudaError_t launch(const float* xyz, int batch, int n, int k, int64_t* out,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, k, L);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        knn_self_kernel<KL, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   constexpr int kQ = kThreads / L;
   const long long grid = static_cast<long long>(batch) * ((n + kQ - 1) / kQ);
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  knn_self_kernel<KL, L><<<static_cast<unsigned>(grid), kThreads, smem,
-                           stream>>>(xyz, n, k, out);
+  if constexpr (kStream) {
+    knn_stream_kernel<KL, L><<<static_cast<unsigned>(grid), kThreads, 0,
+                               stream>>>(xyz, n, k, out);
+  } else {
+    const size_t smem = smem_bytes(n, k, L);
+    if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          knn_self_kernel<KL, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    knn_self_kernel<KL, L><<<static_cast<unsigned>(grid), kThreads, smem,
+                             stream>>>(xyz, n, k, out);
+  }
   return cudaGetLastError();
 }
 
-template <int L>
+template <bool kStream, int L>
 cudaError_t launch_lanes(const float* xyz, int batch, int n, int k,
                          int64_t* out, cudaStream_t stream) {
-  if (k <= 1) return launch<1, L>(xyz, batch, n, k, out, stream);
-  if (k <= 2) return launch<2, L>(xyz, batch, n, k, out, stream);
-  if (k <= 4) return launch<4, L>(xyz, batch, n, k, out, stream);
-  if (k <= 8) return launch<8, L>(xyz, batch, n, k, out, stream);
-  return launch<16, L>(xyz, batch, n, k, out, stream);
+  if (k <= 1) return launch<kStream, 1, L>(xyz, batch, n, k, out, stream);
+  if (k <= 2) return launch<kStream, 2, L>(xyz, batch, n, k, out, stream);
+  if (k <= 4) return launch<kStream, 4, L>(xyz, batch, n, k, out, stream);
+  if (k <= 8) return launch<kStream, 8, L>(xyz, batch, n, k, out, stream);
+  return launch<kStream, 16, L>(xyz, batch, n, k, out, stream);
+}
+
+// 4 lanes a query below 65,536 queries (256 patches of 256), where one
+// lane a query leaves most of the card's warp slots empty.
+template <bool kStream>
+int launch_queries(const void* xyz, int batch, int n, int k, void* out,
+                   void* stream) {
+  if (k < 1 || k > kMaxK || k > n) return cudaErrorInvalidValue;
+  if (batch == 0) return cudaSuccess;
+  const long long queries = static_cast<long long>(batch) * n;
+  const float* x = static_cast<const float*>(xyz);
+  int64_t* o = static_cast<int64_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (queries >= (1 << 16))
+    return launch_lanes<kStream, 1>(x, batch, n, k, o, s);
+  return launch_lanes<kStream, 4>(x, batch, n, k, o, s);
 }
 
 }  // namespace
@@ -499,15 +583,12 @@ cudaError_t launch_lanes(const float* xyz, int batch, int n, int k,
 // 16 n + max(4 pow2(n), 32768) <= 232448 bytes (n <= 10432).
 extern "C" int puflow_knn_self(const void* xyz, int batch, int n, int k,
                                void* out, void* stream) {
-  if (k < 1 || k > kMaxK || k > n) return cudaErrorInvalidValue;
-  if (batch == 0) return cudaSuccess;
-  // 4 lanes a query below 65,536 queries (256 patches of 256), where one
-  // lane a query leaves most of the card's warp slots empty
-  const long long queries = static_cast<long long>(batch) * n;
-  const int lanes = queries >= (1 << 16) ? 1 : 4;
-  const float* x = static_cast<const float*>(xyz);
-  int64_t* o = static_cast<int64_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lanes == 1) return launch_lanes<1>(x, batch, n, k, o, s);
-  return launch_lanes<4>(x, batch, n, k, o, s);
+  return launch_queries<false>(xyz, batch, n, k, out, stream);
+}
+
+// The same for patches of any n (the candidates streamed from device
+// memory; the wrapper takes it above `puflow_knn_self`'s limit).
+extern "C" int puflow_knn_self_stream(const void* xyz, int batch, int n,
+                                      int k, void* out, void* stream) {
+  return launch_queries<true>(xyz, batch, n, k, out, stream);
 }

@@ -96,11 +96,11 @@ def cnf_solve_plain(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
 
 
 def _pack(layers):
-    """What a launch needs of a net, in `csrc/cnf_solve.cu`'s order ->
-    (weights, proj_w, proj_b): the layers' own weights (per layer W [in,
-    out], b, gate_t, bias_t) as one vector, and the matrix and bias that
-    project a condition row to its 262 values gate_c | bias_c of the three
-    layers (gate1 | bias1 | gate2 | bias2 | gate3 | bias3)."""
+    """A net in `csrc/cnf_field.cuh`'s order -> (weights, proj_w, proj_b):
+    the layers' own weights (per layer W [in, out], b, gate_t, bias_t) as
+    one vector, and the matrix and bias that project a condition row to
+    its 262 values gate_c | bias_c of the three layers (gate1 | bias1 |
+    gate2 | bias2 | gate3 | bias3)."""
     own, w, b = [], [], []
     for p in layers:
         gate, bias = p["hyper_gate"], p["hyper_bias"]
@@ -113,13 +113,32 @@ def _pack(layers):
                 torch.cat(w, dim=1).contiguous(), torch.cat(b))
 
 
+def _field_weights(layers):
+    """What every CNF kernel reads of a net -> (weights, proj_w, proj_b):
+    `_pack`'s, the weights followed by zeros to a multiple of 4 floats and
+    the B fragments (`ops/encoder.py:fragment_order`, f32 pairs) of W2 and
+    of W2^T, the operands of the kernels' 64 x 64 products."""
+    own, proj_w, proj_b = _pack(layers)
+    w2 = layers[1]["layer"]["w"].to(torch.float32)
+    with torch.no_grad():
+        weights = torch.cat([own, own.new_zeros(-own.numel() % 4),
+                             b_fragments(w2, False),
+                             b_fragments(w2.t().contiguous(), False)])
+    return weights.contiguous(), proj_w, proj_b
+
+
+def _net_tensors(layers) -> list:
+    return [t for p in layers
+            for t in (p["layer"]["w"], p["layer"]["b"],
+                      p["hyper_gate"]["w"], p["hyper_gate"]["b"],
+                      p["hyper_bias"]["w"])]
+
+
 def _packed(layers):
-    """`_pack` once a net (a sample launches 12 solves on 6 nets)."""
-    tensors = [t for p in layers
-               for t in (p["layer"]["w"], p["layer"]["b"],
-                         p["hyper_gate"]["w"], p["hyper_gate"]["b"],
-                         p["hyper_bias"]["w"])]
-    return _build.packed(tensors, lambda: _pack(layers))
+    """`_field_weights` once a net, for all three kernels (a sample
+    launches 12 solves on 6 nets)."""
+    return _build.packed(_net_tensors(layers),
+                         lambda: _field_weights(layers))
 
 
 def _t01(t0, t1, dev) -> torch.Tensor:
@@ -373,31 +392,29 @@ _ROW_FLOATS = 32 + 2 * _LD_PROJ
 _ADJ_CDIM = 16                       # the kernel's condition widths' multiple
 
 
-def _adjoint_pack(layers, cpad: int):
-    """What `csrc/cnf_adjoint.cu` reads of a net -> (weights, wct): the
-    layers' own weights as `_pack` lays them out, zeros to a multiple of 4
-    floats, then the B fragments (`ops/encoder.py:fragment_order`, f32
-    pairs) of W2 and of W2^T; and the projection matrix transposed,
-    zero-padded to [264, cpad], as B fragments."""
-    own, proj_w, _ = _pack(layers)
-    w2 = layers[1]["layer"]["w"].to(torch.float32)
+def _wct(proj_w: torch.Tensor, cpad: int) -> torch.Tensor:
+    """The projection matrix transposed, zero-padded to [264, cpad], as B
+    fragments (f32 pairs)."""
     with torch.no_grad():
-        weights = torch.cat([own, own.new_zeros(-own.numel() % 4),
-                             b_fragments(w2, False),
-                             b_fragments(w2.t().contiguous(), False)])
         wct = F.pad(proj_w.t(), (0, cpad - proj_w.shape[0],
                                  0, _LD_PROJ - proj_w.shape[1]))
-        return weights.contiguous(), b_fragments(wct, False).contiguous()
+        return b_fragments(wct, False).contiguous()
+
+
+def _adjoint_pack(layers, cpad: int):
+    """What `csrc/cnf_adjoint.cu` reads of a net -> (weights, wct):
+    `_field_weights`' weights, and `_wct` of its projection matrix."""
+    weights, proj_w, _ = _field_weights(layers)
+    return weights, _wct(proj_w, cpad)
 
 
 def _adjoint_packed(layers, cpad: int):
-    """`_adjoint_pack` once a net and condition width."""
-    tensors = [t for p in layers
-               for t in (p["layer"]["w"], p["layer"]["b"],
-                         p["hyper_gate"]["w"], p["hyper_gate"]["b"],
-                         p["hyper_bias"]["w"])]
-    return _build.packed(tensors, lambda: _adjoint_pack(layers, cpad),
-                         f"cnf_adjoint_{cpad}")
+    """`_adjoint_pack` once a net and condition width: the weights are the
+    solves' pack (`_packed`)."""
+    weights, proj_w, _ = _packed(layers)
+    return weights, _build.packed(_net_tensors(layers),
+                                  lambda: _wct(proj_w, cpad),
+                                  f"cnf_adjoint_{cpad}")
 
 
 def _unpack_grads(layers, g: torch.Tensor, cdim: int):

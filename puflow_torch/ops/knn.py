@@ -10,7 +10,8 @@ package; every consumer is permutation-equivariant over neighbour slots.
 `ops/pallas/knn_pallas.py:knn_self_pallas` (here `csrc/knn.cu`): each
 point's neighbours within its own patch, from delta-form distances with
 first-occurrence ties; the kernel and `knn_self_plain` return the same
-indices.
+indices. Patches over `KNN_MAX_N` points take `knn_self_stream`, a second
+kernel of `csrc/knn.cu` that streams the candidates from device memory.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ def knn_smem_bytes(n: int) -> int:
     of its Morton sort words (4 bytes each, a power of two of them) and a
     block's output rows (at most 256 rows of 16 int64)."""
     return 16 * n + max(4 * (1 << max(n - 1, 0).bit_length()), 8 * 256 * 16)
+
+
+def knn_self_in_smem(n: int) -> bool:
+    """Whether `knn_self` takes patches of ``n`` points with its shared-memory
+    kernel (n <= `KNN_MAX_N`), else with the streaming one
+    (`knn_self_stream`)."""
+    return knn_smem_bytes(n) <= _SMEM_BYTES
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -110,28 +118,50 @@ def knn_self_plain(xyz: torch.Tensor, k: int) -> torch.Tensor:
     return idx[..., :k].contiguous()
 
 
-def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
-    """Self k-NN ``[B, n, 3] -> [B, n, k]`` int64: the CUDA kernel for a
-    CUDA tensor, `knn_self_plain` for a CPU tensor."""
-    if xyz.device.type == "cpu":
-        return knn_self_plain(xyz, k)
+def _check_self(name: str, xyz: torch.Tensor, k: int) -> None:
     if xyz.device.type != "cuda":
-        raise ValueError(f"knn_self: no kernel for {xyz.device}")
-    check_patches("knn_self", xyz)
+        raise ValueError(f"{name}: no kernel for {xyz.device}")
+    check_patches(name, xyz)
+    if not 1 <= k <= min(KNN_MAX_K, xyz.shape[1]):
+        raise ValueError(f"{name}: k={k} outside [1, min({KNN_MAX_K}, n)]")
+
+
+def _launch_self(entry: str, xyz: torch.Tensor, k: int) -> torch.Tensor:
     B, n, _ = xyz.shape
-    if not 1 <= k <= min(KNN_MAX_K, n):
-        raise ValueError(f"knn_self: k={k} outside [1, min({KNN_MAX_K}, n)]")
-    if knn_smem_bytes(n) > _SMEM_BYTES:
-        raise ValueError(f"knn_self: a patch of {n} points does not fit "
-                         f"shared memory (at most {KNN_MAX_N})")
     out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
-        code = lib.puflow_knn_self(xyz.data_ptr(), B, n, k, out.data_ptr(),
+        code = getattr(lib, entry)(xyz.data_ptr(), B, n, k, out.data_ptr(),
                                    _build.stream_ptr(xyz.device))
-    _build.check(code, "puflow_knn_self")
+    _build.check(code, entry)
+    return out
+
+
+def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """Self k-NN ``[B, n, 3] -> [B, n, k]`` int64: for a CUDA tensor the
+    shared-memory kernel where it holds the patch (`knn_self_in_smem`), else
+    `knn_self_stream`; `knn_self_plain` for a CPU tensor."""
+    if xyz.device.type == "cpu":
+        return knn_self_plain(xyz, k)
+    _check_self("knn_self", xyz, k)
+    if not knn_self_in_smem(xyz.shape[1]):
+        return knn_self_stream(xyz, k)
+    out = _launch_self("puflow_knn_self", xyz, k)
     knn_self.launches += 1
     return out
 
 
+def knn_self_stream(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """`knn_self` for patches of any size: the kernel that streams the
+    candidates from device memory (`csrc/knn.cu:knn_stream_kernel`) for a
+    CUDA tensor, `knn_self_plain` for a CPU tensor; the same indices."""
+    if xyz.device.type == "cpu":
+        return knn_self_plain(xyz, k)
+    _check_self("knn_self_stream", xyz, k)
+    out = _launch_self("puflow_knn_self_stream", xyz, k)
+    knn_self_stream.launches += 1
+    return out
+
+
 knn_self.launches = 0
+knn_self_stream.launches = 0

@@ -112,9 +112,10 @@ VARIANTS = {
 }
 
 
-def prepare(name: str, src: Path, edits) -> Path:
-    """A copy of ``src``'s package and chip_smoke.py with ``edits``."""
-    d = OUT / name
+def prepare(name: str, src: Path, edits, out: Path = OUT) -> Path:
+    """A copy of ``src``'s package and chip_smoke.py with ``edits``, in
+    ``out``."""
+    d = out / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(src / "puflow_torch", d / "puflow_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))

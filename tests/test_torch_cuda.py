@@ -4,7 +4,9 @@ Marked ``cuda``: they skip on a host without a CUDA card. Run them on the
 card with ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
+import ctypes
 import functools
+import subprocess
 
 import numpy as np
 import pytest
@@ -15,14 +17,15 @@ from puflow_torch import checkpoint
 from puflow_torch.models import continuous, discrete
 from puflow_torch.models.encoder import interpolation_apply
 from puflow_torch.models.fold_bn import fold_bn_inference
-from puflow_torch.ops import cnf, emd, encoder, flow, interp
+from puflow_torch.ops import _build, cnf, emd, encoder, flow, interp
 from puflow_torch.ops import fps as fps_ops
 from puflow_torch.ops import knn as knn_ops
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_plain,
                                   farthest_point_sample_seeded,
                                   farthest_point_sample_seeded_plain)
-from puflow_torch.ops.knn import knn_indices, knn_self, knn_self_plain
+from puflow_torch.ops.knn import (knn_indices, knn_self, knn_self_plain,
+                                  knn_self_stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -227,13 +230,42 @@ def test_knn_self_kernel_cases(card, b, n, k, kind):
 
 
 def test_knn_self_kernel_largest_patch(card):
-    n = knn_ops.KNN_MAX_N
-    x = torch.from_numpy(np.random.RandomState(3).rand(1, n, 3).astype(
-        np.float32)).to(card)
-    np.testing.assert_array_equal(knn_self(x, 16).cpu().numpy(),
-                                  knn_self_plain(x, 16).cpu().numpy())
-    with pytest.raises(ValueError, match="shared memory"):
-        knn_self(torch.zeros((1, n + 1, 3), device=card), 16)
+    """The largest patch shared memory holds takes the shared-memory
+    kernel, one point more the streaming kernel; both give the plain
+    version's indices."""
+    rng = np.random.RandomState(3)
+    for n, stream in ((knn_ops.KNN_MAX_N, 0), (knn_ops.KNN_MAX_N + 1, 1)):
+        x = torch.from_numpy(rng.rand(1, n, 3).astype(np.float32)).to(card)
+        before = knn_self.launches, knn_self_stream.launches
+        got = knn_self(x, 16)
+        assert (knn_self.launches - before[0],
+                knn_self_stream.launches - before[1]) == (1 - stream, stream)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      knn_self_plain(x, 16).cpu().numpy())
+
+
+# the shared-memory kernel's cases through the streaming kernel, and
+# patches of several chunks (2,048 points) with a ragged last one
+@pytest.mark.parametrize("b,n,k", [
+    (5, 17, 16), (5, 300, 1), (5, 300, 5), (3, 300, 8), (5, 300, 16),
+    (1, 256, 16), (1024, 256, 16), (2, 4099, 16), (1, 10433, 8)])
+@pytest.mark.parametrize("kind", ["float", "grid", "repeated"])
+def test_knn_self_stream_kernel_cases(card, b, n, k, kind):
+    rng = np.random.RandomState(n + k)
+    if kind == "grid":
+        pts = rng.randint(0, 5, (b, n, 3))
+    elif kind == "repeated":
+        pts = rng.rand(b, n - n // 2, 3)
+        pts = np.concatenate([pts, pts[:, :n // 2]], 1)
+    else:
+        pts = rng.rand(b, n, 3)
+    x = torch.from_numpy(pts.astype(np.float32)).to(card)
+    before = knn_self_stream.launches
+    got = knn_self_stream(x, k)
+    assert knn_self_stream.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  knn_self_plain(x, k).cpu().numpy())
+    assert torch.equal(got, knn_self_stream(x, k))
 
 
 def test_encoder_kernel_matches_plain(card, folded):
@@ -411,6 +443,28 @@ def test_folded_sample_runs_every_kernel(card, folded):
     assert float((got - ref).abs().max()) < 1e-4
 
 
+def test_folded_sample_over_the_knn_limit(card, folded):
+    """Patches of `KNN_MAX_N` + 1 points: the folded branch takes the
+    streaming self k-NN kernel and its other four kernels, and matches the
+    plain composition."""
+    params = folded[0]
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.randn(1, knn_ops.KNN_MAX_N + 1, 3) * 0.3)
+                         .astype(np.float32)).to(card)
+    wrappers = (knn_self, knn_self_stream, encoder.encoder_conditions,
+                interp.interp_head, flow.flow_f, flow.flow_g_blend)
+    before = [w.launches for w in wrappers]
+    got = discrete.sample(params, None, x, 4)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0] + [1] * 5
+    idx = knn_self_plain(x, 16)
+    cs = encoder.encoder_conditions_plain(params, x, idx)
+    ref = flow.flow_g_blend_plain(
+        params["flow_blocks"], flow.flow_f_plain(params["flow_blocks"], x, cs),
+        interp.interp_head_plain(params["interp"], x, idx[..., :8], 4),
+        idx[..., :8], cs)
+    assert float((got - ref).abs().max()) < 1e-4
+
+
 @pytest.mark.parametrize("b,n,m", [(4, 1024, 1024), (3, 300, 301),
                                    (2, 100, 257), (1, 9000, 9000)])
 def test_emd_kernel_matches_plain(card, b, n, m):
@@ -506,9 +560,62 @@ def _rk4_float64(layers, c, y, t0, t1, steps):
     return y
 
 
-@pytest.mark.parametrize("b,n,r,cdim", [(2, 100, 1, 32), (32, 256, 1, 128),
-                                        (3, 333, 1, 64), (5, 231, 3, 128),
-                                        (8, 1024, 4, 32)])
+SIGMOID_SWEEP = r"""
+#include "cnf_field.cuh"
+
+// every finite float x: cnf_field::sigmoid against 1 / (1 + e^-x) by IEEE
+// division, bit for bit where that is normal, else 0
+__global__ void sweep(unsigned long long* bad, unsigned* first) {
+  const unsigned long long step = 1ull * gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += step) {
+    const float x = __uint_as_float(static_cast<unsigned>(i));
+    if (!isfinite(x)) continue;
+    const float got = puflow::cnf_field::sigmoid(x);
+    const float ref = 1.f / (1.f + expf(-x));
+    const bool ok = ref >= 0x1p-126f
+                        ? __float_as_uint(got) == __float_as_uint(ref)
+                        : got == 0.f;
+    if (!ok && atomicAdd(bad, 1ull) == 0) *first = static_cast<unsigned>(i);
+  }
+}
+
+extern "C" int run(void* bad, void* first) {
+  sweep<<<4096, 256>>>(static_cast<unsigned long long*>(bad),
+                       static_cast<unsigned*>(first));
+  return cudaDeviceSynchronize();
+}
+"""
+
+
+def test_cnf_sigmoid_is_the_division_over_every_float(card, tmp_path):
+    """The CNF kernels' sigmoid (`cnf_field.cuh`: the reciprocal without
+    the division's range check) gives the IEEE division's bits at every
+    finite input where the result is normal, -104 to -87.3 and large
+    positive inputs included, and 0 where it would be subnormal."""
+    src, lib = tmp_path / "sweep.cu", tmp_path / "libsweep.so"
+    src.write_text(SIGMOID_SWEEP)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                    "-I", str(_build.CSRC), str(src), "-o", str(lib)],
+                   check=True, capture_output=True, timeout=600)
+    bad = torch.zeros(1, dtype=torch.int64, device=card)
+    first = torch.zeros(1, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    assert run(bad.data_ptr(), first.data_ptr()) == 0
+    x = first.cpu().view(torch.float32).item()
+    assert int(bad.item()) == 0, f"{int(bad.item())} inputs differ, one {x!r}"
+
+
+# the last two have more rows than the card's warps take as tiles of 8
+# (8,448 on an H100's 132 SMs): tiles of 16 rows, the second ragged
+CNF_SHAPES = [(2, 100, 1, 32), (32, 256, 1, 128), (3, 333, 1, 64),
+              (5, 231, 3, 128), (8, 1024, 4, 32), (9, 1024, 4, 128),
+              (5, 1999, 1, 64)]
+
+
+@pytest.mark.parametrize("b,n,r,cdim", CNF_SHAPES)
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("time_scale,tol", [(0.0, 5e-6), (20.0, 5e-5)])
 def test_cnf_solve_kernel_matches_plain(card, b, n, r, cdim, reverse,
@@ -620,8 +727,7 @@ def _rk4_logp_float64(layers, c, y, logp, t0, t1, steps):
     return s
 
 
-@pytest.mark.parametrize("b,n,r,cdim", [(2, 100, 1, 32), (32, 256, 1, 128),
-                                        (3, 333, 1, 64), (5, 231, 3, 128)])
+@pytest.mark.parametrize("b,n,r,cdim", CNF_SHAPES)
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("time_scale,tol", [(0.0, 5e-6), (20.0, 5e-5)])
 def test_cnf_solve_logp_kernel_matches_plain(card, b, n, r, cdim, reverse,
@@ -630,8 +736,9 @@ def test_cnf_solve_logp_kernel_matches_plain(card, b, n, r, cdim, reverse,
     step counts, two runs bit-equal, y and logp within 5e-6 at seeded
     weights (every step size set by a clip) and 5e-5 with time rows of
     scale 20, where both are held against a float64 RK4 solve as in
-    `test_cnf_solve_kernel_matches_plain`. 333 and 231 rows a cloud leave
-    a partial last tile."""
+    `test_cnf_solve_kernel_matches_plain`. 333, 231 and 1,999 rows a cloud
+    leave a partial last tile; r > 1 indexes the conditions by ``row //
+    r``."""
     layers = _cnf_layers(card, cdim, b + n, time_scale)
     rng = np.random.RandomState(n + cdim)
     c = torch.from_numpy((rng.randn(b, n // r, cdim) * 0.3)

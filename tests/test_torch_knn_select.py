@@ -17,7 +17,9 @@ lists decide the 16 nearest its indices must be exact. The warp vote only skips 
 change nothing, so it is not emulated. Inputs: float patches, integer
 grids (many exact ties), and patches whose second half repeats the first
 (distance-0 ties: slot 0 is the lower index, not always the point
-itself).
+itself). The streaming kernel for patches over shared memory
+(`knn_stream_kernel`) shares the keys, the chain and the merge and walks
+the candidates in index order: `emulate_stream`.
 """
 
 import jax.numpy as jnp
@@ -90,6 +92,24 @@ def bitonic_clean(lists):
         s //= 2
 
 
+def merge_lanes(lists):
+    """The lanes' bitonic merge with their xor partners: the list every
+    lane of a query ends with."""
+    lanes, m = len(lists), 1
+    while m < lanes:
+        merged = []
+        for s in range(lanes):
+            a, b = lists[s], lists[s ^ m]
+            c = torch.minimum(a, b.flip(-1))
+            bitonic_clean(c)
+            merged.append(c)
+        lists = merged
+        m *= 2
+    for lst in lists[1:]:                    # every lane ends with the list
+        assert torch.equal(lst, lists[0])
+    return lists[0]
+
+
 def emulate(x, k, lanes):
     """The kernel's indices for ``x`` ``[B, n, 3]`` with ``lanes`` lanes a
     query."""
@@ -131,19 +151,7 @@ def emulate(x, k, lanes):
         lists.append(lst)
     # every query meets every candidate once
     assert bool((seen == 1).all())
-    m = 1
-    while m < lanes:
-        merged = []
-        for s in range(lanes):
-            a, b = lists[s], lists[s ^ m]
-            c = torch.minimum(a, b.flip(-1))
-            bitonic_clean(c)
-            merged.append(c)
-        lists = merged
-        m *= 2
-    for lst in lists[1:]:                    # every lane ends with the list
-        assert torch.equal(lst, lists[0])
-    idx = lists[0][..., :k] & 0xFFFFFFFF
+    idx = merge_lanes(lists)[..., :k] & 0xFFFFFFFF
     out = torch.empty_like(idx)
     out.scatter_(1, order[..., None].expand(-1, -1, k), idx)
     return out
@@ -202,6 +210,29 @@ def emulate_narrow(x):
     return out, undecided, torch.gather(undecided, 1, warp_of)
 
 
+STREAM_CHUNK = 2048                      # csrc/knn.cu:kChunk
+
+
+def emulate_stream(x, k, lanes):
+    """`knn_stream_kernel`'s indices (patches over shared memory): the
+    candidates in index order, chunk by chunk, lane s of a query's
+    ``lanes`` taking every lanes-th of a chunk into its list from empty,
+    then the lanes' merge."""
+    B, n, _ = x.shape
+    KL = 1 << (k - 1).bit_length()
+    pts = torch.cat([x, torch.arange(n, dtype=x.dtype).expand(B, n)[
+        ..., None]], -1)                                     # [B, n, 4]
+    lists = []
+    for s in range(lanes):
+        lst = torch.full((B, n, KL), NONE, dtype=torch.int64)
+        for c0 in range(0, n, STREAM_CHUNK):
+            for j in range(s, min(STREAM_CHUNK, n - c0), lanes):
+                cand = pts[:, c0 + j, None].expand(-1, n, -1)
+                chain(lst, keys_of(x, cand))
+        lists.append(lst)
+    return merge_lanes(lists)[..., :k] & 0xFFFFFFFF
+
+
 def _patches(kind, n):
     rng = np.random.RandomState(n)
     if kind == "grid":
@@ -238,9 +269,21 @@ def test_selection_matches_jax_kernel(n, k, kind):
             assert not bool(undecided.any())
 
 
+@pytest.mark.parametrize("kind", ["float", "grid", "repeated"])
+@pytest.mark.parametrize("n,k", [(64, 5), (64, 16), (300, 1), (300, 16)])
+def test_stream_selection_matches_jax_kernel(n, k, kind):
+    """The streaming kernel's walk (index order, no Morton order, lists
+    filled from empty) gives JAX's indices at 1 and 4 lanes a query."""
+    x = _patches(kind, n)
+    ref = np.asarray(knn_pallas.knn_self_pallas(jnp.asarray(x), k, True))
+    for lanes in (1, 4):
+        np.testing.assert_array_equal(
+            emulate_stream(torch.from_numpy(x), k, lanes).numpy(), ref)
+
+
 def test_shared_memory_limit():
-    """`KNN_MAX_N` is the largest patch the wrapper lets in, and the main
-    path's patch of 256 points takes 36 KB."""
+    """`KNN_MAX_N` is the largest patch the shared-memory kernel takes, and
+    the main path's patch of 256 points takes 36 KB."""
     f = t_knn.knn_smem_bytes
     assert f(t_knn.KNN_MAX_N) <= t_knn._SMEM_BYTES < f(t_knn.KNN_MAX_N + 1)
     assert f(256) == 16 * 256 + 8 * THREADS * 16
