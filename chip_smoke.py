@@ -53,8 +53,10 @@ Phases:
      traces one run of each with torch.profiler for the card's idle share
      and its top kernels;
   6. compares the EMD kernel with its plain version at the training shape
-     ([32, 1024] vs [32, 1024]): equal assignments, a NaN-input run, times
-     and the bound from the work the plain version counts;
+     ([32, 1024] vs [32, 1024]): equal assignments, two runs bit-equal, a
+     NaN-input run, the cluster size `_emd_plan` chose, the unassigned
+     rows per iteration, times at 1, 8 and 32 clouds beside the plain
+     version's, and the bound from the work the plain version counts;
   7. trains: the first step's gradients with the kernel EMD against the
      plain EMD, then 10 warm-up steps and 5 timed windows of 10 steps with
      every launch count set to 0 before and read after (steps/s, a split
@@ -133,6 +135,7 @@ from puflow_torch.models.encoder import INTERP_K, interpolation_apply
 from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
 from puflow_torch.ops import _build
 from puflow_torch.ops import cnf as cnf_ops
+from puflow_torch.ops import emd as emd_ops
 from puflow_torch.ops import encoder as enc_ops
 from puflow_torch.ops import flow as flow_ops
 from puflow_torch.ops import fps as fps_ops
@@ -1074,6 +1077,8 @@ def phase_emd(results, params, state, sparse, dense):
             "assignments equal to the plain version")
         check_close(results, "emd", dist, ref_dist,
                     1e-6 * max(1.0, float(ref_dist.abs().max())))
+        check_rerun(f"emd {label}", [dist, assign],
+                    list(emd_auction(x1, x2, eps, iters)))
     bad = pred.clone()
     bad[0, 7] = float("nan")
     dist, assign = emd_auction(bad, dense, eps, iters)
@@ -1099,15 +1104,45 @@ def phase_emd(results, params, state, sparse, dense):
     # column) per iteration, counted by the plain version on these inputs
     unassigned = []
     emd_auction_plain(pred, dense, eps, iters, unassigned)
-    rows = int(torch.stack(unassigned).sum())
+    per_iter = torch.stack(unassigned).sum(dim=1).tolist()
+    rows = sum(per_iter)
     B, n = pred.shape[:2]
     m = dense.shape[1]
     log(f"emd auction work: {rows} unassigned row sweeps over {iters} "
         f"iterations ({rows / B / n:.3f} full sweeps a cloud)")
+    under = next((i for i, r in enumerate(per_iter) if r < 64 * B), None)
+    log("emd unassigned rows a cloud, training prediction: iterations 0-4 "
+        + ", ".join(f"{r / B:.2f}" for r in per_iter[:5])
+        + (f"; first under 64 at iteration {under} ({per_iter[under] / B:.2f})"
+           if under is not None else "; never under 64")
+        + f"; iteration {iters - 1} {per_iter[-1] / B:.2f}")
     set_bound(results["emd"], nbytes(pred, dense) + B * n * (4 + 8),
               13 * B * n * m + 4 * m * rows)
     time_pair(results, "emd", lambda: emd_auction(pred, dense, eps, iters),
               lambda: emd_auction_plain(pred, dense, eps, iters))
+    # the training prediction's first 1, 8 and 32 clouds: the cluster size
+    # the plan takes for each, kernel and plain version in turns
+    for b in (1, 8, B):
+        x1, x2 = pred[:b].contiguous(), dense[:b].contiguous()
+        cluster = emd_ops._emd_plan(b, n, m, functools.partial(
+            emd_ops.cluster_capacity, x1.device, n, m))
+        _, assign = emd_auction(x1, x2, eps, iters)
+        _, ref_assign = emd_auction_plain(x1, x2, eps, iters)
+        if not torch.equal(assign, ref_assign):
+            raise AssertionError(f"emd B={b}: assignments differ from the "
+                                 "plain version")
+
+        def kernel(x1=x1, x2=x2):
+            return emd_auction(x1, x2, eps, iters)
+
+        def plain(x1=x1, x2=x2):
+            return emd_auction_plain(x1, x2, eps, iters)
+
+        p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kernel, 10),
+                          time_ms(kernel, 10), time_ms(plain, 5))
+        log(f"emd B={b} [{b}, {n}] vs [{b}, {m}]: a cloud over a cluster of "
+            f"{cluster} blocks, assignments equal to the plain version; "
+            f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
 
 
 def step_grads(trainer, sparse, dense, emd_fn):

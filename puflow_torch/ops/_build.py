@@ -49,7 +49,9 @@ _SIGNATURES = {
     "puflow_encoder": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     "puflow_interp_head": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                            _P],
-    "puflow_emd_auction": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P],
+    "puflow_emd_auction": [_P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
+                           _P],
+    "puflow_emd_cluster_occupancy": [_I, _I, _I, _P],
     "puflow_cnf_solve": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _I, _P,
                          _P, _P],
     "puflow_cnf_solve_logp": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P,

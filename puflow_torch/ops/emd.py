@@ -24,11 +24,22 @@ the kernel's operation order (``x0*y0 + x1*y1 + x2*y2``, then
 ``(sq1 + sq2) - 2 cross``), so on the card the kernel and the plain
 version return the same assignments bit for bit.
 
-Unlike the TPU dispatch there is no size gate: the kernel takes any
-``n``, and ``m >= 2`` (the top-2 needs two columns).
+On the card `_emd_plan` spreads each cloud over a thread-block cluster of
+C blocks (`csrc/emd.cu:emd_cluster_kernel`), the base values recomputed
+from shared memory, a row bidding from its cache of 64 candidate columns
+where that is exact and from a sweep of every column where it is not;
+clouds whose columns do not fit a block's shared memory
+(``emd_smem_bytes``; at n = m and C = 16, over `EMD_MAX_M` points) take
+the global-scratch path, the base matrix in device memory. Unlike the
+TPU dispatch there is no size gate: the kernels take any ``n``, and
+``m >= 2`` (the top-2 needs two columns).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable
 
 import torch
 
@@ -36,7 +47,55 @@ from puflow_torch.ops import _build
 
 _NEG_BIG = -1e9
 _SMEM_BYTES = 232448 - 1024  # dynamic shared memory the kernel may ask for
-_STATE_WORDS = 4             # state words per row and per column
+_STATE_WORDS = 4             # global-scratch path: words a row and a column
+_CLUSTERS = tuple(range(16, 0, -1))  # the cluster sizes `_emd_plan` tries
+GLOBAL_SCRATCH = 0           # `_emd_plan`'s answer for the global path
+EMD_MAX_M = 6514             # the largest n = m that `emd_smem_bytes` lets
+                             # into the cluster kernel (at C = 16)
+
+
+def emd_smem_bytes(n: int, m: int, cluster: int) -> int:
+    """Dynamic shared memory of `csrc/emd.cu:emd_cluster_kernel` for clouds
+    of ``n`` x ``m`` points over ``cluster`` blocks: every block holds the
+    ``m`` columns as float4 with their price and owner (24 bytes each),
+    its ``ceil(n / C)`` rows (168 bytes each: coordinates, state, lists
+    and the row's cache of 64 candidate columns) and the keys and winners
+    of its ``ceil(m / C)`` home columns, for two iterations (16 bytes
+    each)."""
+    rows, cols = -(-n // cluster), -(-m // cluster)
+    return 24 * m + 168 * rows + 16 * cols
+
+
+def _emd_plan(batch: int, n: int, m: int,
+              capacity: Callable[[int], int]) -> int:
+    """The cluster size C of `emd_cluster_kernel` for ``batch`` clouds of
+    ``n`` x ``m`` points, or `GLOBAL_SCRATCH`. ``capacity(C)``: how many
+    clusters of C blocks the card holds at once.
+
+    The largest C whose shared memory fits and of which the card holds all
+    ``batch`` clusters at once (a second wave would double the time), so
+    that B C blocks fill the SMs; where no C holds the batch at once, the
+    smallest C that fits (the most clouds a wave); the global-scratch path
+    where none fits."""
+    fits = [c for c in _CLUSTERS if emd_smem_bytes(n, m, c) <= _SMEM_BYTES]
+    for c in fits:
+        if capacity(c) >= batch:
+            return c
+    return fits[-1] if fits else GLOBAL_SCRATCH
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_capacity(device: torch.device, n: int, m: int,
+                     cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks of the cluster kernel, for
+    clouds of ``n`` x ``m`` points, the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int()
+    with torch.cuda.device(device):
+        code = _build.library().puflow_emd_cluster_occupancy(
+            n, m, cluster, ctypes.addressof(count))
+    _build.check(code, "puflow_emd_cluster_occupancy")
+    return count.value
 
 
 def _sq_norm(x: torch.Tensor) -> torch.Tensor:
@@ -144,8 +203,8 @@ def _check(xyz1: torch.Tensor, xyz2: torch.Tensor, iters: int):
 
 def _emd_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float,
                 iters: int):
-    """Launch `csrc/emd.cu` on CUDA tensors: (dist [B, n], assign [B, n]
-    int64, -1 where a row got no column)."""
+    """Launch `csrc/emd.cu` on CUDA tensors, as `_emd_plan` chooses:
+    (dist [B, n], assign [B, n] int64, -1 where a row got no column)."""
     if xyz1.dtype != torch.float32 or xyz2.dtype != torch.float32:
         raise ValueError("emd_auction: the kernel takes float32 clouds")
     if xyz2.device != xyz1.device:
@@ -154,18 +213,21 @@ def _emd_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float,
     B, n, _ = xyz1.shape
     m = xyz2.shape[1]
     dev = xyz1.device
-    base = torch.empty((B, n, m), dtype=torch.float32, device=dev)
-    words = _STATE_WORDS * (n + m)
-    in_smem = words * 4 <= _SMEM_BYTES
-    scratch = torch.empty((0 if in_smem else B * words,), dtype=torch.int32,
-                          device=dev)
+    cluster = _emd_plan(B, n, m,
+                        functools.partial(cluster_capacity, dev, n, m))
+    base = scratch = None
+    if cluster == GLOBAL_SCRATCH:
+        base = torch.empty((B, n, m), dtype=torch.float32, device=dev)
+        scratch = torch.empty((B * _STATE_WORDS * (n + m),),
+                              dtype=torch.int32, device=dev)
     dist = torch.empty((B, n), dtype=torch.float32, device=dev)
     assign = torch.empty((B, n), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.puflow_emd_auction(
             xyz1.data_ptr(), xyz2.data_ptr(), B, n, m, float(eps), iters,
-            base.data_ptr(), scratch.data_ptr() if not in_smem else None,
+            cluster, None if base is None else base.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             dist.data_ptr(), assign.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "puflow_emd_auction")
     emd_auction.launches += 1

@@ -465,11 +465,20 @@ def test_folded_sample_over_the_knn_limit(card, folded):
     assert float((got - ref).abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("b,n,m", [(4, 1024, 1024), (3, 300, 301),
-                                   (2, 100, 257), (1, 9000, 9000)])
+# (clouds, n, m): the first three and the training shape at 32 clouds and
+# at 1 (the extremes of `_emd_plan`'s cluster size) take the cluster
+# kernel; EMD_MAX_M on one cloud is the largest it takes, EMD_MAX_M + 1 and
+# 9000 take the global-scratch path
+EMD_SHAPES = [(4, 1024, 1024), (3, 300, 301), (2, 100, 257), (1, 9000, 9000),
+              (32, 1024, 1024), (1, 1024, 1024),
+              (1, emd.EMD_MAX_M, emd.EMD_MAX_M),
+              (1, emd.EMD_MAX_M + 1, emd.EMD_MAX_M + 1)]
+
+
+@pytest.mark.parametrize("b,n,m", EMD_SHAPES)
 def test_emd_kernel_matches_plain(card, b, n, m):
-    """Same assignments bit for bit; m = 301 and 257 take the scalar
-    sweep, n = m = 9000 keeps the auction state in global memory."""
+    """Same assignments bit for bit, on either path and either side of the
+    shared-memory limit; two runs bit-equal."""
     rng = np.random.RandomState(n + m)
     x1 = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32)).to(card)
     x2 = torch.from_numpy(rng.rand(b, m, 3).astype(np.float32)).to(card)
@@ -481,6 +490,38 @@ def test_emd_kernel_matches_plain(card, b, n, m):
                                   ref_assign.cpu().numpy())
     tol = 1e-6 * max(1.0, float(ref_dist.abs().max()))
     assert float((dist - ref_dist).abs().max()) <= tol
+    again, again_assign = emd.emd_auction(x1, x2, 0.005, 50)
+    assert torch.equal(again, dist) and torch.equal(again_assign, assign)
+
+
+def test_emd_plan_takes_a_cluster(card):
+    """A cluster of more than one block at the training shape at 1, 8 and
+    32 clouds, the global-scratch path over the shared-memory limit."""
+    def plan(b, n):
+        return emd._emd_plan(b, n, n, functools.partial(
+            emd.cluster_capacity, card, n, n))
+
+    for b in (1, 8, 32):
+        assert plan(b, 1024) > 1, b
+    assert plan(1, emd.EMD_MAX_M) > 1
+    assert plan(1, emd.EMD_MAX_M + 1) == emd.GLOBAL_SCRATCH
+
+
+@pytest.mark.parametrize("b,n", [(8, 1024), (32, 1024), (3, 300)])
+def test_emd_kernel_ties(card, b, n):
+    """Clouds on a coarse integer grid, each point repeated: exact ties in
+    value and in increment, where the lowest column and the lowest row
+    must win in every block of the cluster."""
+    rng = np.random.RandomState(b + n)
+    half = rng.randint(0, 6, (2, b, (n + 1) // 2, 3)).astype(np.float32)
+    x1, x2 = (torch.from_numpy(np.concatenate([h, h], 1)[:, :n] / 5.0)
+              .to(card) for h in half)
+    dist, assign = emd.emd_auction(x1, x2, 0.005, 50)
+    ref_dist, ref_assign = emd.emd_auction_plain(x1, x2, 0.005, 50)
+    np.testing.assert_array_equal(assign.cpu().numpy(),
+                                  ref_assign.cpu().numpy())
+    assert float((dist - ref_dist).abs().max()) <= 1e-6 * max(
+        1.0, float(ref_dist.abs().max()))
 
 
 def test_emd_kernel_non_finite_input(card):
@@ -588,13 +629,11 @@ extern "C" int run(void* bad, void* first) {
 """
 
 
-def test_cnf_sigmoid_is_the_division_over_every_float(card, tmp_path):
-    """The CNF kernels' sigmoid (`cnf_field.cuh`: the reciprocal without
-    the division's range check) gives the IEEE division's bits at every
-    finite input where the result is normal, -104 to -87.3 and large
-    positive inputs included, and 0 where it would be subnormal."""
+def _sweep_every_float(card, tmp_path, source):
+    """Build ``source`` (a sweep over every 32-bit pattern, with `csrc/` on
+    the include path) and run it: (inputs that differ, one of them)."""
     src, lib = tmp_path / "sweep.cu", tmp_path / "libsweep.so"
-    src.write_text(SIGMOID_SWEEP)
+    src.write_text(source)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                     "-I", str(_build.CSRC), str(src), "-o", str(lib)],
                    check=True, capture_output=True, timeout=600)
@@ -604,8 +643,53 @@ def test_cnf_sigmoid_is_the_division_over_every_float(card, tmp_path):
     run = ctypes.CDLL(str(lib)).run
     run.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     assert run(bad.data_ptr(), first.data_ptr()) == 0
-    x = first.cpu().view(torch.float32).item()
-    assert int(bad.item()) == 0, f"{int(bad.item())} inputs differ, one {x!r}"
+    return int(bad.item()), first.cpu().view(torch.float32).item()
+
+
+def test_cnf_sigmoid_is_the_division_over_every_float(card, tmp_path):
+    """The CNF kernels' sigmoid (`cnf_field.cuh`: the reciprocal without
+    the division's range check) gives the IEEE division's bits at every
+    finite input where the result is normal, -104 to -87.3 and large
+    positive inputs included, and 0 where it would be subnormal."""
+    bad, x = _sweep_every_float(card, tmp_path, SIGMOID_SWEEP)
+    assert bad == 0, f"{bad} inputs differ, one {x!r}"
+
+
+EMD_ROOT_SWEEP = r"""
+#include "emd.cu"
+
+// every float d2: the auction kernels' three_minus_root against
+// 3 - __fsqrt_rn(max(d2, 0)): the same bits where that is finite, and
+// non-finite where it is not
+__global__ void sweep(unsigned long long* bad, unsigned* first) {
+  const unsigned long long step = 1ull * gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += step) {
+    const float d2 = __uint_as_float(static_cast<unsigned>(i));
+    const float got = three_minus_root(d2);
+    const float ref = __fsub_rn(3.0f, __fsqrt_rn(d2 < 0.0f ? 0.0f : d2));
+    const bool ok = isfinite(ref)
+                        ? __float_as_uint(got) == __float_as_uint(ref)
+                        : !isfinite(got);
+    if (!ok && atomicAdd(bad, 1ull) == 0) *first = static_cast<unsigned>(i);
+  }
+}
+
+extern "C" int run(void* bad, void* first) {
+  sweep<<<4096, 256>>>(static_cast<unsigned long long*>(bad),
+                       static_cast<unsigned*>(first));
+  return cudaDeviceSynchronize();
+}
+"""
+
+
+def test_emd_root_is_fsqrt_rn_over_every_float(card, tmp_path):
+    """The auction kernels' base value without sqrt.rn's range check
+    (`csrc/emd.cu:three_minus_root`) has __fsqrt_rn's bits wherever
+    3 - sqrt(max(d2, 0)) is finite, at every float d2, and is non-finite
+    wherever that is."""
+    bad, d2 = _sweep_every_float(card, tmp_path, EMD_ROOT_SWEEP)
+    assert bad == 0, f"{bad} inputs differ, one {d2!r}"
 
 
 # the last two have more rows than the card's warps take as tiles of 8
