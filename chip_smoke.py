@@ -83,8 +83,10 @@ Phases:
  12. saves a seeded CNF checkpoint and runs `python -m
      puflow_torch.cli.upsample --model cnf` on it;
  13. compares the seeded-FPS kernel with its plain version (equal indices,
-     two runs bit-equal) at the seeded merge's shapes and more, and times
-     its seeding and selection apart;
+     two runs bit-equal) under every plan of its selection (a block a row,
+     a cluster a row, the global cache) at the seeded merge's shapes and
+     more, and times its seeding and selection apart, each plan's
+     selection, beside the parent kernel's recorded times;
  14. runs the seeded-merge and grouped-union paths at 1 and 32 clouds,
      and the seeded merge once on the CNF folded model, each as phase 4
      runs a path;
@@ -1595,35 +1597,82 @@ SEEDED_PICKS = NPOINT - N_POINTS                           # 6,168 a cloud
 PRED_N = N_PATCH * PATCH * UPRATIO                          # 32,768
 
 
+# the seeded selection's plans (`ops/fps.py:_fps_seeded_plan`): a block a
+# row of 128-512 threads, a cluster a row of 2-16 blocks, and the
+# global-scratch kernel
+SEEDED_SWEEP = ([fps_ops.FpsPlan(1, t) for t in (128, 256, 512)]
+                + [fps_ops.FpsPlan(c, t) for c in (2, 4, 8, 16)
+                   for t in (128, 256)]
+                + [fps_ops.SEEDED_GLOBAL])
+# the parent kernel (one 1024-thread block a row, the cache in shared
+# memory) at the three timed shapes, ms of seeding, selection and the
+# whole kernel, as this script measured it before the block and cluster
+# plans (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W)
+PARENT_SEEDED_MS = {"G = 16, 1 cloud": (0.0605, 0.4248, 0.4864),
+                    "G = 16, 32 clouds": (0.6907, 1.4722, 2.1687),
+                    "G = 1, 1 cloud": (0.0612, 33.5712, 33.6572)}
+
+
+def plan_name(plan) -> str:
+    if plan == fps_ops.SEEDED_GLOBAL:
+        return "global"
+    if plan.cluster == 1:
+        return f"block T={plan.threads}"
+    return f"C={plan.cluster} T={plan.threads}"
+
+
 def check_fps_seeded(label, xyz, seeds, m):
-    """The seeded-FPS kernel against its plain version: equal indices, and
-    a second run bit-equal to the first."""
-    got = farthest_point_sample_seeded(xyz, seeds, m)
-    again = farthest_point_sample_seeded(xyz, seeds, m)
+    """The seeded-FPS kernel against its plain version under its own plan
+    and under every plan of `SEEDED_SWEEP` that takes the shape, forced:
+    equal indices, and a second run bit-equal to the first."""
     ref = farthest_point_sample_seeded_plain(xyz, seeds, m)
-    torch.cuda.synchronize()
-    bad = (got != ref).any(dim=0).nonzero()
-    if bad.numel():
-        step = int(bad[0])
-        raise AssertionError(
-            f"fps_seeded {label}: indices differ first at step {step}: "
-            f"kernel {got[:, step].tolist()[:8]} plain "
-            f"{ref[:, step].tolist()[:8]}")
-    if not torch.equal(got, again):
-        raise AssertionError(f"fps_seeded {label}: two runs differ")
+    plans = [None] + [p for p in SEEDED_SWEEP
+                      if fps_ops._seeded_plan_covers(p, xyz.shape[1])]
+    for plan in plans:
+        got = farthest_point_sample_seeded(xyz, seeds, m, _plan=plan)
+        again = farthest_point_sample_seeded(xyz, seeds, m, _plan=plan)
+        torch.cuda.synchronize()
+        name = "chosen" if plan is None else plan_name(plan)
+        bad = (got != ref).any(dim=0).nonzero()
+        if bad.numel():
+            step = int(bad[0])
+            raise AssertionError(
+                f"fps_seeded {label} ({name}): indices differ first at step "
+                f"{step}: kernel {got[:, step].tolist()[:8]} plain "
+                f"{ref[:, step].tolist()[:8]}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"fps_seeded {label} ({name}): two runs "
+                                 "differ")
+    chosen = fps_ops._fps_seeded_plan(xyz.shape[0], xyz.shape[1],
+                                      functools.partial(
+                                          fps_ops.seeded_capacity,
+                                          xyz.device, xyz.shape[1]))
     log(f"fps_seeded {label} {tuple(xyz.shape)}, seeds "
-        f"{tuple(seeds.shape)} -> {m}: indices equal, rerun bit-equal")
+        f"{tuple(seeds.shape)} -> {m}: indices equal, reruns bit-equal under "
+        f"{len(plans) - 1} plans and the chosen one ({plan_name(chosen)})")
+
+
+def issue_floor_ms(instructions: float) -> float:
+    """FP32 instructions that cannot pair into FMAs over the card's issue
+    rate: 128 lanes an SM, every SM, at its largest SM clock."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions / (128 * sms * float(mhz) * 1e6) * 1e3
 
 
 def compare_fps_seeded(results, rng):
     """`csrc/fps.cu:puflow_fps_seeded` against
-    `farthest_point_sample_seeded_plain`, then its times at the seeded
-    merge's three shapes with seeding and selection apart."""
+    `farthest_point_sample_seeded_plain` under every plan, then its times
+    at the seeded merge's three shapes: seeding and selection apart, each
+    plan's selection (`SEEDED_SWEEP`), beside the parent's."""
     results["fps_seeded"]["max_abs_err"] = 0.0
     # (label, rows, candidates, seed sets, seeds, picks): the Morton cells
     # of the seeded merge at auto G = 16 (16 rows a cloud share its seed
     # set), its G = 1 row, a PU-GAN 5,000-point cloud's union at G = 1
-    # (79,872 candidates: the cache in global scratch), a ragged case
+    # (79,872 candidates), a ragged case
     shapes = (("G = 16, 1 cloud", 16, 2048, 1, N_POINTS, 386),
               ("G = 16, 32 clouds", 512, 2048, 32, N_POINTS, 386),
               ("G = 1, 1 cloud", 1, PRED_N, 1, N_POINTS, SEEDED_PICKS),
@@ -1635,20 +1684,44 @@ def compare_fps_seeded(results, rng):
             xyz = torch.from_numpy(make(R, M, 3).astype(np.float32)).cuda()
             sd = torch.from_numpy(make(Bs, S, 3).astype(np.float32)).cuda()
             check_fps_seeded(f"{label}, {kind}", xyz, sd, m)
-    # ties: every candidate twice, the seeds among them
+    # ties: every candidate twice, the seeds among them; then 27 distinct
+    # candidates and more picks: the cache ends all zeros
     base = rng.rand(4, 1024, 3).astype(np.float32)
     dup = torch.from_numpy(np.concatenate([base, base[:, ::-1]], 1)).cuda()
     check_fps_seeded("duplicates", dup, dup[:, ::64].contiguous(), 1500)
+    few = torch.from_numpy(rng.randint(0, 3, (16, 2048, 3)).astype(
+        np.float32)).cuda()
+    check_fps_seeded("exhausted", few, few[:1, :5].contiguous(), 386)
 
     for label, R, M, Bs, S, m in shapes[:3]:
         xyz = torch.from_numpy(rng.rand(R, M, 3).astype(np.float32)).cuda()
         sd = torch.from_numpy(rng.rand(Bs, S, 3).astype(np.float32)).cuda()
         out = torch.empty((R, m), dtype=torch.int32, device="cuda")
         mind = torch.empty((R, M), dtype=torch.float32, device="cuda")
+        chosen = fps_ops._fps_seeded_plan(R, M, functools.partial(
+            fps_ops.seeded_capacity, xyz.device, M))
         fps_ops._seeded_launch(xyz, sd, out, mind, phases=1)
         seeding = time_ms(
             lambda: fps_ops._seeded_launch(xyz, sd, out, mind, phases=1), 20)
-        # the cache fits in shared memory here: selection leaves mind as is
+        # the block and cluster plans leave mind as it is; the global plan
+        # works on it in place, so its repeats time the same steps on a
+        # spent cache
+        sweep = {}
+        for plan in SEEDED_SWEEP:
+            if fps_ops._seeded_plan_covers(plan, M):
+                sweep[plan] = time_ms(
+                    lambda plan=plan: fps_ops._seeded_launch(
+                        xyz, sd, out, mind, phases=2, plan=plan), 3)
+                if plan != fps_ops.SEEDED_GLOBAL:
+                    cap = fps_ops.seeded_capacity(xyz.device, M, plan)
+                    at_once = f"{cap} rows at once"
+                else:
+                    at_once = "one 1024-thread block a row"
+                log(f"fps_seeded sweep {label} [{R}, {M}] -> {m}: "
+                    f"{plan_name(plan)} selection {sweep[plan]:.4f} ms, "
+                    f"{sweep[plan] * 1e3 / m:.4f} us a step, {at_once}"
+                    + (" (chosen)" if plan == chosen else ""))
+        fps_ops._seeded_launch(xyz, sd, out, mind, phases=1)
         selection = time_ms(
             lambda: fps_ops._seeded_launch(xyz, sd, out, mind, phases=2), 5)
         k1 = time_ms(lambda: farthest_point_sample_seeded(xyz, sd, m), 5)
@@ -1659,14 +1732,30 @@ def compare_fps_seeded(results, rng):
         # bytes: candidates, seeds and picks once; operations: 9 a
         # candidate-seed pair, 9 a candidate and step
         set_bound(entry, nbytes(xyz, sd, out), 9 * R * M * S + 9 * R * M * m)
+        seed_b, select_b = dict(entry), dict(entry)
+        set_bound(seed_b, nbytes(xyz, sd), 9 * R * M * S)
+        set_bound(select_b, nbytes(xyz, out), 9 * R * M * m)
+        ps, pl, pw = PARENT_SEEDED_MS[label]
         log(f"fps_seeded {label} [{R}, {M}], seeds [{Bs}, {S}] -> {m}: "
-            f"kernel {k1:.4f} / {k2:.4f} ms (seeding {seeding:.4f}, "
-            f"selection {selection:.4f}), plain {p1:.4f} ms, bound "
-            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+            f"kernel {k1:.4f} / {k2:.4f} ms (parent {pw:.4f}), seeding "
+            f"{seeding:.4f} (parent {ps:.4f}), selection {selection:.4f} "
+            f"(parent {pl:.4f}: {pl / selection:.2f}x) with "
+            f"{plan_name(chosen)}; plain {p1:.4f} ms; bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}): seeding "
+            f"{seed_b['bound_ms']:.4f} (FP32 issue floor "
+            f"{issue_floor_ms(9 * R * M * S):.4f}), selection "
+            f"{select_b['bound_ms']:.4f} (issue floor "
+            f"{issue_floor_ms(9 * R * M * m):.4f})")
         if R == 512:     # the kernel line: 32 clouds, bench.py's batch
             results["fps_seeded"].update(
                 ms=(k1 + k2) / 2, plain_ms=p1, library_ms=None,
                 bound_ms=entry["bound_ms"], bound_by=entry["bound_by"])
+    # the seeded merge at G = 1 and 32 clouds: 32 rows of 32,768
+    capacity = functools.partial(fps_ops.seeded_capacity,
+                                 torch.device("cuda"), PRED_N)
+    plan = fps_ops._fps_seeded_plan(32, PRED_N, capacity)
+    log(f"fps_seeded plan for [32, {PRED_N}] (G = 1, 32 clouds): "
+        f"{plan_name(plan)}, {capacity(plan)} rows at once")
 
 
 TIMED_MERGES = (("union (default)", {}),

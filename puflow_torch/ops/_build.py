@@ -39,7 +39,9 @@ _SIGNATURES = {
     "puflow_fps": [_P, _I, _I, _I, _P, _P, _P],
     "puflow_fps_cluster": [_P, _I, _I, _I, _P, _I, _I, _P],
     "puflow_fps_cluster_occupancy": [_I, _I, _I, _P],
-    "puflow_fps_seeded": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    "puflow_fps_seeded": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                          _P],
+    "puflow_fps_seeded_occupancy": [_I, _I, _I, _P],
     "puflow_flow_f": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     "puflow_flow_g": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "puflow_flow_g_blend": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,

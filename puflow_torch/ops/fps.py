@@ -8,7 +8,9 @@ Counterpart of `puflow_tpu.ops.fps`: `farthest_point_sample` (dispatch),
 or `puflow_fps`, a block a cloud, as `_fps_plan` chooses from the shape);
 `farthest_point_sample_seeded` with
 `farthest_point_sample_seeded_xla` and the TPU kernel
-`farthest_point_sample_seeded_pallas` (here `csrc/fps.cu:puflow_fps_seeded`);
+`farthest_point_sample_seeded_pallas` (here `csrc/fps.cu:puflow_fps_seeded`,
+its selection a block a row, a cluster a row or a block over a global
+cache, as `_fps_seeded_plan` chooses from the shape);
 and the grouped, partitioned and Morton-cell variants, which only reshape,
 sort and regroup around those two. Greedy FPS, delta-form distances
 ``(dx*dx + dy*dy) + dz*dz``, first index on ties: each kernel and its
@@ -226,28 +228,107 @@ def farthest_point_sample_seeded_plain(xyz: torch.Tensor, seeds: torch.Tensor,
     return sel
 
 
+# The seeded selection's plans (`csrc/fps.cu:puflow_fps_seeded`), as
+# FpsPlan(cluster, threads): cluster 1 is a block of ``threads`` a row
+# (`fps_seeded_block_kernel`), 2-16 a cluster a row (`fps_cluster_kernel`,
+# seeded start), and `SEEDED_GLOBAL` one 1024-thread block a row working
+# on the cache in device memory (`fps_seeded_kernel`).
+SEEDED_GLOBAL = FpsPlan(0, 1024)
+# the block kernel's sizes, smallest first, and the most candidates a thread
+# holds in registers: its largest kK
+_SEEDED_BLOCK_THREADS = (128, 256, 512)
+_SEEDED_BLOCK_PER_THREAD = 16
+# the largest row a cluster holds in registers: 16 blocks of 256 threads
+# of 46 candidates
+_SEEDED_CLUSTER_POINTS = 16 * 256 * _CLUSTER_PER_THREAD[256]
+
+
+def _seeded_plan_covers(plan: FpsPlan, n: int) -> bool:
+    """Whether the seeded selection takes ``plan`` for rows of ``n``."""
+    if plan == SEEDED_GLOBAL:
+        return True
+    if plan.cluster == 1:
+        return (plan.threads in _SEEDED_BLOCK_THREADS and
+                -(-n // plan.threads) <= _SEEDED_BLOCK_PER_THREAD)
+    return plan.cluster > 1 and _plan_covers(plan, n)
+
+
+def _fps_seeded_plan(rows: int, n: int, capacity: Callable[[FpsPlan], int],
+                     forced: FpsPlan | None = None) -> FpsPlan:
+    """The seeded selection's plan for ``rows`` rows of ``n`` candidates.
+    ``capacity(plan)``: how many rows of the plan the card holds at once
+    (blocks or clusters). ``forced``: a plan to take instead; one the
+    kernels do not take raises.
+
+    Rows a block holds in registers (``n`` up to 512 x 16) take a block a
+    row: the smallest block that holds the row, of which the card holds
+    all ``rows`` at once (a step's work an SM is the same at every block
+    size; fewer warps make its reductions shorter). Rows a cluster holds
+    take a cluster a row: the largest cluster, then the smallest block, of
+    which the card holds all ``rows`` at once. Where no plan holds them
+    all, the one with the fewest waves, in that order of preference.
+    Larger rows: `SEEDED_GLOBAL`."""
+    if forced is not None:
+        if not _seeded_plan_covers(forced, n):
+            raise ValueError(f"farthest_point_sample_seeded: no kernel runs "
+                             f"{forced} on rows of {n} candidates")
+        return forced
+    if n <= max(_SEEDED_BLOCK_THREADS) * _SEEDED_BLOCK_PER_THREAD:
+        plans = [FpsPlan(1, t) for t in _SEEDED_BLOCK_THREADS]
+    elif n <= _SEEDED_CLUSTER_POINTS:
+        plans = [FpsPlan(c, t) for c in range(16, 1, -1)
+                 for t in sorted(_CLUSTER_PER_THREAD)]
+    else:
+        return SEEDED_GLOBAL
+    plans = [p for p in plans if _seeded_plan_covers(p, n)]
+    caps = [capacity(p) for p in plans]
+    return plans[min(range(len(plans)),
+                     key=lambda k: -(-rows // max(1, caps[k])))]
+
+
+@functools.lru_cache(maxsize=None)
+def seeded_capacity(device: torch.device, n: int, plan: FpsPlan) -> int:
+    """How many rows of ``n`` candidates the seeded selection's ``plan``
+    holds on the card at once (`puflow_fps_seeded_occupancy`)."""
+    count = ctypes.c_int()
+    with torch.cuda.device(device):
+        code = _build.library().puflow_fps_seeded_occupancy(
+            n, plan.cluster, plan.threads, ctypes.addressof(count))
+    _build.check(code, "puflow_fps_seeded_occupancy")
+    return count.value
+
+
 def _seeded_launch(xyz: torch.Tensor, seeds: torch.Tensor, out: torch.Tensor,
-                   mind: torch.Tensor, phases: int = 3) -> None:
+                   mind: torch.Tensor, phases: int = 3,
+                   plan: FpsPlan | None = None) -> None:
     """Launch `csrc/fps.cu:puflow_fps_seeded` on checked CUDA tensors:
     ``out`` ``[R, m]`` int32, ``mind`` ``[R, M]`` float32 scratch (the
     seeded cache). ``phases``: 1 seeds the cache, 2 selects from it, 3
-    both; the wrapper runs both, the split lets a caller time them apart."""
+    both; the wrapper runs both, the split lets a caller time them apart.
+    ``plan``: the selection's plan (default: `_fps_seeded_plan`'s)."""
     R, M, _ = xyz.shape
+    if plan is None:
+        plan = _fps_seeded_plan(R, M, functools.partial(
+            seeded_capacity, xyz.device, M))
     lib = _build.library()
     with torch.cuda.device(xyz.device):
         code = lib.puflow_fps_seeded(
             xyz.data_ptr(), seeds.data_ptr(), R, M, seeds.shape[1],
             _seed_groups(xyz, seeds), out.shape[1], out.data_ptr(),
-            mind.data_ptr(), int(M > _FPS_SMEM_POINTS), phases,
+            mind.data_ptr(), plan.cluster, plan.threads, phases,
             _build.stream_ptr(xyz.device))
     _build.check(code, "puflow_fps_seeded")
 
 
 def farthest_point_sample_seeded(xyz: torch.Tensor, seeds: torch.Tensor,
-                                 n_samples: int) -> torch.Tensor:
+                                 n_samples: int, *,
+                                 _plan: FpsPlan | None = None
+                                 ) -> torch.Tensor:
     """Seeded FPS ``[R, M, 3]``, seeds ``[R / G, S, 3]`` -> ``[R,
     n_samples]`` int32 candidate indices (the seeds are not returned): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, its selection as `_fps_seeded_plan`
+    chooses, the plain version for CPU tensors. ``_plan`` forces a plan of
+    the selection (the card tests reach each one so)."""
     if xyz.device.type == "cpu":
         return farthest_point_sample_seeded_plain(xyz, seeds, n_samples)
     if xyz.device.type != "cuda":
@@ -264,9 +345,11 @@ def farthest_point_sample_seeded(xyz: torch.Tensor, seeds: torch.Tensor,
                          f"{n_samples}")
     R, M, _ = xyz.shape
     _seed_groups(xyz, seeds)
+    plan = _fps_seeded_plan(R, M, functools.partial(
+        seeded_capacity, xyz.device, M), _plan)
     out = torch.empty((R, n_samples), dtype=torch.int32, device=xyz.device)
     mind = torch.empty((R, M), dtype=torch.float32, device=xyz.device)
-    _seeded_launch(xyz, seeds, out, mind)
+    _seeded_launch(xyz, seeds, out, mind, plan=plan)
     farthest_point_sample_seeded.launches += 1
     return out
 

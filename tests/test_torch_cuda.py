@@ -102,6 +102,65 @@ def test_fps_seeded_kernel_matches_plain(card, rows, n, sets, s, m):
         assert torch.equal(got, farthest_point_sample_seeded(x, sd, m))
 
 
+# the seeded selection's plans, each forced: a block a row of 128, 256 and
+# 512 threads, clusters of 2-16 blocks, and the global-scratch kernel
+SEEDED_PLANS = ([fps_ops.FpsPlan(1, t) for t in (128, 256, 512)]
+                + [fps_ops.FpsPlan(c, t) for c, t in ((2, 128), (2, 256),
+                                                      (5, 128), (16, 128),
+                                                      (16, 256))]
+                + [fps_ops.SEEDED_GLOBAL])
+# test_fps_seeded_kernel_matches_plain's shapes, and one row above the
+# cluster kernel's registers (16 x 256 x 46 candidates)
+SEEDED_SHAPES = [(16, 2048, 1, 2048, 386), (1, 32768, 1, 2048, 6168),
+                 (1, 79872, 1, 5000, 300), (3, 150, 3, 33, 20),
+                 (1, 188417, 1, 64, 64)]
+
+
+@functools.lru_cache(maxsize=None)
+def _seeded_case(rows, n, sets, s, m, kind):
+    """Candidates, seeds and the plain version's picks on the card: integer
+    grids (ties at every step), floats, and rows that run out of distinct
+    candidates (27 of them, m > 27: the cache ends all zeros)."""
+    rng = np.random.RandomState(n + len(kind))
+    make = {"integer": lambda *sh: rng.randint(0, 11, sh),
+            "float": lambda *sh: rng.rand(*sh),
+            "exhausted": lambda *sh: rng.randint(0, 3, sh)}[kind]
+    x = torch.from_numpy(make(rows, n, 3).astype(np.float32)).cuda()
+    sd = torch.from_numpy(make(sets, s, 3).astype(np.float32)).cuda()
+    m = max(m, 40) if kind == "exhausted" else m
+    return x, sd, m, farthest_point_sample_seeded_plain(x, sd, m)
+
+
+@pytest.mark.parametrize("kind", ["integer", "float", "exhausted"])
+@pytest.mark.parametrize("shape", SEEDED_SHAPES, ids=str)
+@pytest.mark.parametrize("plan", SEEDED_PLANS, ids=str)
+def test_fps_seeded_plan_matches_plain(card, plan, shape, kind):
+    x, sd, m, ref = _seeded_case(*shape, kind)
+    if not fps_ops._seeded_plan_covers(plan, x.shape[1]):
+        with pytest.raises(ValueError, match="no kernel runs"):
+            farthest_point_sample_seeded(x, sd, m, _plan=plan)
+        return
+    before = farthest_point_sample_seeded.launches
+    got = farthest_point_sample_seeded(x, sd, m, _plan=plan)
+    assert farthest_point_sample_seeded.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    assert torch.equal(got, farthest_point_sample_seeded(x, sd, m,
+                                                         _plan=plan))
+
+
+def test_fps_seeded_plan_by_shape(card):
+    # the block kernel at the Morton cells (one wave at 32 clouds), a
+    # cluster at G = 1 and the PU-GAN union, the global cache above
+    capacity = functools.partial(fps_ops.seeded_capacity, card)
+    for rows, n, kind in ((16, 2048, 1), (512, 2048, 1), (1, 32768, 2),
+                          (32, 32768, 2), (1, 79872, 2), (1, 188417, 0)):
+        plan = fps_ops._fps_seeded_plan(
+            rows, n, functools.partial(capacity, n))
+        assert min(plan.cluster, 2) == kind, (rows, n, plan)
+        if plan != fps_ops.SEEDED_GLOBAL:
+            assert capacity(n, plan) >= rows, (rows, n, plan)
+
+
 def test_fps_seeded_kernel_ties(card):
     # every candidate twice and the seeds among them: ties everywhere
     rng = np.random.RandomState(9)
