@@ -1301,21 +1301,70 @@ def phase_cli():
 
 
 LARGE_CLOUD = 12000  # points of the cloud served in patches over the limit
+HUGE_PATCH = 32768   # one patch of a whole scan, for the streaming k-NN
+
+
+def clustered_patch(rng, batch: int, n: int) -> torch.Tensor:
+    """Patches of a dense cluster (sd 1e-3) with 2% of the points spread
+    over a cube 4 wide around it: the cluster's tiles lie in a few cells of
+    the spatial order, the far points' tiles span the patch."""
+    pts = 0.5 + 1e-3 * rng.randn(batch, n, 3)
+    pts = np.where(rng.rand(batch, n, 1) < 0.02,
+                   rng.rand(batch, n, 3) * 4 - 2, pts)
+    return torch.from_numpy(pts.astype(np.float32)).cuda()
+
+
+# the streaming self k-NN's kernels, in launch order
+STREAM_KERNELS = ("knn_cells_kernel", "knn_scatter_kernel",
+                  "knn_stream_kernel")
+
+
+def kernel_device_ms(fn, reps: int, names) -> dict:
+    """Mean device ms a call of ``fn`` spends in the kernels whose names
+    hold each of ``names``, from torch.profiler over ``reps`` calls after
+    one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.name:
+                ms[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {name: t / reps for name, t in ms.items()}
 
 
 def compare_knn_stream(results, x, big):
-    """The streaming self k-NN kernel (patches over shared memory) against
-    the plain version: at the main path's 256 patches of 256 points (one
-    lane a query) and at one patch of `KNN_MAX_N` + 1 points (four; float,
-    integer grid and repeated points); equal indices, two runs bit-equal;
-    timed at the large patch."""
+    """The streaming self k-NN (patches over shared memory) against the
+    plain version: at the main path's 256 patches of 256 points (one lane
+    a query), at one patch of `KNN_MAX_N` + 1 points (four; float, integer
+    grid, repeated points, a cluster), at the CLI's 4 such patches and at
+    one patch of `HUGE_PATCH` points; equal indices, two runs bit-equal.
+    Timed at the three large shapes, each beside its plain version and its
+    bound, in three more windows, with each kernel's device time from
+    torch.profiler and the host's time to enqueue a call, and the
+    shared-memory kernel at one patch of `KNN_MAX_N` points beside them."""
     n = big.shape[1]
-    grid = torch.from_numpy(np.random.RandomState(n).randint(
-        0, 31, (1, n, 3)).astype(np.float32)).cuda()
+    rng = np.random.RandomState(n)
+    grid = torch.from_numpy(rng.randint(0, 31, (1, n, 3)).astype(
+        np.float32)).cuda()
+    wide = synthetic_clouds(4, SEED + 11, n)
+    huge = synthetic_clouds(1, SEED + 12, HUGE_PATCH)
     for label, pts in (("float, 256 patches", x), ("float", big),
                        ("integer grid", grid),
                        ("repeated half",
-                        repeated_half(np.random.RandomState(n), 1, n))):
+                        repeated_half(np.random.RandomState(n), 1, n)),
+                       ("clustered", clustered_patch(rng, 1, n)),
+                       ("float, the CLI's 4 patches", wide),
+                       ("float, one large patch", huge)):
         got, ref = knn_self_stream(pts, K), knn_self_plain(pts, K)
         torch.cuda.synchronize()
         if not bool((got == ref).all()):
@@ -1325,15 +1374,56 @@ def compare_knn_stream(results, x, big):
         log(f"knn_self_stream {label} {tuple(pts.shape)} -> {K}: indices "
             "equal")
         check_rerun(f"knn_self_stream {label}", got, knn_self_stream(pts, K))
-    entry = results["knn_self_stream"]
-    entry["max_abs_err"] = 0.0
-    # n^2 distances (8 flops each) and as many compares
-    set_bound(entry, nbytes(big) + n * K * 8, 9 * n * n)
-    time_pair(results, "knn_self_stream", lambda: knn_self_stream(big, K),
-              lambda: knn_self_plain(big, K), reps=5)
-    log(f"knn_self_stream [1, {n}] -> {K}: kernel {entry['ms']:.4f} ms, "
-        f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-        f"({entry['bound_by']}) on {card_line()}")
+        del got, ref
+    results["knn_self_stream"]["max_abs_err"] = 0.0
+
+    def stream_bound(entry, pts):
+        # the least any exact method needs: the patches read once, the rows
+        # written once, and each returned neighbour's distance (8 flops)
+        # and compare; all n^2 distances, as the plain version and the TPU
+        # kernel compute them, returned beside it
+        m, p = pts.shape[:2]
+        set_bound(entry, nbytes(pts) + m * p * K * 8, 9 * m * p * K)
+        brute = {}
+        set_bound(brute, nbytes(pts) + m * p * K * 8, 9 * m * p * p)
+        return brute["bound_ms"]
+
+    card = card_line()
+    for i, pts in enumerate((big, wide, huge)):
+        entry = results["knn_self_stream"] if i == 0 else {}
+        brute = stream_bound(entry, pts)
+        time_pair({"knn_self_stream": entry}, "knn_self_stream",
+                  lambda: knn_self_stream(pts, K),
+                  lambda: knn_self_plain(pts, K), reps=5,
+                  plain_reps=2 if i == 2 else 5)
+        windows = [time_ms(lambda: knn_self_stream(pts, K), 10)
+                   for _ in range(3)]
+        split = kernel_device_ms(lambda: knn_self_stream(pts, K), 10,
+                                 STREAM_KERNELS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            knn_self_stream(pts, K)
+        host = (time.perf_counter() - t0) * 10
+        torch.cuda.synchronize()
+        log(f"knn_self_stream {list(pts.shape[:2])} -> {K}: kernel "
+            f"{entry['ms']:.4f} ms, windows of 10 "
+            f"{' / '.join(f'{t:.4f}' for t in windows)}; device ms a call "
+            "(profiler) " + ", ".join(f"{name} {t:.4f}"
+                                      for name, t in split.items())
+            + f"; host {host:.4f} ms a call enqueued; plain "
+            f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}; all n^2 distances {brute:.4f}) on {card}")
+    below = synthetic_clouds(1, SEED + 9, KNN_MAX_N)
+    entry = {}
+    brute = stream_bound(entry, below)
+    time_pair({"knn_self": entry}, "knn_self", lambda: knn_self(below, K),
+              lambda: knn_self_plain(below, K), reps=5)
+    log(f"knn_self (shared memory) [1, {KNN_MAX_N}] -> {K}: kernel "
+        f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms (all n^2 distances {brute:.4f}) on "
+        f"{card}")
+    torch.cuda.empty_cache()
 
 
 def phase_large_patch(results, model, folded):

@@ -56,16 +56,23 @@
 // - Output. A block stages its rows in shared memory, then writes each
 //   row (k int64, one per query) with 16-byte stores.
 // - Patches over shared memory (n > 10,432: the patch and its sort words
-//   no longer fit a block) take `knn_stream_kernel` (`puflow_knn_self_stream`):
-//   the same keys, lists and merge, the candidates staged from device
-//   memory in chunks and walked in index order.
+//   no longer fit a block) take `puflow_knn_self_stream`: the patch sorted
+//   once in device memory by cells of a grid (`knn_cells_kernel`,
+//   `knn_scatter_kernel`), with a box a tile of 32 sorted points, then
+//   `knn_stream_kernel`, the same keys, lists and merge, walking the tiles
+//   outwards and skipping those whose box is farther than every lane's
+//   bar (the section before it says why that is exact). Without the skip
+//   the walk computes all n^2 distances; with it, about 3% of them at
+//   10,433 points and 1% at 32,768.
 // The TPU kernel's transposed layout and k min-sweeps were for the VPU's
 // sublane reductions and are not carried over.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -465,51 +472,410 @@ knn_self_kernel(const float* __restrict__ xyz, int n, int k,
   }
 }
 
-// Patches larger than shared memory holds: the same keys, lists and lane
-// merge, the candidates streamed from device memory through shared memory
-// in chunks of kChunk points, each walked in index order (no Morton order:
-// a block cannot sort a patch it cannot hold). Lane s of a query's L takes
-// every L-th candidate of a chunk. grid and block as `knn_self_kernel`'s.
-constexpr int kChunk = 2048;        // 32 KB of float4
+// Patches larger than shared memory holds (`puflow_knn_self_stream`): the
+// same keys, lists, insertion and lane merge, in three launches.
+// `knn_cells_kernel`, a block a patch: the patch's bounding box, a grid of
+// 2^g cells an axis over it (g <= 5), a histogram of the cells' Morton
+// codes in shared memory and its scan, written out as each cell's first
+// place in the order. `knn_scatter_kernel`, a thread a point over many
+// blocks: each point to its cell's next place by a global atomic, as
+// float4 (x, y, z, index bits) (the order within a cell is free: only the
+// keys decide the result), and into the box of its tile of kTile
+// consecutive places by atomic min / max on ordered bits: the box is the
+// min and max of the tile's members' own coordinates. `knn_stream_kernel`
+// walks the sorted patch as `knn_self_kernel` walks its shared memory: a
+// warp's queries are consecutive in the order, and the warp visits the
+// tiles outwards from its own, after a test that may skip a tile. Per
+// axis the gap between the query and the box, __fsub_rn(lo, q) below it,
+// __fsub_rn(q, hi) above it, else 0, and lb = (gx*gx + gy*gy) + gz*gz in
+// the keys' _rn order: rounding is monotone and __fsub_rn(c, q) =
+// -__fsub_rn(q, c), so lb is at most the distance of any member. A lane
+// may skip a tile when lb exceeds the distance of its bar (`bar_of`:
+// strictly, since a tie with a lower index still enters; an empty slot
+// never lets it skip), and the warp skips it when every lane may. Tiles
+// are tested 32 at a time first, one a lane, against the box of the
+// warp's queries and the largest bar of its lanes (a ballot), then each
+// one left against each query.
+constexpr int kTile = 32;             // sorted points a tile of the walk
+constexpr int kOrderThreads = 1024;   // a block of the cells kernel
+constexpr int kMaxCellBits = 5;       // at most 32 cells an axis
+constexpr int kUnroll = 4;            // points a thread loads at once
+constexpr int kScatterThreads = 256;  // a block of the scatter
+constexpr int kWalkThreads = 64;      // a block of the walk: two warps
+constexpr int kMaxDevices = 64;       // devices `allow_cells_smem` tracks
 
+// Inclusive sum over lanes 0..lane.
+__device__ __forceinline__ uint32_t warp_scan(uint32_t v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  return v;
+}
+
+// The Morton code of the cell of point p in the grid of 2^g cells an axis
+// from (frame.x, frame.y, frame.z), frame.w cells a unit.
+__device__ __forceinline__ uint32_t cell_of(const float (&p)[3],
+                                            float4 frame, int g) {
+  const int top = (1 << g) - 1;
+  const float lo[3] = {frame.x, frame.y, frame.z};
+  uint32_t code = 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int v = min(static_cast<int>((p[c] - lo[c]) * frame.w), top);
+    code |= spread3(static_cast<uint32_t>(v)) << (2 - c);
+  }
+  return code;
+}
+
+// Cell c's word in shared memory: a word of padding after every 32, so a
+// warp whose threads each walk 32 consecutive cells meets 32 banks.
+__device__ __forceinline__ int padded(uint32_t c) {
+  return static_cast<int>(c + (c >> 5));
+}
+
+// A float's bits as an int that orders as the float does, and back.
+__device__ __forceinline__ int ordered(float v) {
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int o) {
+  return __int_as_float(o >= 0 ? o : o ^ 0x7fffffff);
+}
+
+// The min (b[0..2]) and max (b[3..5]) of each axis over the warp.
+__device__ __forceinline__ void warp_box(float (&b)[6]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      b[c] = fminf(b[c], __shfl_xor_sync(0xffffffffu, b[c], off));
+      b[3 + c] = fmaxf(b[3 + c], __shfl_xor_sync(0xffffffffu, b[3 + c], off));
+    }
+  }
+}
+
+// Points i0 + u kOrderThreads (u < kUnroll) of the patch; past its end,
+// its last point again.
+__device__ __forceinline__ void load_points(const float* __restrict__ src,
+                                            int n, int i0,
+                                            float (&v)[kUnroll][3]) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = min(i0 + u * kOrderThreads, n - 1);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[u][c] = src[3 * i + c];
+  }
+}
+
+// The order's scratch a patch: its frame (the box's low corner and cells
+// a unit), each cell's next place, each tile's box (lo, hi as ordered
+// bits), the sorted patch.
+struct Order {
+  float4* frame;         // [batch]
+  uint32_t* next;        // [batch][2^(3 g)]
+  int4* boxes;           // [batch][tiles][2]
+  float4* sorted;        // [batch][n]
+};
+
+// grid: one block a patch; dynamic shared memory: a padded word a cell.
+// Each pass over the patch keeps kUnroll points a thread in flight.
+__global__ void __launch_bounds__(kOrderThreads)
+knn_cells_kernel(const float* __restrict__ xyz, int n, int g, Order order) {
+  extern __shared__ uint32_t cells[];          // counts, then first places
+  __shared__ float part_box[kOrderThreads / 32][6];
+  __shared__ uint32_t tot[32];
+  constexpr int kWarps = kOrderThreads / 32;
+  constexpr int kStride = kUnroll * kOrderThreads;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ncell = 1 << (3 * g);
+  const int tiles = (n + kTile - 1) / kTile;
+  const float* src = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
+
+  for (int c = tid; c < padded(ncell); c += kOrderThreads) cells[c] = 0u;
+  int4* box = order.boxes + static_cast<size_t>(blockIdx.x) * tiles * 2;
+  for (int t = tid; t < tiles; t += kOrderThreads) {
+    box[2 * t] = make_int4(INT_MAX, INT_MAX, INT_MAX, 0);
+    box[2 * t + 1] = make_int4(INT_MIN, INT_MIN, INT_MIN, 0);
+  }
+  float b[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
+                -INFINITY};
+  for (int i0 = tid; i0 < n; i0 += kStride) {
+    float v[kUnroll][3];
+    load_points(src, n, i0, v);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        b[c] = fminf(b[c], v[u][c]);
+        b[3 + c] = fmaxf(b[3 + c], v[u][c]);
+      }
+    }
+  }
+  warp_box(b);
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) part_box[warp][c] = b[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      b[c] = fminf(b[c], part_box[w][c]);
+      b[3 + c] = fmaxf(b[3 + c], part_box[w][3 + c]);
+    }
+  }
+  const float extent = fmaxf(fmaxf(b[3] - b[0], b[4] - b[1]), b[5] - b[2]);
+  const float4 frame = make_float4(
+      b[0], b[1], b[2],
+      extent > 0.0f ? static_cast<float>(1 << g) / extent : 0.0f);
+  if (tid == 0) order.frame[blockIdx.x] = frame;
+  for (int i0 = tid; i0 < n; i0 += kStride) {
+    float v[kUnroll][3];
+    load_points(src, n, i0, v);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i0 + u * kOrderThreads < n)
+        atomicAdd(&cells[padded(cell_of(v[u], frame, g))], 1u);
+    }
+  }
+  __syncthreads();
+  // the counts' exclusive scan: thread t's run of `per` consecutive cells
+  // summed, the sums scanned over the block, each run written out
+  const int per = ncell > kOrderThreads ? ncell / kOrderThreads : 1;
+  const int first = tid * per;
+  uint32_t sum = 0;
+  for (int j = 0; j < per; ++j)
+    if (first + j < ncell) sum += cells[padded(first + j)];
+  const uint32_t incl = warp_scan(sum, lane);
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t t = tot[lane];
+    tot[lane] = warp_scan(t, lane) - t;
+  }
+  __syncthreads();
+  uint32_t run = tot[warp] + incl - sum;
+  for (int j = 0; j < per; ++j) {
+    if (first + j < ncell) {
+      const uint32_t count = cells[padded(first + j)];
+      cells[padded(first + j)] = run;
+      run += count;
+    }
+  }
+  __syncthreads();
+  uint32_t* next = order.next + static_cast<size_t>(blockIdx.x) * ncell;
+  for (int c = tid; c < ncell; c += kOrderThreads) next[c] = cells[padded(c)];
+}
+
+// grid: ceil(n / kScatterThreads) blocks a patch, patch-major; a thread a
+// point.
+__global__ void __launch_bounds__(kScatterThreads)
+knn_scatter_kernel(const float* __restrict__ xyz, int n, int g,
+                   Order order) {
+  const int blocks = (n + kScatterThreads - 1) / kScatterThreads;
+  const int patch = blockIdx.x / blocks;
+  const int i = (blockIdx.x - patch * blocks) * kScatterThreads +
+                threadIdx.x;
+  if (i >= n) return;
+  const float* src = xyz + (static_cast<size_t>(patch) * n + i) * 3;
+  const float p[3] = {src[0], src[1], src[2]};
+  const uint32_t cell = cell_of(p, order.frame[patch], g);
+  const uint32_t at = atomicAdd(
+      &order.next[(static_cast<size_t>(patch) << (3 * g)) + cell], 1u);
+  order.sorted[static_cast<size_t>(patch) * n + at] =
+      make_float4(p[0], p[1], p[2], __int_as_float(i));
+  const int tiles = (n + kTile - 1) / kTile;
+  int* box = reinterpret_cast<int*>(
+      order.boxes + (static_cast<size_t>(patch) * tiles + at / kTile) * 2);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    atomicMin(box + c, ordered(p[c]));
+    atomicMax(box + 4 + c, ordered(p[c]));
+  }
+}
+
+// One axis of the lower bound: the gap between [qlo, qhi] and [lo, hi].
+__device__ __forceinline__ float gap(float qlo, float qhi, float lo,
+                                     float hi) {
+  return qhi < lo ? __fsub_rn(lo, qhi)
+                  : (qlo > hi ? __fsub_rn(qlo, hi) : 0.0f);
+}
+
+// The bits of the lower bound of the distance between a point of the box
+// [qlo, qhi] (a query: qlo = qhi) and any point of the box [lo, hi].
+__device__ __forceinline__ uint32_t bound_bits(float4 qlo, float4 qhi,
+                                               float4 lo, float4 hi) {
+  const float gx = gap(qlo.x, qhi.x, lo.x, hi.x);
+  const float gy = gap(qlo.y, qhi.y, lo.y, hi.y);
+  const float gz = gap(qlo.z, qhi.z, lo.z, hi.z);
+  return __float_as_uint(__fadd_rn(
+      __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz)));
+}
+
+// Tile t's box from its ordered bits.
+__device__ __forceinline__ void box_of(const int4* __restrict__ boxes, int t,
+                                       float4& lo, float4& hi) {
+  const int4 l = boxes[2 * t], h = boxes[2 * t + 1];
+  lo = make_float4(unordered(l.x), unordered(l.y), unordered(l.z), 0.0f);
+  hi = make_float4(unordered(h.x), unordered(h.y), unordered(h.z), 0.0f);
+}
+
+// The distance bits of a key (0xffffffff for an empty slot).
+__device__ __forceinline__ uint32_t dist_bits(uint64_t key) {
+  return static_cast<uint32_t>(key >> 32);
+}
+
+// A lane's bar: no candidate whose key is at or above it can be among its
+// query's KL best. Its list's last key, and at L > 1 the largest of the
+// J-th keys of the query's L lanes, if smaller (J = KL / L, at least 1:
+// the lanes hold L J >= KL keys at or below it). A lane's list holds the
+// best of its share of the candidates only; the second bar is that of
+// them all.
 template <int KL, int L>
-__global__ void __launch_bounds__(kThreads)
-knn_stream_kernel(const float* __restrict__ xyz, int n, int k,
+__device__ __forceinline__ uint64_t bar_of(const uint64_t (&list)[KL]) {
+  if constexpr (L == 1) {
+    return list[KL - 1];
+  } else {
+    constexpr int kJ = KL / L > 1 ? KL / L : 1;
+    uint64_t bar = list[kJ - 1];
+#pragma unroll
+    for (int m = 1; m < L; m <<= 1) {
+      const uint64_t other = __shfl_xor_sync(0xffffffffu, bar, m);
+      bar = bar > other ? bar : other;
+    }
+    return kmin(bar, list[KL - 1]);
+  }
+}
+
+// The tile of m members at `base` staged in the warp's buffer; lane s of
+// a query's L takes candidates s, s + L, ..., each held to the lane's
+// `bar` at L > 1.
+template <int KL, int L>
+__device__ __forceinline__ void walk_tile(const float4* __restrict__ pts,
+                                          float4* buf, int base, int m,
+                                          float4 q, int lane, int s,
+                                          uint64_t bar,
+                                          uint64_t (&list)[KL]) {
+  constexpr int kSteps = kTile / L;
+  for (int j = lane; j < m; j += 32) buf[j] = pts[base + j];
+  __syncwarp();
+#pragma unroll 4
+  for (int f = 0; f < kSteps; ++f) {
+    const int j = f * L + s;
+    uint64_t key = j < m ? key_of(buf[j], q) : kNone;
+    if constexpr (L > 1) key = key < bar ? key : kNone;
+    insert(list, key);
+  }
+  __syncwarp();
+}
+
+// The walk's t-th tile from `centre`: t = 0 the warp's own, then +1, -1,
+// +2, -2, ..., then on along the longer side (`below` and `above` tiles
+// on either side, `both` the fewer).
+__device__ __forceinline__ int outward(int t, int centre, int below,
+                                       int above, int both) {
+  const int e = t - 2 * both;
+  if (e <= 0) return (t & 1) ? centre + (t + 1) / 2 : centre - t / 2;
+  return below > above ? centre - both - e : centre + both + e;
+}
+
+// grid: ceil(n / (kWalkThreads / L)) blocks a patch, patch-major; lane
+// group g of L lanes of a warp holds query g of the warp's 32 / L
+// consecutive places in the order. The boxes of the next 32 tiles are
+// loaded while the current ones are walked.
+template <int KL, int L>
+__global__ void __launch_bounds__(kWalkThreads)
+knn_stream_kernel(const float4* __restrict__ sorted,
+                  const int4* __restrict__ boxes, int n, int k,
                   int64_t* __restrict__ out) {
-  constexpr int kQ = kThreads / L;          // queries a block
+  constexpr int kQ = kWalkThreads / L;      // queries a block
   constexpr int kWarpQ = 32 / L;            // queries a warp
-  __shared__ float4 pts[kChunk];
+  constexpr int kSteps = kTile / L;         // candidates a lane a tile
+  __shared__ float4 stage[kWalkThreads / 32][kTile];
   const int blocks = (n + kQ - 1) / kQ;
   const int patch = blockIdx.x / blocks;
-  const int q0 = (blockIdx.x - patch * blocks) * kQ;
-  const float* src = xyz + static_cast<size_t>(patch) * n * 3;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int g = tid / L, s = lane % L, p = q0 + g;
-  const bool active = q0 + (tid >> 5) * kWarpQ < n;   // warp-uniform
-  const float* qp = src + 3 * static_cast<size_t>(min(p, n - 1));
-  const float4 q = make_float4(qp[0], qp[1], qp[2], 0.f);
+  const int w0 = (blockIdx.x - patch * blocks) * kQ + (tid >> 5) * kWarpQ;
+  if (w0 >= n) return;                      // warp-uniform
+  const int tiles = (n + kTile - 1) / kTile;
+  const float4* pts = sorted + static_cast<size_t>(patch) * n;
+  const int4* box = boxes + static_cast<size_t>(patch) * tiles * 2;
+  float4* buf = stage[tid >> 5];
+  const int s = lane % L, p = w0 + lane / L;
+  const float4 q = pts[min(p, n - 1)];
+  const int centre = min(w0 + kWarpQ / 2, n - 1) / kTile;
+  const int below = centre, above = tiles - 1 - centre;
+  const int both = min(below, above);
+  // the first group's boxes
+  int tile = outward(lane, centre, below, above, both);
+  float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+  if (lane < tiles) box_of(box, tile, lo, hi);
+  float b[6] = {q.x, q.y, q.z, q.x, q.y, q.z};
+  warp_box(b);                              // the box of the warp's queries
+  const float4 wlo = make_float4(b[0], b[1], b[2], 0.0f);
+  const float4 whi = make_float4(b[3], b[4], b[5], 0.0f);
   uint64_t list[KL];
 #pragma unroll
   for (int j = 0; j < KL; ++j) list[j] = kNone;
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    const int m = min(kChunk, n - c0);
-    __syncthreads();                        // the last chunk is walked
-    for (int i = tid; i < m; i += kThreads) {
-      const float* v = src + 3 * static_cast<size_t>(c0 + i);
-      pts[i] = make_float4(v[0], v[1], v[2], __int_as_float(c0 + i));
+
+  // the warp's own tile first, its first keys sorted by a network
+  {
+    const int base = centre * kTile, m = min(kTile, n - base);
+    for (int j = lane; j < m; j += 32) buf[j] = pts[base + j];
+    __syncwarp();
+    constexpr int kF = kSteps < KL ? kSteps : KL;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      const int j = f * L + s;
+      list[f] = j < m ? key_of(buf[j], q) : kNone;
     }
-    __syncthreads();
-    if (active) {
-      const int whole = m - m % L;          // steps with every lane valid
-      int j = 0;
+    bitonic_sort<KL, 2>(list);
 #pragma unroll 4
-      for (; j < whole; j += L) consider<KL, false>(pts, q, list, j + s, true);
-      if (whole < m) consider<KL, true>(pts, q, list, j + s, j + s < m);
+    for (int f = kF; f < kSteps; ++f) {
+      const int j = f * L + s;
+      insert(list, j < m ? key_of(buf[j], q) : kNone);
     }
+    __syncwarp();
   }
-  if (active) merge_lanes<KL, L>(list);
+  uint64_t bar = bar_of<KL, L>(list);
+  // then the others, 32 at a time
+  for (int t0 = 0; t0 < tiles; t0 += 32) {
+    const int t = t0 + lane;
+    const bool valid = t > 0 && t < tiles;
+    const int next = outward(t + 32, centre, below, above, both);
+    float4 nlo = lo, nhi = hi;
+    if (t + 32 < tiles) box_of(box, next, nlo, nhi);
+    const uint32_t most = __reduce_max_sync(0xffffffffu, dist_bits(bar));
+    uint32_t todo = __ballot_sync(
+        0xffffffffu, valid && bound_bits(wlo, whi, lo, hi) <= most);
+    while (todo) {
+      const int i = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float4 tlo = make_float4(__shfl_sync(0xffffffffu, lo.x, i),
+                                     __shfl_sync(0xffffffffu, lo.y, i),
+                                     __shfl_sync(0xffffffffu, lo.z, i), 0.0f);
+      const float4 thi = make_float4(__shfl_sync(0xffffffffu, hi.x, i),
+                                     __shfl_sync(0xffffffffu, hi.y, i),
+                                     __shfl_sync(0xffffffffu, hi.z, i), 0.0f);
+      if (__all_sync(0xffffffffu,
+                     bound_bits(q, q, tlo, thi) > dist_bits(bar)))
+        continue;
+      const int base = __shfl_sync(0xffffffffu, tile, i) * kTile;
+      walk_tile<KL, L>(pts, buf, base, min(kTile, n - base), q, lane, s,
+                       bar, list);
+      bar = bar_of<KL, L>(list);
+    }
+    tile = next;
+    lo = nlo;
+    hi = nhi;
+  }
+  merge_lanes<KL, L>(list);
   if (p < n) {
-    int64_t* row = out + (static_cast<size_t>(patch) * n + p) * k;
+    int64_t* row = out + (static_cast<size_t>(patch) * n +
+                          __float_as_int(q.w)) * k;
 #pragma unroll
     for (int j = 0; j < KL; ++j) {
       if (j % L == s && j < k)
@@ -526,69 +892,173 @@ size_t smem_bytes(int n, int k, int lanes) {
   return 16 * static_cast<size_t>(n) + (words > rows ? words : rows);
 }
 
-// kStream: `knn_stream_kernel`, else `knn_self_kernel`.
-template <bool kStream, int KL, int L>
+template <int KL, int L>
 cudaError_t launch(const float* xyz, int batch, int n, int k, int64_t* out,
                    cudaStream_t stream) {
   constexpr int kQ = kThreads / L;
   const long long grid = static_cast<long long>(batch) * ((n + kQ - 1) / kQ);
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if constexpr (kStream) {
-    knn_stream_kernel<KL, L><<<static_cast<unsigned>(grid), kThreads, 0,
-                               stream>>>(xyz, n, k, out);
-  } else {
-    const size_t smem = smem_bytes(n, k, L);
-    if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          knn_self_kernel<KL, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
-    knn_self_kernel<KL, L><<<static_cast<unsigned>(grid), kThreads, smem,
-                             stream>>>(xyz, n, k, out);
+  const size_t smem = smem_bytes(n, k, L);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_self_kernel<KL, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
+  knn_self_kernel<KL, L><<<static_cast<unsigned>(grid), kThreads, smem,
+                           stream>>>(xyz, n, k, out);
   return cudaGetLastError();
 }
 
-template <bool kStream, int L>
+template <int L>
 cudaError_t launch_lanes(const float* xyz, int batch, int n, int k,
                          int64_t* out, cudaStream_t stream) {
-  if (k <= 1) return launch<kStream, 1, L>(xyz, batch, n, k, out, stream);
-  if (k <= 2) return launch<kStream, 2, L>(xyz, batch, n, k, out, stream);
-  if (k <= 4) return launch<kStream, 4, L>(xyz, batch, n, k, out, stream);
-  if (k <= 8) return launch<kStream, 8, L>(xyz, batch, n, k, out, stream);
-  return launch<kStream, 16, L>(xyz, batch, n, k, out, stream);
+  if (k <= 1) return launch<1, L>(xyz, batch, n, k, out, stream);
+  if (k <= 2) return launch<2, L>(xyz, batch, n, k, out, stream);
+  if (k <= 4) return launch<4, L>(xyz, batch, n, k, out, stream);
+  if (k <= 8) return launch<8, L>(xyz, batch, n, k, out, stream);
+  return launch<16, L>(xyz, batch, n, k, out, stream);
 }
 
-// 4 lanes a query below 65,536 queries (256 patches of 256), where one
-// lane a query leaves most of the card's warp slots empty.
-template <bool kStream>
-int launch_queries(const void* xyz, int batch, int n, int k, void* out,
-                   void* stream) {
+template <int KL, int L>
+cudaError_t launch_walk(const Order& order, int batch, int n, int k,
+                        int64_t* out, cudaStream_t stream) {
+  constexpr int kQ = kWalkThreads / L;
+  const long long grid = static_cast<long long>(batch) * ((n + kQ - 1) / kQ);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  knn_stream_kernel<KL, L><<<static_cast<unsigned>(grid), kWalkThreads, 0,
+                             stream>>>(order.sorted, order.boxes, n, k, out);
+  return cudaGetLastError();
+}
+
+// The walk's lanes a query: 8 below 32,768 queries (one patch of up to
+// 32,767 points), where each warp's latency sets its time, 4 below 65,536,
+// else 1.
+template <int KL>
+cudaError_t launch_walk_lanes(const Order& order, int batch, int n, int k,
+                              int64_t* out, cudaStream_t stream) {
+  const long long queries = static_cast<long long>(batch) * n;
+  if (queries >= (1 << 16))
+    return launch_walk<KL, 1>(order, batch, n, k, out, stream);
+  if (queries >= (1 << 15))
+    return launch_walk<KL, 4>(order, batch, n, k, out, stream);
+  return launch_walk<KL, 8>(order, batch, n, k, out, stream);
+}
+
+// The cells kernel's grid: 2^g cells an axis, the fewest that give every
+// point a cell of its own on average, at most 2^kMaxCellBits.
+int cell_bits(int n) {
+  int g = 1;
+  while (g < kMaxCellBits && (1 << (3 * g)) < n) ++g;
+  return g;
+}
+
+// The cells kernel's shared memory at 2^g cells an axis: a padded word a
+// cell (`padded`).
+int cells_smem(int g) {
+  const int ncell = 1 << (3 * g);
+  return 4 * (ncell + (ncell >> 5));
+}
+
+// The order's scratch for `batch` patches of n points at `scratch` (null:
+// only its size): a patch's frame, its tiles' boxes, the sorted patch and
+// a word a cell. Returns its bytes.
+size_t order_at(void* scratch, int batch, int n, Order& order) {
+  const size_t b = static_cast<size_t>(batch);
+  const size_t tiles = (static_cast<size_t>(n) + kTile - 1) / kTile;
+  const size_t ncell = size_t{1} << (3 * cell_bits(n));
+  const size_t boxes = 16 * b, sorted = boxes + 32 * b * tiles,
+               next = sorted + 16 * b * n;
+  if (scratch != nullptr) {
+    char* at = static_cast<char*>(scratch);
+    order.frame = reinterpret_cast<float4*>(at);
+    order.boxes = reinterpret_cast<int4*>(at + boxes);
+    order.sorted = reinterpret_cast<float4*>(at + sorted);
+    order.next = reinterpret_cast<uint32_t*>(at + next);
+  }
+  return next + 4 * b * ncell;
+}
+
+// Lets the cells kernel take its largest shared memory, once a device.
+cudaError_t allow_cells_smem() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t result[kMaxDevices];
+  std::call_once(once[dev], [dev] {
+    result[dev] = cudaFuncSetAttribute(
+        knn_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cells_smem(kMaxCellBits));
+  });
+  return result[dev];
+}
+
+}  // namespace
+
+// xyz [batch, n, 3] f32 -> out [batch, n, k] int64, 1 <= k <= min(16, n),
+// 16 n + max(4 pow2(n), 32768) <= 232448 bytes (n <= 10432). 4 lanes a
+// query below 65,536 queries (256 patches of 256), where one lane a query
+// leaves most of the card's warp slots empty.
+extern "C" int puflow_knn_self(const void* xyz, int batch, int n, int k,
+                               void* out, void* stream) {
   if (k < 1 || k > kMaxK || k > n) return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   const long long queries = static_cast<long long>(batch) * n;
   const float* x = static_cast<const float*>(xyz);
   int64_t* o = static_cast<int64_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (queries >= (1 << 16))
-    return launch_lanes<kStream, 1>(x, batch, n, k, o, s);
-  return launch_lanes<kStream, 4>(x, batch, n, k, o, s);
+  if (queries >= (1 << 16)) return launch_lanes<1>(x, batch, n, k, o, s);
+  return launch_lanes<4>(x, batch, n, k, o, s);
 }
 
-}  // namespace
-
-// xyz [batch, n, 3] f32 -> out [batch, n, k] int64, 1 <= k <= min(16, n),
-// 16 n + max(4 pow2(n), 32768) <= 232448 bytes (n <= 10432).
-extern "C" int puflow_knn_self(const void* xyz, int batch, int n, int k,
-                               void* out, void* stream) {
-  return launch_queries<false>(xyz, batch, n, k, out, stream);
+// The bytes of `puflow_knn_self_stream`'s scratch for `batch` patches of n
+// points, into *bytes (a long long).
+extern "C" int puflow_knn_self_stream_scratch(int batch, int n, void* bytes) {
+  if (batch < 0 || n < 1) return cudaErrorInvalidValue;
+  Order order;
+  *static_cast<long long*>(bytes) =
+      static_cast<long long>(order_at(nullptr, batch, n, order));
+  return cudaSuccess;
 }
 
-// The same for patches of any n (the candidates streamed from device
-// memory; the wrapper takes it above `puflow_knn_self`'s limit).
+// The same for patches of any n: the order (`knn_cells_kernel`, then
+// `knn_scatter_kernel`) into `scratch` (16-byte aligned, `scratch_bytes`
+// long: at least `puflow_knn_self_stream_scratch`'s), then the walk
+// (`knn_stream_kernel`).
 extern "C" int puflow_knn_self_stream(const void* xyz, int batch, int n,
-                                      int k, void* out, void* stream) {
-  return launch_queries<true>(xyz, batch, n, k, out, stream);
+                                      int k, void* out, void* scratch,
+                                      long long scratch_bytes,
+                                      void* stream) {
+  if (k < 1 || k > kMaxK || k > n) return cudaErrorInvalidValue;
+  if (batch == 0) return cudaSuccess;
+  Order order;
+  const size_t need = order_at(scratch, batch, n, order);
+  if (scratch == nullptr || scratch_bytes < 0 ||
+      static_cast<size_t>(scratch_bytes) < need)
+    return cudaErrorInvalidValue;
+  const long long grid = static_cast<long long>(batch) *
+                         ((n + kScatterThreads - 1) / kScatterThreads);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(xyz);
+  int64_t* o = static_cast<int64_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int g = cell_bits(n);
+  if (cells_smem(g) > 48 * 1024) {
+    const cudaError_t err = allow_cells_smem();
+    if (err != cudaSuccess) return err;
+  }
+  knn_cells_kernel<<<batch, kOrderThreads, cells_smem(g), s>>>(x, n, g,
+                                                                order);
+  knn_scatter_kernel<<<static_cast<unsigned>(grid), kScatterThreads, 0, s>>>(
+      x, n, g, order);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (k <= 1) return launch_walk_lanes<1>(order, batch, n, k, o, s);
+  if (k <= 2) return launch_walk_lanes<2>(order, batch, n, k, o, s);
+  if (k <= 4) return launch_walk_lanes<4>(order, batch, n, k, o, s);
+  if (k <= 8) return launch_walk_lanes<8>(order, batch, n, k, o, s);
+  return launch_walk_lanes<16>(order, batch, n, k, o, s);
 }

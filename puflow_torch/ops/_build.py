@@ -47,7 +47,8 @@ _SIGNATURES = {
     "puflow_flow_g_blend": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                             _I, _P, _P],
     "puflow_knn_self": [_P, _I, _I, _I, _P, _P],
-    "puflow_knn_self_stream": [_P, _I, _I, _I, _P, _P],
+    "puflow_knn_self_stream": [_P, _I, _I, _I, _P, _P, _L, _P],
+    "puflow_knn_self_stream_scratch": [_I, _I, _P],
     "puflow_encoder": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     "puflow_interp_head": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                            _P],

@@ -10,11 +10,16 @@ package; every consumer is permutation-equivariant over neighbour slots.
 `ops/pallas/knn_pallas.py:knn_self_pallas` (here `csrc/knn.cu`): each
 point's neighbours within its own patch, from delta-form distances with
 first-occurrence ties; the kernel and `knn_self_plain` return the same
-indices. Patches over `KNN_MAX_N` points take `knn_self_stream`, a second
-kernel of `csrc/knn.cu` that streams the candidates from device memory.
+indices. Patches over `KNN_MAX_N` points take `knn_self_stream`: three
+more kernels of `csrc/knn.cu` sort each patch spatially in device memory,
+then walk its tiles outwards from each warp's place, skipping the tiles
+whose box lies farther than every lane's current neighbours.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -126,14 +131,14 @@ def _check_self(name: str, xyz: torch.Tensor, k: int) -> None:
         raise ValueError(f"{name}: k={k} outside [1, min({KNN_MAX_K}, n)]")
 
 
-def _launch_self(entry: str, xyz: torch.Tensor, k: int) -> torch.Tensor:
+def _launch_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
     B, n, _ = xyz.shape
     out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
-        code = getattr(lib, entry)(xyz.data_ptr(), B, n, k, out.data_ptr(),
+        code = lib.puflow_knn_self(xyz.data_ptr(), B, n, k, out.data_ptr(),
                                    _build.stream_ptr(xyz.device))
-    _build.check(code, entry)
+    _build.check(code, "puflow_knn_self")
     return out
 
 
@@ -146,19 +151,41 @@ def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
     _check_self("knn_self", xyz, k)
     if not knn_self_in_smem(xyz.shape[1]):
         return knn_self_stream(xyz, k)
-    out = _launch_self("puflow_knn_self", xyz, k)
+    out = _launch_self(xyz, k)
     knn_self.launches += 1
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _stream_scratch_bytes(batch: int, n: int) -> int:
+    """Bytes of `puflow_knn_self_stream`'s scratch for ``batch`` patches of
+    ``n`` points (`puflow_knn_self_stream_scratch`)."""
+    size = ctypes.c_longlong()
+    code = _build.library().puflow_knn_self_stream_scratch(
+        batch, n, ctypes.addressof(size))
+    _build.check(code, "puflow_knn_self_stream_scratch")
+    return size.value
+
+
 def knn_self_stream(xyz: torch.Tensor, k: int) -> torch.Tensor:
-    """`knn_self` for patches of any size: the kernel that streams the
-    candidates from device memory (`csrc/knn.cu:knn_stream_kernel`) for a
-    CUDA tensor, `knn_self_plain` for a CPU tensor; the same indices."""
+    """`knn_self` for patches of any size: for a CUDA tensor one call of
+    `csrc/knn.cu:puflow_knn_self_stream` (`knn_cells_kernel` and
+    `knn_scatter_kernel` sort each patch into a scratch of its own,
+    `knn_stream_kernel` walks it), `knn_self_plain` for a CPU tensor; the
+    same indices."""
     if xyz.device.type == "cpu":
         return knn_self_plain(xyz, k)
     _check_self("knn_self_stream", xyz, k)
-    out = _launch_self("puflow_knn_self_stream", xyz, k)
+    B, n, _ = xyz.shape
+    out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
+    scratch = torch.empty(_stream_scratch_bytes(B, n), dtype=torch.uint8,
+                          device=xyz.device)
+    lib = _build.library()
+    with torch.cuda.device(xyz.device):
+        code = lib.puflow_knn_self_stream(
+            xyz.data_ptr(), B, n, k, out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), _build.stream_ptr(xyz.device))
+    _build.check(code, "puflow_knn_self_stream")
     knn_self_stream.launches += 1
     return out
 

@@ -303,28 +303,54 @@ def test_knn_self_kernel_largest_patch(card):
                                       knn_self_plain(x, 16).cpu().numpy())
 
 
-# the shared-memory kernel's cases through the streaming kernel, and
-# patches of several chunks (2,048 points) with a ragged last one
-@pytest.mark.parametrize("b,n,k", [
-    (5, 17, 16), (5, 300, 1), (5, 300, 5), (3, 300, 8), (5, 300, 16),
-    (1, 256, 16), (1024, 256, 16), (2, 4099, 16), (1, 10433, 8)])
-@pytest.mark.parametrize("kind", ["float", "grid", "repeated"])
-def test_knn_self_stream_kernel_cases(card, b, n, k, kind):
-    rng = np.random.RandomState(n + k)
+def _stream_patches(rng, kind, b, n):
     if kind == "grid":
         pts = rng.randint(0, 5, (b, n, 3))
     elif kind == "repeated":
         pts = rng.rand(b, n - n // 2, 3)
         pts = np.concatenate([pts, pts[:, :n // 2]], 1)
+    elif kind == "clustered":
+        # a dense cluster and a few far points: tiles of the cluster sit
+        # inside one cell of the spatial order, the far points' tiles span
+        # the patch
+        pts = 0.5 + 1e-3 * rng.randn(b, n, 3)
+        far = rng.rand(b, n, 1) < 0.02
+        pts = np.where(far, rng.rand(b, n, 3) * 4 - 2, pts)
     else:
         pts = rng.rand(b, n, 3)
-    x = torch.from_numpy(pts.astype(np.float32)).to(card)
+    return torch.from_numpy(pts.astype(np.float32))
+
+
+# the shared-memory kernel's cases through the streaming kernel, patches of
+# many tiles with a ragged last one, the CLI's batch at `--num_patch 10433`
+# and one patch of 32,768 points
+@pytest.mark.parametrize("b,n,k", [
+    (5, 17, 16), (5, 300, 1), (5, 300, 5), (3, 300, 8), (5, 300, 16),
+    (1, 256, 16), (1024, 256, 16), (2, 4099, 16), (1, 10433, 8),
+    (4, 10433, 16), (1, 32768, 16)])
+@pytest.mark.parametrize("kind", ["float", "grid", "repeated", "clustered"])
+def test_knn_self_stream_kernel_cases(card, b, n, k, kind):
+    x = _stream_patches(np.random.RandomState(n + k), kind, b, n).to(card)
     before = knn_self_stream.launches
     got = knn_self_stream(x, k)
     assert knn_self_stream.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   knn_self_plain(x, k).cpu().numpy())
     assert torch.equal(got, knn_self_stream(x, k))
+
+
+def test_knn_self_stream_reuses_scratch(card):
+    """The wrapper's scratch comes from the caching allocator, so a call
+    takes memory in which a call of another shape left its order: smaller,
+    ragged and larger patches in turn keep the plain version's indices."""
+    rng = np.random.RandomState(5)
+    shapes = [(2, 10433), (3, 300), (1, 4099), (2, 10433), (1, 17)]
+    xs = [_stream_patches(rng, kind, b, n).to(card)
+          for (b, n), kind in zip(shapes, ["float", "clustered", "grid",
+                                           "repeated", "float"])]
+    for x in xs + xs[::-1]:
+        np.testing.assert_array_equal(knn_self_stream(x, 16).cpu().numpy(),
+                                      knn_self_plain(x, 16).cpu().numpy())
 
 
 def test_encoder_kernel_matches_plain(card, folded):

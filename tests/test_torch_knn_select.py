@@ -17,9 +17,10 @@ lists decide the 16 nearest its indices must be exact. The warp vote only skips 
 change nothing, so it is not emulated. Inputs: float patches, integer
 grids (many exact ties), and patches whose second half repeats the first
 (distance-0 ties: slot 0 is the lower index, not always the point
-itself). The streaming kernel for patches over shared memory
-(`knn_stream_kernel`) shares the keys, the chain and the merge and walks
-the candidates in index order: `emulate_stream`.
+itself). The streaming kernels for patches over shared memory
+(`knn_cells_kernel`, `knn_scatter_kernel`, `knn_stream_kernel`) share
+the keys, the chain and the merge; their order, tile boxes, bound tests
+and bars: `emulate_stream`.
 """
 
 import jax.numpy as jnp
@@ -210,27 +211,143 @@ def emulate_narrow(x):
     return out, undecided, torch.gather(undecided, 1, warp_of)
 
 
-STREAM_CHUNK = 2048                      # csrc/knn.cu:kChunk
+STREAM_TILE = 32                         # csrc/knn.cu:kTile
+STREAM_CELL_BITS = 5                     # csrc/knn.cu:kMaxCellBits
 
 
-def emulate_stream(x, k, lanes):
-    """`knn_stream_kernel`'s indices (patches over shared memory): the
-    candidates in index order, chunk by chunk, lane s of a query's
-    ``lanes`` taking every lanes-th of a chunk into its list from empty,
-    then the lanes' merge."""
+def stream_order(x):
+    """``[B, n, 3]`` -> ``[B, n]``: the streaming kernels' order
+    (`knn_cells_kernel`, `knn_scatter_kernel`), the Morton code of each
+    point's cell in a grid of 2^g cells an axis over the patch's box (g
+    from n), by index within a cell (the kernels' order within a cell is
+    whatever their atomics give: only the keys decide)."""
+    B, n, _ = x.shape
+    g = 1
+    while g < STREAM_CELL_BITS and (1 << (3 * g)) < n:
+        g += 1
+    lo = x.amin(1, keepdim=True)
+    extent = (x.amax(1, keepdim=True) - lo).amax(-1, keepdim=True)
+    scale = torch.where(extent > 0, float(1 << g) / extent, torch.zeros(()))
+    v = ((x - lo) * scale).to(torch.int64).clamp(max=(1 << g) - 1)
+    code = sum(_spread3(v[..., c]) << (2 - c) for c in range(3))
+    return torch.argsort(code * n + torch.arange(n), dim=1)
+
+
+def bound_bits(qlo, qhi, lo, hi):
+    """`csrc/knn.cu:bound_bits`: the float32 bits (as int64) of the lower
+    bound of the delta-form distance between a point of the box [qlo, qhi]
+    and one of [lo, hi], in the kernel's order and rounding."""
+    zero = torch.zeros((), dtype=lo.dtype)
+    g = torch.where(qhi < lo, lo - qhi, torch.where(qlo > hi, qlo - hi, zero))
+    d = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+    return d.contiguous().view(torch.int32).to(torch.int64)
+
+
+def outward(centre, tiles):
+    """``[W]`` centres -> ``[W, tiles]``: each warp's tiles in the walk's
+    order: its own, then +1, -1, +2, -2, ..., then on along the longer
+    side."""
+    t = torch.arange(tiles)
+    below, above = centre[:, None], tiles - 1 - centre[:, None]
+    both = torch.minimum(below, above)
+    e = t - 2 * both
+    near = torch.where(t % 2 == 1, below + (t + 1) // 2, below - t // 2)
+    far = torch.where(below > above, below - both - e, below + both + e)
+    return torch.where(e <= 0, near, far)
+
+
+def bar_of(lists, lanes):
+    """`csrc/knn.cu:bar_of`: each lane's bar ``[..., L]`` from its list
+    ``[..., L, KL]``: its last key, at L > 1 also the largest of the J-th
+    keys of the query's lanes (J = KL / L, at least 1)."""
+    KL = lists.shape[-1]
+    if lanes == 1:
+        return lists[..., KL - 1]
+    j = max(KL // lanes, 1)
+    top = lists[..., j - 1].amax(-1, keepdim=True)
+    return torch.minimum(top, lists[..., KL - 1])
+
+
+def emulate_stream(x, k, lanes, tile=STREAM_TILE, order=None, shuffle=None,
+                   stats=None):
+    """`puflow_knn_self_stream`'s indices: the patch in ``order`` (default
+    `stream_order`), a box a tile of ``tile`` points from its members; a
+    warp of 32 / L consecutive queries walks its own tile into its lists,
+    then the others outwards (``shuffle``, a generator: in a random order
+    instead), 32 at a time: a tile is walked unless the lower bound of the
+    warp's query box exceeds every lane's bar, or each query's bound its
+    lanes' bars; lane s takes candidates s, s + L, ... of a tile, each
+    held to its bar at L > 1; then the lanes' merge. ``stats``, a dict,
+    gets the tiles walked per query."""
     B, n, _ = x.shape
     KL = 1 << (k - 1).bit_length()
-    pts = torch.cat([x, torch.arange(n, dtype=x.dtype).expand(B, n)[
-        ..., None]], -1)                                     # [B, n, 4]
-    lists = []
-    for s in range(lanes):
-        lst = torch.full((B, n, KL), NONE, dtype=torch.int64)
-        for c0 in range(0, n, STREAM_CHUNK):
-            for j in range(s, min(STREAM_CHUNK, n - c0), lanes):
-                cand = pts[:, c0 + j, None].expand(-1, n, -1)
-                chain(lst, keys_of(x, cand))
-        lists.append(lst)
-    return merge_lanes(lists)[..., :k] & 0xFFFFFFFF
+    wq = 32 // lanes                         # queries a warp
+    if order is None:
+        order = stream_order(x)
+    pts = torch.cat([torch.gather(x, 1, order[..., None].expand(-1, -1, 3)),
+                     order[..., None].to(x.dtype)], -1)     # [B, n, 4]
+    tiles = -(-n // tile)
+    pad = tiles * tile - n
+    inf = torch.full((B, pad, 3), float("inf"))
+    lo = torch.cat([pts[..., :3], inf], 1).reshape(B, tiles, tile, 3).amin(2)
+    hi = torch.cat([pts[..., :3], -inf], 1).reshape(B, tiles, tile, 3).amax(2)
+    warps = -(-n // wq)
+    place = torch.arange(warps * wq).clamp(max=n - 1)
+    q = pts[:, place].reshape(B, warps, wq, 1, 4)            # a lane's query
+    wlo, whi = q[..., :3].amin((2, 3)), q[..., :3].amax((2, 3))
+    centre = (torch.arange(warps) * wq + wq // 2).clamp(max=n - 1) // tile
+    seq = outward(centre, tiles)                             # [W, tiles]
+    if shuffle is not None:
+        for w in range(warps):
+            rest = seq[w, 1:]
+            seq[w, 1:] = rest[torch.randperm(tiles - 1, generator=shuffle)]
+    lists = torch.full((B, warps, wq, lanes, KL), NONE, dtype=torch.int64)
+    lane = torch.arange(lanes)
+    walked = torch.zeros(B, warps, dtype=torch.int64)
+
+    def walk(tiles_now, go, held):
+        # tiles_now [W]: each warp's tile; go [B, W]: whether it walks
+        nonlocal bar
+        base = tiles_now * tile
+        m = (n - base).clamp(max=tile)
+        for f in range(-(-tile // lanes)):
+            j = f * lanes + lane                             # [L]
+            pos = (base[:, None] + j).clamp(max=n - 1)       # [W, L]
+            cand = pts[:, pos][:, :, None]                   # [B, W, 1, L, 4]
+            key = keys_of(q[..., :3], cand)
+            ok = (j < m[:, None])[None, :, None] & go[:, :, None, None]
+            if held:
+                ok = ok & (key < bar)
+            chain(lists, torch.where(ok, key, NONE))
+        bar = bar_of(lists, lanes)
+
+    bar = None
+    walk(seq[:, 0], torch.ones(B, warps, dtype=torch.bool), False)
+    walked += 1
+    for t0 in range(0, tiles, 32):
+        most = (bar >> 32).amax((2, 3))                      # [B, W]
+        group = seq[:, t0:t0 + 32]
+        valid = group != seq[:, :1]                          # not its own
+        need = valid & (bound_bits(wlo[:, :, None], whi[:, :, None],
+                                   lo[:, group], hi[:, group])
+                        <= most[..., None])                  # [B, W, 32]
+        for i in range(group.shape[1]):
+            tl = group[:, i]
+            skip = (bound_bits(q[..., :3], q[..., :3],
+                               lo[:, tl][:, :, None, None],
+                               hi[:, tl][:, :, None, None])
+                    > bar >> 32).all(-1).all(-1)             # [B, W]
+            go = need[..., i] & ~skip
+            walked += go
+            walk(tl, go, lanes > 1)
+    if stats is not None:
+        stats["tiles"] = tiles
+        stats["walked"] = walked
+    out = merge_lanes([lists[..., s, :] for s in range(lanes)])
+    idx = out.reshape(B, warps * wq, KL)[:, :n, :k] & 0xFFFFFFFF
+    res = torch.empty_like(idx)
+    res.scatter_(1, order[..., None].expand(-1, -1, k), idx)
+    return res
 
 
 def _patches(kind, n):
@@ -272,11 +389,12 @@ def test_selection_matches_jax_kernel(n, k, kind):
 @pytest.mark.parametrize("kind", ["float", "grid", "repeated"])
 @pytest.mark.parametrize("n,k", [(64, 5), (64, 16), (300, 1), (300, 16)])
 def test_stream_selection_matches_jax_kernel(n, k, kind):
-    """The streaming kernel's walk (index order, no Morton order, lists
-    filled from empty) gives JAX's indices at 1 and 4 lanes a query."""
+    """The streaming kernels' order and walk (tiles of the sorted patch
+    walked outwards, skipped by the box bound, candidates held to the
+    lanes' bar) give JAX's indices at 1, 4 and 8 lanes a query."""
     x = _patches(kind, n)
     ref = np.asarray(knn_pallas.knn_self_pallas(jnp.asarray(x), k, True))
-    for lanes in (1, 4):
+    for lanes in (1, 4, 8):
         np.testing.assert_array_equal(
             emulate_stream(torch.from_numpy(x), k, lanes).numpy(), ref)
 
