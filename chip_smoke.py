@@ -26,8 +26,10 @@ the full-width CNF model (`continuous.forward(train=True)` at batch 32,
 256 -> 1024 points, loss 1e-4 NLL + 5e-2 EMD): the six forward solves of f
 run the hand-written log-density solve kernel, the six of g the
 whole-solve kernel, and the twelve backward solves of the continuous
-adjoint the hand-written adjoint kernel, with and without the trace.
-Phases:
+adjoint the hand-written adjoint kernel, with and without the trace. Last
+it trains the CNF model with the trainer (those kernels and the EMD every
+step; its validation's f solves on the log-density kernel) and runs the
+CNF, PU-GAN and PUGeo train CLIs. Phases:
 
   1. checks the card, prints its name and power limit, checks that
      `import puflow_torch` turned TF32 off;
@@ -105,7 +107,25 @@ Phases:
      limit; finite gradients), holds the gradients of a smooth loss on the
      kernels to those on the plain versions, times the loss's forward and
      backward on both, and traces one run for the card's idle share;
- 18. prints one JSON line of kernel results and, last, the device line.
+ 18. runs `continuous.forward(train=False)` (the CNF validation's NLL) at
+     32 main-path patches on the seeded and the perturbed model: 6
+     log-density and 6 solve launches; each solve of the plain path given
+     to its kernel on the same inputs (equal step counts, 5e-6 seeded,
+     5e-5 and the float64 witness perturbed); the NLL and the dense cloud
+     against the plain path;
+ 19. trains the CNF model with `Trainer(..., forward_fn=continuous.forward)`
+     at `bench.py:bench_cnf_train`'s shape: the first step's forward and
+     EMD against the plain versions', 5 warm-up steps and 5 timed windows
+     of 10 steps with the launch counts set to 0 before and read after (6
+     log-density solves, 6 plain solves, 12 adjoint solves, 1 EMD a step;
+     steps/s, a split per step, peak memory, one traced step), then
+     `validate` on 2 batches (6 + 6 launches a batch) against the plain
+     solves;
+ 20. runs `train_cnf` and `train_pugan` on 2 synthetic steps and
+     `train_pugeo` on tfrecord shards it writes, then serves one cloud with
+     the CNF checkpoint, BN folded, with the cnf_folded path's launches;
+ 21. prints its total seconds, one JSON line of kernel results and, last,
+     the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
 refuses to run without it.
@@ -129,6 +149,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from puflow_torch import checkpoint
+from puflow_torch.data import tfrecord
 from puflow_torch.data.synthetic import synthetic_pairs
 from puflow_torch.inference.patch import (auto_merge_groups, normalize_cloud,
                                           remove_outliers, upsample_cloud)
@@ -1177,6 +1198,43 @@ def rounding_zero(paths, grads) -> dict:
     return {p: r for p, r in ratios.items() if r < ROUNDING_ZERO}
 
 
+def timed_steps(trainer, sparse, dense, warmup: int):
+    """``warmup`` train steps, then `TRAIN_WINDOWS` windows of
+    `TRAIN_STEPS` steps timed on the host clock, each step split by its
+    marks with CUDA events; every launch count set to 0 before and read
+    after -> (metrics of every step, window seconds, {stage: [ms]},
+    launches, peak device bytes)."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = [trainer.step(sparse, dense) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    windows, splits = [], {}
+    for _ in range(TRAIN_WINDOWS):
+        marks_per_step = []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            marks = [("start", torch.cuda.Event(enable_timing=True))]
+            marks[0][1].record()
+
+            def mark(stage, marks=marks):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((stage, ev))
+
+            metrics.append(trainer.step(sparse, dense, mark))
+            marks_per_step.append(marks)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        for marks in marks_per_step:
+            for (_, a), (stage, b) in zip(marks, marks[1:]):
+                splits.setdefault(stage, []).append(a.elapsed_time(b))
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    return metrics, windows, splits, launches, peak
+
+
 def phase_train(results, params, state, sparse, dense, card):
     """The training main path: TrainConfig() defaults at batch 32."""
     trainer = Trainer(TrainConfig(), params, state, device="cuda")
@@ -1213,34 +1271,8 @@ def phase_train(results, params, state, sparse, dense, card):
         f"plain: " + ", ".join(f"{p} {zero_kernel[p]:.2e} vs {r:.2e}"
                                for p, r in zero_plain.items()))
 
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    metrics = [trainer.step(sparse, dense) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    windows, splits = [], {}
-    for _ in range(TRAIN_WINDOWS):
-        marks_per_step = []
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            marks = [("start", torch.cuda.Event(enable_timing=True))]
-            marks[0][1].record()
-
-            def mark(stage, marks=marks):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((stage, ev))
-
-            metrics.append(trainer.step(sparse, dense, mark))
-            marks_per_step.append(marks)
-        torch.cuda.synchronize()
-        windows.append(time.perf_counter() - t0)
-        for marks in marks_per_step:
-            for (_, a), (stage, b) in zip(marks, marks[1:]):
-                splits.setdefault(stage, []).append(a.elapsed_time(b))
-    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
-    peak = torch.cuda.max_memory_allocated()
+    metrics, windows, splits, launches, peak = timed_steps(
+        trainer, sparse, dense, TRAIN_WARMUP)
     steps = TRAIN_WARMUP + TRAIN_WINDOWS * TRAIN_STEPS
     log(f"train main path: {steps} steps, launches {launches}")
     if launches["emd"] != steps:
@@ -1270,22 +1302,41 @@ def phase_train(results, params, state, sparse, dense, card):
                lambda: trainer.step(sparse, dense), median)
 
 
+def run_clis(*commands) -> None:
+    """Run each ``(module, flags...)`` as ``python -m module --device cuda
+    flags`` from the checkout, all at once (they share the card and the
+    host's cores); raises unless every one exits with 0."""
+    procs = []
+    for module, *flags in commands:
+        cmd = [sys.executable, "-m", module, "--device", "cuda", *flags]
+        procs.append((cmd, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    failed = []
+    try:
+        for cmd, t0, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            log(f"{cmd[2]} (ended within {time.perf_counter() - t0:.1f} s, "
+                f"exit {proc.returncode}): {' '.join(cmd[3:])}")
+            log(out.strip())
+            if proc.returncode != 0:
+                failed.append(f"{cmd[2]}:\n{err[-4000:]}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError("train CLIs failed: " + "\n".join(failed))
+
+
 def phase_cli():
     """Train with the CLI on the card, then serve what it saved."""
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "m.npz")
-        cmd = [sys.executable, "-m", "puflow_torch.cli.train_pu1k",
-               "--synthetic", "2", "--max_epochs", "1", "--val_batches", "1",
-               "--batch_size", str(TRAIN_B), "--device", "cuda",
-               "--checkpoint", ckpt]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=600)
-        log(f"train CLI ({time.perf_counter() - t0:.1f} s, exit "
-            f"{proc.returncode}): {' '.join(cmd[1:])}")
-        log(proc.stdout.strip())
-        if proc.returncode != 0:
-            raise AssertionError(f"train CLI failed:\n{proc.stderr[-4000:]}")
+        run_clis(("puflow_torch.cli.train_pu1k", "--synthetic", "2",
+                  "--max_epochs", "1", "--val_batches", "1", "--batch_size",
+                  str(TRAIN_B), "--checkpoint", ckpt))
         model = checkpoint.load_checkpoint(ckpt, "cuda", fold=True)
         pc = synthetic_clouds(1, SEED + 3)
         with torch.no_grad():
@@ -2198,6 +2249,26 @@ def compare_cnf_adjoint(model, results):
                   reps=3, plain_reps=1)
 
 
+def recorded(fn, calls):
+    """``fn`` (a plain solve) with its step counts: each call appends
+    (args, output, [attempted, accepted]) to ``calls``."""
+    def run(*args):
+        out, stats = fn(*args, return_stats=True)
+        calls.append((args, out, [stats["steps"], stats["accepted"]]))
+        return out
+    return run
+
+
+def plain_solves(f_calls=None, g_calls=None):
+    """`continuous.training_solves` with the plain versions of the three
+    CNF kernels, recording the f and g solves where lists are given."""
+    logp, solve = cnf_ops.cnf_solve_logp_plain, cnf_ops.cnf_solve_plain
+    return continuous.training_solves(
+        logp if f_calls is None else recorded(logp, f_calls),
+        solve if g_calls is None else recorded(solve, g_calls),
+        cnf_ops.cnf_adjoint_bwd_plain)
+
+
 def tree_paths(tree, prefix: str = "") -> list:
     """(path, leaf) of a nested dict / list tree in flattening order."""
     if isinstance(tree, dict):
@@ -2215,10 +2286,7 @@ def cnf_grad_loss(params, state, sparse, dense, plain: bool, smooth: bool):
     dense cloud; ``plain`` runs the solves and the EMD on their plain
     versions."""
     cfg = TrainConfig()
-    solves = continuous.training_solves(
-        cnf_ops.cnf_solve_logp_plain, cnf_ops.cnf_solve_plain,
-        cnf_ops.cnf_adjoint_bwd_plain) if plain else contextlib.nullcontext()
-    with solves:
+    with plain_solves() if plain else contextlib.nullcontext():
         pred, nll, _ = continuous.forward(params, state, sparse, UPRATIO,
                                           train=True)
     if smooth:
@@ -2381,7 +2449,295 @@ def cnf_kernel_ms(fn):
         f"busy {busy_us / 1e3:.3f} ms): " + "; ".join(parts))
 
 
+# the launches of one `continuous.forward(train=False)`: the six f solves
+# with the log-density, the six g solves
+EVAL_LAUNCHES = {"cnf_solve_logp": continuous.NUM_BLOCKS,
+                 "cnf_solve": continuous.NUM_BLOCKS}
+CNF_TRAIN_WARMUP = 5
+CNF_VAL_BATCHES = 2
+
+
+def gate(label, got, ref, tol) -> float:
+    """Raise unless ``got`` lies within ``tol`` of ``ref``; -> the error."""
+    err = float((got - ref).abs().max())
+    log(f"  {label}: max_abs_err {err:.3e} (tol {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"{label}: max_abs_err {err} > {tol}")
+    return err
+
+
+def no_launch(label) -> None:
+    """Raise if a kernel was launched since the counts were last set to 0
+    (a run meant to take the plain versions only)."""
+    launched = {k: fn.launches for k, fn in WRAPPERS.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"{label}: kernels launched {launched}")
+
+
+def phase_cnf_eval(model):
+    """`continuous.forward(train=False)` (the CNF validation's NLL and
+    dense cloud) on the kernels against the plain versions, at 32 main-path
+    patches (R = 8,192 rows for f) on the seeded and the perturbed
+    full-width model: 6 log-density and 6 plain solve launches a forward;
+    every solve of the plain path given to its kernel on the same inputs
+    with the same step counts, within 5e-6 at seeded weights and 5e-5 at
+    perturbed ones, with `witness_check` on the first f solve there (128
+    RK4 steps: the check holds the witness's own error below 1e-7; the g
+    solves' kernel is `compare_cnf`'s); the plain path launches no CNF
+    kernel; the NLL and the dense cloud of the two paths within the same
+    gates. ``model``: the perturbed unfolded model."""
+    x = main_path_patches(1)
+    logged = ("cnf_solve_logp", "cnf_solve")
+    for label, model in (("seeded", seeded_cnf_model()),
+                         ("perturbed", model)):
+        t0 = time.perf_counter()
+        tol = 5e-6 if label == "seeded" else SOLVER_TOL
+        params, state = model.trees()
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        for k in logged:
+            WRAPPERS[k].stats_log = []
+        with torch.no_grad():
+            dense, nll, _ = continuous.forward(params, state, x, UPRATIO)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+        stats = {k: solve_steps(WRAPPERS[k].stats_log) for k in logged}
+        for k in logged:
+            WRAPPERS[k].stats_log = None
+        log(f"cnf_eval forward(train=False), {label} weights, "
+            f"{tuple(x.shape)}: NLL {float(nll):.6f}, launches {launches}")
+        expect = dict.fromkeys(WRAPPERS, 0) | EVAL_LAUNCHES
+        if launches != expect:
+            raise AssertionError(f"cnf_eval: launches {launches}, not "
+                                 f"{expect}")
+        f_calls, g_calls = [], []
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        with torch.no_grad(), plain_solves(f_calls, g_calls):
+            ref_dense, ref_nll, _ = continuous.forward(params, state, x,
+                                                       UPRATIO)
+        no_launch(f"cnf_eval {label} on the plain solves")
+        log(f"cnf_eval {label}: [attempted, accepted] steps, kernels "
+            f"{stats}, plain f {[c[2] for c in f_calls]}, plain g "
+            f"{[c[2] for c in g_calls]}")
+        for kind, calls, kernel in (("f", f_calls, cnf_ops.cnf_solve_logp),
+                                    ("g", g_calls, cnf_ops.cnf_solve_t)):
+            for i, (args, ref, steps) in enumerate(calls):
+                got, st = kernel(*args, return_stats=True)
+                if st.tolist() != steps:
+                    raise AssertionError(
+                        f"cnf_eval {label} {kind} solve {i}: kernel steps "
+                        f"{st.tolist()}, plain {steps}")
+                if kind == "f":
+                    got, ref = torch.cat(got, -1), torch.cat(ref, -1)
+                gate(f"{label} {kind} solve {i} on the plain path's inputs, "
+                     f"steps {steps}", got, ref, tol)
+                if label == "perturbed" and kind == "f" and i == 0:
+                    witness_check(args[:6], got, ref, rk4_witness_logp,
+                                  WITNESS_STEPS // 8, "cnf_eval f")
+        gate(f"{label} dense cloud, kernels vs plain", dense, ref_dense, tol)
+        scale = max(1.0, abs(float(ref_nll)))
+        gate(f"{label} NLL, kernels vs plain (tol scaled by max(1, |NLL|) "
+             f"= {scale:.3f})", nll / scale, ref_nll / scale, tol)
+        log(f"cnf_eval {label}: {time.perf_counter() - t0:.1f} s")
+
+
+def cnf_first_step(trainer, sparse, dense) -> None:
+    """Hold the trainer's first step to the plain versions of its kernels:
+    the train-mode forward on the kernels against the same on the plain
+    solves (`plain_solves`), prediction within 5e-6 and NLL within 5e-6 of
+    max(1, |NLL|) (seeded weights: every step size set by a clip); the EMD
+    kernel against `emd_auction_plain` on the kernel path's prediction,
+    with equal assignments (the auction's assignment is not continuous in
+    its input: a prediction 1e-7 away may take another); then the step's
+    NLL, EMD and loss those of the kernel forward."""
+    cfg = trainer.cfg
+    with torch.no_grad():
+        pred, nll, _ = continuous.forward(*trainer.trees(), sparse,
+                                          cfg.upratio, train=True)
+        with plain_solves():
+            ref_pred, ref_nll, _ = continuous.forward(
+                *trainer.trees(), sparse, cfg.upratio, train=True)
+        dist, assign = emd_auction(pred, dense, cfg.emd_eps, cfg.emd_iters)
+        ref_dist, ref_assign = emd_auction_plain(pred, dense, cfg.emd_eps,
+                                                 cfg.emd_iters)
+    log("cnf_train step 1 against the plain versions:")
+    gate("train-mode prediction", pred, ref_pred, 5e-6)
+    scale = max(1.0, abs(float(ref_nll)))
+    gate(f"NLL {float(nll):.6f} (tol scaled by {scale:.3f})", nll / scale,
+         ref_nll / scale, 5e-6)
+    differ = int((assign != ref_assign).sum())
+    log(f"  EMD kernel vs plain on the kernel path's prediction: {differ} "
+        "assignments differ")
+    if differ:
+        raise AssertionError("cnf_train: the EMD kernel's assignments differ")
+    emd = torch.sum(dist)
+    gate("EMD sum", emd, torch.sum(ref_dist), 1e-6 * float(emd))
+    m = trainer.step(sparse, dense)
+    loss = nll * cfg.logpx_weight + emd * cfg.emd_weight
+    log(f"  step 1 loss {float(m['loss']):.7f} (NLL {float(m['logpx']):.6f},"
+        f" EMD {float(m['emd']):.6f}), from the forward above "
+        f"{float(loss):.7f}")
+    for k, want in (("logpx", nll), ("emd", emd), ("loss", loss)):
+        gate(f"step's {k}", m[k], want, 1e-6 * max(1.0, abs(float(want))))
+
+
+def phase_cnf_train(card):
+    """The CNF trainer: `Trainer(TrainConfig(), ..., forward_fn=
+    continuous.forward)` on the full-width seeded CNF model at
+    `bench.py:bench_cnf_train`'s shape (batch 32, 256 -> 1024 points).
+    The first step against the plain versions (`cnf_first_step`);
+    `CNF_TRAIN_WARMUP` steps and `TRAIN_WINDOWS` timed windows of
+    `TRAIN_STEPS` steps with the launch counts set to 0 before and read
+    after (`GRAD_LAUNCHES` a step); steps/s, the split per step, the peak
+    memory and one traced step's idle share; then `trainer.validate` on
+    `CNF_VAL_BATCHES` batches (`EVAL_LAUNCHES` a batch) against the same
+    validation on the plain solves."""
+    params, state = checkpoint.to_numpy_tree(seeded_cnf_model())
+    trainer = Trainer(TrainConfig(), params, state,
+                      forward_fn=continuous.forward, device="cuda")
+    sp, de = synthetic_pairs(np.random.RandomState(0), TRAIN_B, TRAIN_N,
+                             UPRATIO)
+    sparse, dense = torch.from_numpy(sp).cuda(), torch.from_numpy(de).cuda()
+    cnf_first_step(trainer, sparse, dense)
+
+    metrics, windows, splits, launches, peak = timed_steps(
+        trainer, sparse, dense, CNF_TRAIN_WARMUP)
+    steps = CNF_TRAIN_WARMUP + TRAIN_WINDOWS * TRAIN_STEPS
+    log(f"cnf_train main path: {steps} steps, launches {launches}")
+    for k, n in GRAD_LAUNCHES.items():
+        if launches[k] != n * steps:
+            raise AssertionError(f"cnf_train: {launches[k]} {k} launches in "
+                                 f"{steps} steps, not {n} a step")
+    table = torch.stack([torch.stack([m["loss"], m["emd"],
+                                      m["nan_step"].float()])
+                         for m in metrics]).cpu().numpy()
+    if not np.isfinite(table[:, :2]).all() or table[:, 2].any():
+        raise AssertionError("cnf_train: a loss was not finite or a step "
+                             "tripped the NaN guard")
+    log(f"cnf_train loss step 2 {table[0, 0]:.6f}, last {table[-1, 0]:.6f}; "
+        f"emd {table[0, 1]:.4f} -> {table[-1, 1]:.4f}; no NaN step")
+    per_step = [w / TRAIN_STEPS for w in windows]
+    median = statistics.median(per_step)
+    log(f"cnf_train B={TRAIN_B} step ms per window of {TRAIN_STEPS}: "
+        + ", ".join(f"{t * 1e3:.3f}" for t in per_step)
+        + f"; steps/s median {1.0 / median:.3f} (range "
+        f"{1.0 / max(per_step):.3f} to {1.0 / min(per_step):.3f}), on {card}")
+    log(f"cnf_train B={TRAIN_B} per-step split, ms (median of "
+        f"{TRAIN_WINDOWS * TRAIN_STEPS}): " + ", ".join(
+            f"{k} {statistics.median(v):.3f}" for k, v in splits.items()))
+    log(f"cnf_train B={TRAIN_B} peak device memory {peak / 2**30:.3f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    trace_idle(f"cnf_train B={TRAIN_B} step",
+               lambda: trainer.step(sparse, dense), median)
+
+    rng = np.random.RandomState(1)
+    batches = [synthetic_pairs(rng, TRAIN_B, TRAIN_N, UPRATIO)
+               for _ in range(CNF_VAL_BATCHES)]
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = trainer.validate(batches)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    expect = dict.fromkeys(WRAPPERS, 0) | {
+        k: n * CNF_VAL_BATCHES for k, n in EVAL_LAUNCHES.items()}
+    log(f"cnf_train validate on {CNF_VAL_BATCHES} batches: {got}, launches "
+        f"{launches}")
+    if launches != expect:
+        raise AssertionError(f"cnf_train validate: launches {launches}, not "
+                             f"{expect}")
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with plain_solves():
+        ref = trainer.validate(batches)
+    ref_s = time.perf_counter() - t0
+    no_launch("cnf_train validate on the plain solves")
+    log(f"cnf_train validate on plain solves: {ref}")
+    log(f"cnf_train validate, ms a batch (host clock, {CNF_VAL_BATCHES} "
+        f"batches of {TRAIN_B}): kernels {val_s * 1e3 / CNF_VAL_BATCHES:.3f}"
+        f", plain solves {ref_s * 1e3 / CNF_VAL_BATCHES:.3f}, on {card}")
+    # vloss is 1e-5 of the NLLs' sum: held as `phase_cnf_eval` holds an
+    # NLL, the chamfer sum as a dense cloud
+    nll, ref_nll = got["vloss"] * 1e5, ref["vloss"] * 1e5
+    errs = {"vloss": abs(nll - ref_nll) / max(1.0, abs(ref_nll)),
+            "CD": abs(got["CD"] - ref["CD"])}
+    log(f"cnf_train validate, kernels vs plain: NLL sum relative "
+        f"{errs['vloss']:.3e}, CD {errs['CD']:.3e} (gates {SOLVER_TOL:.0e})")
+    for k, err in errs.items():
+        if not err <= SOLVER_TOL:
+            raise AssertionError(f"cnf_train validate {k}: {got[k]} on "
+                                 f"kernels, {ref[k]} on plain solves")
+
+
+def write_pugeo_shards(folder, rng) -> str:
+    """Two seeded shapes at the PUGeo defaults' resolutions (5,000 input
+    and 20,000 label points) as a tfrecord shard written by the port's
+    codec -> the shard's glob."""
+    payloads = []
+    for _ in range(2):
+        lo = synthetic_clouds(1, int(rng.randint(1 << 30)), 5000)[0].cpu()
+        hi = lo.numpy().repeat(4, 0) + 0.01 * rng.randn(20000, 3)
+        payloads.append(tfrecord.build_example_floats(
+            {"res_5000": lo.numpy().ravel(),
+             "res_20000": hi.astype(np.float32).ravel()}))
+    os.makedirs(folder)
+    tfrecord.write_records(
+        os.path.join(folder, "res_5000_res_20000_p256_0.tfrecord"), payloads)
+    return os.path.join(folder, "*.tfrecord")
+
+
+def served_launches(model, pc):
+    """`upsample_cloud` + `remove_outliers` of ``pc`` with the launch
+    counts set to 0 before and read after -> (output, launches)."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    with torch.no_grad():
+        out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND)
+        out = remove_outliers(out, pc, N_OUTLIERS)
+    torch.cuda.synchronize()
+    return out, {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def phase_train_clis(cnf_folded):
+    """The three train CLIs of this slice on the card: `train_cnf` and
+    `train_pugan` (the loss with the chamfer term) on 2 synthetic steps,
+    `train_pugeo` on tfrecord shards this script writes (300 batches of
+    8), the three at once; then the CNF checkpoint, loaded BN-folded,
+    serves one 2048-point cloud with the launches of the seeded folded CNF
+    model on the same cloud."""
+    with tempfile.TemporaryDirectory() as tmp:
+        short = ("--max_epochs", "1", "--val_batches", "1")
+        cnf_ckpt = os.path.join(tmp, "cnf.npz")
+        records = write_pugeo_shards(os.path.join(tmp, "shards"),
+                                     np.random.RandomState(SEED))
+        run_clis(("puflow_torch.cli.train_cnf", "--synthetic", "2", *short,
+                  "--checkpoint", cnf_ckpt),
+                 ("puflow_torch.cli.train_pugan", "--synthetic", "2", *short,
+                  "--checkpoint", os.path.join(tmp, "pugan.npz")),
+                 ("puflow_torch.cli.train_pugeo", "--data", records,
+                  "--batch_size", "8", *short, "--checkpoint",
+                  os.path.join(tmp, "pugeo.npz")))
+        model = checkpoint.load_checkpoint(cnf_ckpt.replace(
+            ".npz", "-epoch1.npz"), "cuda", fold=True, model="cnf")
+    pc = synthetic_clouds(1, SEED + 7)
+    out, launches = served_launches(model, pc)
+    _, expect = served_launches(cnf_folded, pc)
+    log(f"served the train_cnf checkpoint (BN folded): {N_POINTS} -> "
+        f"{tuple(out.shape)}, launches {launches}")
+    if tuple(out.shape) != (1, N_POINTS * UPRATIO, 3):
+        raise AssertionError(f"served output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("served output has non-finite values")
+    if launches != expect or launches["cnf_solve"] != CNF_SOLVES:
+        raise AssertionError(f"served launches {launches}, the cnf_folded "
+                             f"path's {expect}")
+
+
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
@@ -2443,7 +2799,11 @@ def main():
         compare_cnf_logp(cnf_model, results)
         compare_cnf_adjoint(cnf_model, results)
     phase_cnf_grad(results, card)
+    phase_cnf_eval(cnf_model)
+    phase_cnf_train(card)
+    phase_train_clis(cnf_folded)
 
+    log(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: results[name][k] for k in keys}

@@ -1,9 +1,9 @@
-"""Shared body of the train CLIs (the discrete model's: train_pu1k).
+"""Shared body of the train CLIs (pu1k / pugan / pugeo / cnf).
 
 The port's counterpart of `puflow_tpu.cli._train_common`, with the same
 flags plus ``--device`` (default ``cuda``). ``--synthetic N`` trains on N
 synthetic steps per epoch and needs no data file; ``--begin_checkpoint``
-takes a native ``.npz`` checkpoint.
+takes a native ``.npz`` checkpoint of the family trained.
 """
 
 from __future__ import annotations
@@ -34,15 +34,20 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
     return p
 
 
-def run_training(args, make_data_loaders):
-    """Train the discrete model; make_data_loaders(args) ->
+def run_training(args, model_family: str, make_data_loaders,
+                 cd_weight: float = 0.0):
+    """model_family: 'discrete' | 'cnf'; make_data_loaders(args) ->
     (train_iter_fn, val_iter_fn)."""
     import torch
 
     from puflow_torch.checkpoint import load_npz_checkpoint, save_checkpoint
-    from puflow_torch.models import discrete
     from puflow_torch.train.trainer import TrainConfig, Trainer
     from puflow_torch.utils.device import resolve_device
+
+    if model_family == "cnf":
+        from puflow_torch.models import continuous as model
+    else:
+        from puflow_torch.models import discrete as model
 
     device = resolve_device(args.device)
     cfg = TrainConfig(
@@ -50,6 +55,7 @@ def run_training(args, make_data_loaders):
         sched_patience=args.sched_patience,
         sched_factor=args.sched_factor,
         max_epochs=args.max_epochs,
+        cd_weight=cd_weight,
         seed=args.seed,
     )
 
@@ -71,12 +77,14 @@ def run_training(args, make_data_loaders):
         params, state = load_npz_checkpoint(args.begin_checkpoint)
     else:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
-        params, state = discrete.init(gen, device=device)
-        first = next(iter(train_iter()))
-        params = discrete.actnorm_warmup(
-            params, state, torch.as_tensor(first[0], device=device))
+        params, state = model.init(gen, device=device)
+        if model_family == "discrete":
+            first = next(iter(train_iter()))
+            params = model.actnorm_warmup(
+                params, state, torch.as_tensor(first[0], device=device))
 
-    trainer = Trainer(cfg, params, state, device=device)
+    trainer = Trainer(cfg, params, state, forward_fn=model.forward,
+                      device=device)
     os.makedirs(os.path.dirname(args.checkpoint) or ".", exist_ok=True)
 
     def save(epoch, p, s, path=None):

@@ -16,14 +16,15 @@ for the shipped configuration through `ops.cnf.cnf_solve`, one CUDA kernel
 per block-solve on the card (`csrc/cnf_solve.cu`, 12 launches a call), and
 with BN-folded params (`models.fold_bn`) the encoder and the interpolation
 head are kernels too (`ops.encoder`, `ops.interp` mode ``latents``).
-`forward(train=False)` adds the NLL through the exact-trace field and the
-plain solver (`models.ode`). ``train=True`` (and every
-``differentiable=True`` solve) takes gradients by the continuous adjoint
-(`models.ode.make_adjoint_odeint`): for the shipped field the forward
-solves of f run `ops.cnf.cnf_solve_logp` (the exact-trace log-density
-solve), those of g `ops.cnf.cnf_solve_t`, and every backward solve
-`ops.cnf.cnf_adjoint_bwd`: kernels on the card, 24 launches a loss's
-gradient, their plain versions on the CPU.
+`forward(train=False)` adds the NLL through the exact-trace field: for the
+shipped configuration its six f solves run `ops.cnf.cnf_solve_logp`, one
+kernel launch each on the card, and its six g solves `ops.cnf.cnf_solve`.
+``train=True`` (and every ``differentiable=True`` solve) takes gradients
+by the continuous adjoint (`models.ode.make_adjoint_odeint`): for the
+shipped field the forward solves of f run `ops.cnf.cnf_solve_logp` (the
+exact-trace log-density solve), those of g `ops.cnf.cnf_solve_t`, and
+every backward solve `ops.cnf.cnf_adjoint_bwd`: kernels on the card, 24
+launches a loss's gradient, their plain versions on the CPU.
 
 Parameters are the JAX package's (params, state) trees, keys unchanged
 (``flow_blocks[i].sqrt_end_time``, ``.layers[j].layer / hyper_gate /
@@ -348,11 +349,13 @@ _TRAINING_SOLVES = contextvars.ContextVar("training_solves", default=None)
 
 @contextlib.contextmanager
 def training_solves(solve_logp, solve, adjoint_bwd):
-    """Inside the block, the shipped field's differentiable solves go
-    through these functions in place of `ops.cnf`'s kernel wrappers (for
-    example through the wrappers' plain versions on the card: the
-    reference the kernels are held to). A graph built inside keeps them
-    for its backward."""
+    """Inside the block, every solve of the shipped field (the
+    differentiable ones of ``forward(train=True)``, and the f solves with
+    the log-density and the g solves of ``forward(train=False)`` and
+    `sample`) goes through these functions in place of `ops.cnf`'s kernel
+    wrappers (for example through the wrappers' plain versions on the
+    card: the reference the kernels are held to). A graph built inside
+    keeps them for its backward."""
     token = _TRAINING_SOLVES.set((solve_logp, solve, adjoint_bwd))
     try:
         yield
@@ -446,8 +449,8 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
     ``c`` is ``[B, N, cdim]``, or ``[B, N / r, cdim]`` when each condition
     row serves r consecutive rows of ``y`` (the inverse pass on upsampled
     latents): the kernel path indexes it in place, the others repeat it.
-    ``differentiable`` solves take gradients by the continuous adjoint;
-    for the shipped field their solves go through `ops.cnf`'s wrappers, or
+    ``differentiable`` solves take gradients by the continuous adjoint.
+    Every solve of the shipped field goes through `ops.cnf`'s wrappers, or
     through the functions `training_solves` gives.
     """
     # ops.cnf builds its plain version from this module's field
@@ -458,15 +461,15 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
     t0, t1 = (T, zero) if reverse else (zero, T)
     logp0 = torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype, device=y.device)
     steps = max_steps or MAX_STEPS_EVAL
+    # the shared-beta zoo variant and the other layers take `models.ode`'s
+    # solves on every device, as in the JAX package
+    solves = None
+    if (layer_type == "concatsquash" and nonlinearity == "tanh"
+            and cnf_ops.kernel_takes(block["layers"])):
+        solves = _TRAINING_SOLVES.get() or (
+            cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t,
+            cnf_ops.cnf_adjoint_bwd)
     if differentiable:
-        # the shared-beta zoo variant and the other layers take the plain
-        # adjoint on every device, as in the JAX package
-        solves = None
-        if (layer_type == "concatsquash" and nonlinearity == "tanh"
-                and cnf_ops.kernel_takes(block["layers"])):
-            solves = _TRAINING_SOLVES.get() or (
-                cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t,
-                cnf_ops.cnf_adjoint_bwd)
         if solves is None and c.shape[1] != y.shape[1]:
             c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
         p = {"layers": block["layers"], "c": c}
@@ -478,14 +481,16 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
             return yf, logp0
         return _adjoint_for(layer_type, nonlinearity, solves)(
             p, (y, logp0), t0, t1)
-    if (not with_logp and layer_type == "concatsquash"
-            and nonlinearity == "tanh"
-            and cnf_ops.kernel_takes(block["layers"])):
-        # sampling fast path of the shipped field: no divergence channel
-        # (the caller discards logp), one whole-solve kernel on the card
-        yf = cnf_ops.cnf_solve_t(block["layers"], c, y, t0, t1, RTOL, ATOL,
-                                 steps)
-        return yf, logp0
+    if solves is not None:
+        solve_logp, solve, _ = solves
+        if with_logp:
+            # the NLL's solve: the log-density kernel on the card
+            return solve_logp(block["layers"], c, y, logp0, t0, t1, RTOL,
+                              ATOL, steps)
+        # sampling: no divergence channel (the caller discards logp), one
+        # whole-solve kernel on the card
+        return solve(block["layers"], c, y, t0, t1, RTOL, ATOL,
+                     steps), logp0
     if c.shape[1] != y.shape[1]:
         c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
     if not with_logp and layer_type == "concatsquash":
@@ -710,7 +715,9 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
     """``[B, N, 3] -> ([B, N * r, 3], scalar NLL, new state)``; the NLL is
     ``-mean(logp_z - log_det)`` through the exact-trace field.
 
-    ``train=False``: the plain solver, no gradients. ``train=True``: BN on
+    ``train=False``: no gradients; the shipped field's solves are the
+    kernels' (`ops.cnf.cnf_solve_logp` for f, `cnf_solve_t` for g; their
+    plain versions inside `training_solves`). ``train=True``: BN on
     batch statistics (the new state carries the moved running statistics)
     and differentiable solves by the continuous adjoint, six f solves with
     the log-density and six g solves without.

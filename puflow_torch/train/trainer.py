@@ -1,7 +1,9 @@
-"""Training loop of the discrete model on one device.
+"""Training loop of either model family on one device.
 
 Counterpart of `puflow_tpu.train.trainer` (the reference's
-`modules/discrete/train_pu1k.py`):
+`modules/discrete/train_pu1k.py`; `forward_fn` picks the family,
+`discrete.forward` by default, `continuous.forward` for the CNF model of
+`modules/continuous/train_interp.py`):
   * loss = logpx * 1e-4 + EMD * 5e-2 (+ CD * cd_weight for pugan);
   * optax's ``chain(clip_by_global_norm(1e-2), adam(1e-3))`` written out
     (`ClipAdam`): optax clips by ``t / g_norm * max_norm`` where
@@ -150,17 +152,18 @@ def _no_mark(stage: str) -> None:
 
 
 def make_train_step(optimizer: ClipAdam, cfg: TrainConfig,
-                    param_layout: TreeLayout, state_layout: TreeLayout):
+                    param_layout: TreeLayout, state_layout: TreeLayout,
+                    forward_fn: Callable = discrete.forward):
     """The train step ``(params, bn_state, opt_state, sparse, dense) ->
     (params, bn_state, opt_state, metrics)`` on flat vectors (the layouts
-    give their trees).
+    give their trees); ``forward_fn`` selects the model family.
     ``mark(stage)``, if given, is called after the forward, the EMD and
     loss, the backward and the optimizer update (for timing)."""
 
     def train_step(params, bn_state, opt_state, sparse, dense,
                    mark: Callable = _no_mark):
         leaf = params.detach().requires_grad_()
-        pred, logpx, new_bn = discrete.forward(
+        pred, logpx, new_bn = forward_fn(
             param_layout.unflatten(leaf), state_layout.unflatten(bn_state),
             sparse, cfg.upratio, train=True)
         mark("forward")
@@ -188,11 +191,12 @@ def make_train_step(optimizer: ClipAdam, cfg: TrainConfig,
 
 
 @torch.no_grad()
-def eval_step(params, bn_state, sparse, dense, upratio: int) -> dict:
+def eval_step(params, bn_state, sparse, dense, upratio: int,
+              forward_fn: Callable = discrete.forward) -> dict:
     """Validation on trees: the NLL (``vloss``) and the summed kaolin
     chamfer (``CD``), as tensors."""
-    pred, logpx, _ = discrete.forward(params, bn_state, sparse, upratio,
-                                      train=False)
+    pred, logpx, _ = forward_fn(params, bn_state, sparse, upratio,
+                                train=False)
     return {"vloss": logpx, "CD": torch.sum(chamfer_distance_kaolin(pred,
                                                                      dense))}
 
@@ -211,11 +215,14 @@ class Trainer:
 
     ``params`` and ``bn_state`` are trees of numpy arrays or tensors (the
     JAX package's trees after ``jax.tree.map(np.asarray, ...)`` work); they
-    are copied onto ``device``.
+    are copied onto ``device``. ``forward_fn`` selects the model family:
+    `discrete.forward` or `continuous.forward`.
     """
 
-    def __init__(self, cfg: TrainConfig, params, bn_state, device="cuda"):
+    def __init__(self, cfg: TrainConfig, params, bn_state,
+                 forward_fn: Callable = discrete.forward, device="cuda"):
         self.cfg = cfg
+        self.forward_fn = forward_fn
         self.device = resolve_device(device)
         self.param_layout = TreeLayout(params)
         self.state_layout = TreeLayout(bn_state)
@@ -224,7 +231,8 @@ class Trainer:
         self.optimizer = make_optimizer(cfg)
         self.opt_state = self.optimizer.init(self.params)
         self._train_step = make_train_step(
-            self.optimizer, cfg, self.param_layout, self.state_layout)
+            self.optimizer, cfg, self.param_layout, self.state_layout,
+            forward_fn)
 
         # ReduceLROnPlateau state
         self._lr = cfg.learning_rate
@@ -281,7 +289,7 @@ class Trainer:
         params, bn_state = self.trees()
         step_metrics = [
             eval_step(params, bn_state, self._tensor(sparse),
-                      self._tensor(dense), self.cfg.upratio)
+                      self._tensor(dense), self.cfg.upratio, self.forward_fn)
             for sparse, dense in batches]
         if not step_metrics:
             return {"CD": 0.0, "vloss": 0.0}

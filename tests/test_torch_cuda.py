@@ -1058,3 +1058,123 @@ def test_cnf_adjoint_kernel_matches_plain(card, with_trace, b, n, r, cdim,
         assert _maxrel(div1, ref[4][1]) < 5e-5
     else:
         assert float(div1.abs().max()) == 0.0
+
+
+def _cnf_model_trees(card, perturbed: bool):
+    """The CNF model's (params, state) trees on the card: seeded init, or
+    moved by `perturb_init` (spread end times, time rows of scale 20:
+    solves whose step sizes follow the error estimate)."""
+    gen = torch.Generator().manual_seed(2)
+    params, state = checkpoint.to_numpy_tree(
+        continuous.ContinuousModel(*continuous.init(gen, device="cpu")))
+    if perturbed:
+        discrete.perturb_init(params, state, 2)
+    return checkpoint.from_numpy_tree(params, state, card,
+                                      model="cnf").trees()
+
+
+def _recorded(fn, calls):
+    """``fn`` with its step counts: each call appends (args, output,
+    [attempted, accepted]) to ``calls``."""
+    def run(*args):
+        out, stats = fn(*args, return_stats=True)
+        calls.append((args, out, [stats["steps"], stats["accepted"]]))
+        return out
+    return run
+
+
+@pytest.mark.parametrize("perturbed,tol", [(False, 5e-6), (True, 5e-5)])
+def test_cnf_forward_eval_runs_the_logp_kernel(card, perturbed, tol):
+    """`forward(train=False)` launches the log-density kernel for its six
+    f solves and the solve kernel for its six g solves. Each solve of the
+    plain path (`training_solves` with the plain versions), given to the
+    kernel on the same inputs: the same [attempted, accepted] steps, and
+    y and logp within 5e-6 at seeded weights (step sizes set by a clip),
+    5e-5 at perturbed ones, where the first f solve's kernel result lies
+    at most 1.25 times as far from a float64 RK4 solve as the plain
+    one's. The NLL and the dense cloud of the two paths within the same
+    gate."""
+    params, state = _cnf_model_trees(card, perturbed)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy((rng.randn(5, 64, 3) * 0.3).astype(np.float32))
+    x = x.to(card)
+    wrappers = (cnf.cnf_solve_logp, cnf.cnf_solve, cnf.cnf_adjoint_bwd)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        dense, nll, _ = continuous.forward(params, state, x, 4)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [6, 6, 0]
+
+    f_calls, g_calls = [], []
+    with torch.no_grad(), continuous.training_solves(
+            _recorded(cnf.cnf_solve_logp_plain, f_calls),
+            _recorded(cnf.cnf_solve_plain, g_calls),
+            cnf.cnf_adjoint_bwd_plain):
+        ref_dense, ref_nll, _ = continuous.forward(params, state, x, 4)
+    assert len(f_calls) == len(g_calls) == 6
+    assert float((dense - ref_dense).abs().max()) < tol
+    assert abs(float(nll) - float(ref_nll)) < tol * max(1.0, abs(float(nll)))
+    for args, ref, steps in f_calls:
+        got, stats = cnf.cnf_solve_logp(*args, return_stats=True)
+        assert stats.tolist() == steps
+        assert (steps[0] > 3) == perturbed
+        for g, f in zip(got, ref):
+            assert float((g - f).abs().max()) < tol
+    for args, ref, steps in g_calls:
+        got, stats = cnf.cnf_solve_t(*args, return_stats=True)
+        assert stats.tolist() == steps
+        assert float((got - ref).abs().max()) < tol
+    if perturbed:
+        args, ref, _ = f_calls[0]
+        layers, c, y, logp, t0, t1 = args[:6]
+        got = cnf.cnf_solve_logp(*args)
+        truth = _rk4_logp_float64(layers, c, y, logp, float(t0), float(t1),
+                                  512)
+        err_kernel = max(float((g.double() - w).abs().max())
+                         for g, w in zip(got, truth))
+        err_plain = max(float((f.double() - w).abs().max())
+                        for f, w in zip(ref, truth))
+        assert err_kernel <= 1.25 * err_plain + 1e-6
+
+
+def test_cnf_trainer_step_launches_the_training_kernels(card):
+    """One `Trainer.step` of the CNF model: 6 log-density solves, 6 plain
+    solves, 12 adjoint solves and 1 EMD on the kernels, finite, no
+    NaN-guarded step. Its forward on the kernels against the same on the
+    plain solves: the prediction within 5e-6 and the NLL within 5e-6 of
+    max(1, |NLL|) at seeded weights; the EMD kernel takes the plain
+    auction's assignments on the kernel path's prediction (on the plain
+    path's, 1e-7 away, the auction may take others); the step's NLL and
+    EMD are those of that forward."""
+    from puflow_torch.data.synthetic import synthetic_pairs
+    from puflow_torch.train import trainer
+
+    params, state = _cnf_model_trees(card, False)
+    sparse, dense = (torch.from_numpy(a).to(card) for a in
+                     synthetic_pairs(np.random.RandomState(0), 4, 64, 4))
+    tr = trainer.Trainer(trainer.TrainConfig(), params, state,
+                         forward_fn=continuous.forward, device=card)
+    cfg = tr.cfg
+    with torch.no_grad():
+        pred, nll, _ = continuous.forward(*tr.trees(), sparse, 4, train=True)
+        with continuous.training_solves(cnf.cnf_solve_logp_plain,
+                                        cnf.cnf_solve_plain,
+                                        cnf.cnf_adjoint_bwd_plain):
+            ref_pred, ref_nll, _ = continuous.forward(*tr.trees(), sparse, 4,
+                                                      train=True)
+        dist, assign = emd.emd_auction(pred, dense, cfg.emd_eps,
+                                       cfg.emd_iters)
+        _, ref_assign = emd.emd_auction_plain(pred, dense, cfg.emd_eps,
+                                              cfg.emd_iters)
+    assert float((pred - ref_pred).abs().max()) < 5e-6
+    assert abs(float(nll - ref_nll)) < 5e-6 * max(1.0, abs(float(ref_nll)))
+    assert torch.equal(assign, ref_assign)
+    wrappers = (cnf.cnf_solve_logp, cnf.cnf_solve, cnf.cnf_adjoint_bwd,
+                emd.emd_auction)
+    before = [w.launches for w in wrappers]
+    m = tr.step(sparse, dense)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [6, 6, 12, 1]
+    assert not bool(m["nan_step"]) and bool(torch.isfinite(m["loss"]))
+    assert float(m["logpx"]) == float(nll)
+    assert float(m["emd"]) == float(dist.sum())
+    assert bool(torch.isfinite(tr.params).all())

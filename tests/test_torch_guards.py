@@ -307,21 +307,31 @@ def test_pt_checkpoint_raises(cli_inputs):
 
 
 def test_trainer_and_train_cli_default_to_the_card(tmp_path):
-    """The trainer and the train CLI ask for CUDA unless told otherwise;
-    on a host without a card that raises before any work."""
+    """The trainer (either family) and the train CLIs ask for CUDA unless
+    told otherwise; on a host without a card that raises before any
+    work."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    from puflow_torch.cli import train_pu1k
+    from puflow_torch.cli import (train_cnf, train_pu1k, train_pugan,
+                                  train_pugeo)
     from puflow_torch.train.trainer import TrainConfig, Trainer
 
     params, state = t_discrete.init(torch.Generator().manual_seed(0),
                                     device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(TrainConfig(), params, state)
+    params, state = t_continuous.init(torch.Generator().manual_seed(0),
+                                      device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
-        train_pu1k.main(["--synthetic", "1", "--max_epochs", "1",
-                         "--checkpoint", str(tmp_path / "m.npz")])
-    assert not (tmp_path / "m.npz").exists()
+        Trainer(TrainConfig(), params, state,
+                forward_fn=t_continuous.forward)
+    for cli in (train_pu1k, train_cnf, train_pugan, train_pugeo):
+        ckpt = tmp_path / f"{cli.__name__.rsplit('.', 1)[-1]}.npz"
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(["--synthetic", "1", "--max_epochs", "1",
+                      "--checkpoint", str(ckpt)])
+        assert not ckpt.exists()
+        assert cli.build_parser(cli.DEFAULTS).parse_args([]).device == "cuda"
 
 
 def test_train_cli_rejects_torch_checkpoints(tmp_path):
