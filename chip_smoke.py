@@ -29,7 +29,11 @@ whole-solve kernel, and the twelve backward solves of the continuous
 adjoint the hand-written adjoint kernel, with and without the trace. Last
 it trains the CNF model with the trainer (those kernels and the EMD every
 step; its validation's f solves on the log-density kernel) and runs the
-CNF, PU-GAN and PUGeo train CLIs. Phases:
+CNF, PU-GAN and PUGeo train CLIs. Last it runs the evaluation protocol
+(`scripts/eval_fixtures_torch.sh`) on the seeded models written as the
+reference's `.pt` checkpoints: upsample on the folded path's kernels,
+the p2f tool, and `cli.evaluate` with its approx-match EMD on the card.
+Phases:
 
   1. checks the card, prints its name and power limit, checks that
      `import puflow_torch` turned TF32 off;
@@ -124,7 +128,19 @@ CNF, PU-GAN and PUGeo train CLIs. Phases:
  20. runs `train_cnf` and `train_pugan` on 2 synthetic steps and
      `train_pugeo` on tfrecord shards it writes, then serves one cloud with
      the CNF checkpoint, BN folded, with the cnf_folded path's launches;
- 21. prints its total seconds, one JSON line of kernel results and, last,
+ 21. writes the seeded discrete and CNF models as reference `.pt` files
+     (and `.npz`), converts each back bit-equal, runs the protocol script
+     on each at PU1K's 2048 -> 8192 points (2 fixture shapes: upsample ->
+     p2f `--uniform` -> `cli.evaluate` on the card), checks that the
+     discrete `.pt` and `.npz` upsample outputs are byte-identical, that
+     the converted model launches the folded path's six kernels and
+     serves as the seeded one, that every `evaluation.csv` column is
+     filled and finite, and that `cli.evaluate --device cpu` agrees (CD,
+     HD within 2e-6, EMD within 1e-5 relative, the rest equal); prints
+     each stage's seconds, evaluate's ms a file by metric (also in this
+     process on one pair at PU-GAN's 20,000 points) and `earth_mover`'s
+     ms and peak memory at 8,192 and 20,000 points;
+ 22. prints its total seconds, one JSON line of kernel results and, last,
      the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
@@ -134,7 +150,9 @@ refuses to run without it.
 from __future__ import annotations
 
 import contextlib
+import csv
 import functools
+import io
 import json
 import os
 import statistics
@@ -149,6 +167,8 @@ import torch
 from torch.utils._pytree import tree_map
 
 from puflow_torch import checkpoint
+from puflow_torch.cli import evaluate
+from puflow_torch.convert import torch_ckpt
 from puflow_torch.data import tfrecord
 from puflow_torch.data.synthetic import synthetic_pairs
 from puflow_torch.inference.patch import (auto_merge_groups, normalize_cloud,
@@ -163,6 +183,7 @@ from puflow_torch.ops import encoder as enc_ops
 from puflow_torch.ops import flow as flow_ops
 from puflow_torch.ops import fps as fps_ops
 from puflow_torch.ops import interp as interp_ops
+from puflow_torch.ops.approx_match import earth_mover
 from puflow_torch.ops.chamfer import chamfer_parts
 from puflow_torch.ops.emd import emd_auction, emd_auction_plain
 from puflow_torch.ops.fps import (farthest_point_sample,
@@ -174,6 +195,10 @@ from puflow_torch.ops.fps import (farthest_point_sample,
 from puflow_torch.ops.knn import (KNN_MAX_N, gather_points, knn_indices,
                                   knn_self, knn_self_plain, knn_self_stream)
 from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
+
+# the reference-format checkpoint writer the CPU tests use (no jax)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_ckpt_cases import save_reference_checkpoint  # noqa: E402
 
 SEED = 2021
 N_POINTS = 2048
@@ -1327,7 +1352,7 @@ def run_clis(*commands) -> None:
                 proc.kill()
                 proc.wait()
     if failed:
-        raise AssertionError("train CLIs failed: " + "\n".join(failed))
+        raise AssertionError("CLIs failed: " + "\n".join(failed))
 
 
 def phase_cli():
@@ -2736,6 +2761,244 @@ def phase_train_clis(cnf_folded):
                              f"path's {expect}")
 
 
+# the evaluation protocol (scripts/eval_fixtures_torch.sh) at PU1K's shapes
+PROTOCOL = ROOT / "scripts" / "eval_fixtures_torch.sh"
+PROTOCOL_SHAPES = 2           # fixture shapes of the discrete protocol run
+PUGAN_POINTS = 20000          # a side of the PU-GAN-shaped EMD timing
+# card against CPU, the tolerances tests/test_torch_eval.py sets against
+# JAX: the approx-match EMD relative, CD and HD absolute; the rest equal
+EMD_RTOL = 1e-5
+CHAMFER_ATOL = 2e-6
+
+
+def reference_pt(path, model, family: str):
+    """``model``'s trees written as the reference's ``.pt`` (the tests'
+    inverse mapping, `tests/torch_ckpt_cases.py`) and as a native
+    ``.npz`` beside it; checks that the port's converter reads the ``.pt``
+    back bit-equal. -> (.pt path, .npz path)."""
+    trees = checkpoint.to_numpy_tree(model)
+    pt, npz = f"{path}.pt", f"{path}.npz"
+    save_reference_checkpoint(pt, *trees, family)
+    checkpoint.save_checkpoint(npz, *trees)
+    back = (torch_ckpt.load_discrete_checkpoint if family == "discrete"
+            else torch_ckpt.load_cnf_checkpoint)(pt)
+    want, got = tree_paths(trees), tree_paths(back)
+    if [k for k, _ in want] != [k for k, _ in got] or not all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for (_, a), (_, b) in zip(want, got)):
+        raise AssertionError(f"{family}: the .pt does not convert back to "
+                             "the trees written")
+    log(f"{family} checkpoint written as a reference .pt "
+        f"({os.path.getsize(pt)} bytes) and .npz; converted back bit-equal "
+        f"({len(want)} arrays)")
+    return pt, npz
+
+
+def subprocess_env() -> dict:
+    """This interpreter first on PATH, for the scripts' ``python``."""
+    return dict(os.environ, PATH=os.pathsep.join(
+        [os.path.dirname(sys.executable), os.environ.get("PATH", "")]))
+
+
+def run_protocol(work, ckpt, shapes: int, *flags) -> dict:
+    """`scripts/eval_fixtures_torch.sh` on ``shapes`` fixtures at PU1K's
+    2048 -> 8192 points -> its stage seconds, evaluate's ms a file and
+    the ms of each file's CD/HD/EMD, JSD and P2F with uniformity."""
+    cmd = ["bash", str(PROTOCOL), ckpt, work, str(shapes), str(N_POINTS),
+           str(N_POINTS * UPRATIO), *flags]
+    proc = subprocess.run(cmd, cwd=ROOT, env=subprocess_env(),
+                          capture_output=True, text=True, timeout=900)
+    log(proc.stdout.strip())
+    if proc.returncode != 0:
+        raise AssertionError(f"protocol failed ({proc.returncode}): "
+                             f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    return stage_times(proc.stdout)
+
+
+def stage_times(stdout: str) -> dict:
+    """The protocol script's `stage <name>: <s> s` lines and evaluate's
+    ms a file and ms of each file by metric, from its output."""
+    times = {}
+    for line in stdout.splitlines():
+        if line.startswith("stage "):
+            name, secs = line[6:].split(":")
+            times[name] = float(secs.split()[0])
+        elif line.startswith("evaluated "):
+            times["evaluate ms a file"] = float(line.split()[-4])
+        elif line.startswith("  ms of each file, "):
+            label, values = line[19:].split(": ")
+            times[label] = [float(v) for v in values.split()]
+    return times
+
+
+def read_rows(path) -> list:
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def check_rows(label, rows, files: int) -> None:
+    """``files`` per-file rows and the aggregate, every column filled and
+    finite."""
+    if len(rows) != files + 1:
+        raise AssertionError(f"{label}: {len(rows)} rows, not {files} + 1")
+    for row in rows:
+        for key, value in row.items():
+            if key == "name":
+                continue
+            if value == "-" or not np.isfinite(float(value)):
+                raise AssertionError(f"{label}: {row['name']} {key} = "
+                                     f"{value}")
+    log(f"{label}: {files} rows + the aggregate, {len(rows[0]) - 1} columns "
+        "filled, all finite")
+
+
+def compare_evaluations(card_rows, cpu_rows) -> None:
+    """The card's CD / HD / EMD within the CPU tests' tolerances of the
+    CPU's; JSD, P2F and uniformity (numpy on the host in both) equal."""
+    worst = {"CD": 0.0, "hausdorff": 0.0, "EMD": 0.0}
+    for a, b in zip(card_rows, cpu_rows):
+        for key in a:
+            if key in worst:
+                x, y = float(a[key]), float(b[key])
+                err = abs(x - y) / abs(y) if key == "EMD" else abs(x - y)
+                worst[key] = max(worst[key], err)
+            elif a[key] != b[key]:
+                raise AssertionError(f"evaluate, card vs CPU: {a['name']} "
+                                     f"{key} {a[key]} != {b[key]}")
+    log(f"evaluate, card vs CPU: CD {worst['CD']:.3e}, HD "
+        f"{worst['hausdorff']:.3e} (atol {CHAMFER_ATOL:.0e}), EMD "
+        f"{worst['EMD']:.3e} relative (rtol {EMD_RTOL:.0e}); JSD, P2F and "
+        "uniformity equal")
+    if max(worst["CD"], worst["hausdorff"]) > CHAMFER_ATOL or (
+            worst["EMD"] > EMD_RTOL):
+        raise AssertionError(f"evaluate, card vs CPU: {worst}")
+
+
+def time_earth_mover(card, n: int, reps: int) -> None:
+    """`earth_mover` alone on one seeded pair of ``n`` points a side: ms
+    a call (CUDA events) and the peak memory of one call."""
+    rng = np.random.RandomState(SEED + n)
+    x, y = (torch.from_numpy(rng.randn(1, n, 3).astype(np.float32)).cuda()
+            for _ in range(2))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        emd = float(earth_mover(x, y))
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda: earth_mover(x, y), reps)
+    if not np.isfinite(emd):
+        raise AssertionError(f"earth_mover at {n} points: {emd}")
+    log(f"earth_mover {n} x {n}: {ms:.3f} ms a call (mean of {reps}), peak "
+        f"{peak / 2**30:.3f} GiB above its inputs ({peak / (4 * n * n):.2f} "
+        f"[1, n, n] float32 buffers), EMD {emd:.6f} ({card})")
+
+
+def evaluate_pugan_pair(card, tmp) -> None:
+    """`cli.evaluate` in this process (the card warm) on one seeded pair at
+    PU-GAN's 20,000 points, without p2f side-files: ms a file by metric."""
+    out = io.StringIO()
+
+    rng = np.random.RandomState(SEED)
+    gt = rng.randn(PUGAN_POINTS, 3)
+    gt /= np.linalg.norm(gt, axis=1, keepdims=True)
+    for name, pts in (("gt", gt), ("pred", gt + 0.01 * rng.randn(*gt.shape))):
+        os.makedirs(os.path.join(tmp, name))
+        np.savetxt(os.path.join(tmp, name, "pugan.xyz"), pts, fmt="%.6f")
+    with contextlib.redirect_stdout(out):
+        evaluate.main(["--pred", os.path.join(tmp, "pred"), "--gt",
+                       os.path.join(tmp, "gt"), "--save_path",
+                       os.path.join(tmp, "results"), "--device", "cuda"])
+    log(out.getvalue().strip())
+    check_rows("evaluation.csv (20,000 points, no p2f)", [
+        {k: v for k, v in row.items() if k in ("name", "CD", "EMD",
+                                               "hausdorff")}
+        for row in read_rows(os.path.join(tmp, "results", "evaluation.csv"))
+    ], 1)
+    log(f"evaluate at {PUGAN_POINTS} x {PUGAN_POINTS}, one pair: "
+        f"{stage_times(out.getvalue())} ({card})")
+
+
+def served_like(pt, family: str, seeded, path: str, pc) -> None:
+    """The ``.pt`` loaded BN-folded serves ``pc`` as the seeded folded
+    model it was written from: every kernel of ``PATHS[path]`` launched,
+    the same launches and the same output."""
+    converted = checkpoint.load_checkpoint(pt, "cuda", fold=True,
+                                           model=family)
+    out, launches = served_launches(converted, pc)
+    ref, expect = served_launches(seeded, pc)
+    log(f"converted {family} .pt (BN folded) on one fixture: launches "
+        f"{launches}")
+    for k in PATHS[path]:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 f"converted {family} model")
+    if launches != expect or not torch.equal(out, ref):
+        raise AssertionError(f"the converted {family} model does not serve "
+                             f"as the seeded {path} model: {expect}")
+
+
+def phase_eval_protocol(model, folded, cnf_model, cnf_folded, card):
+    """The evaluation protocol of the port on the card: the seeded discrete
+    and CNF models written as reference ``.pt`` files, the protocol script
+    on them (upsample -> p2f -> evaluate on the card), the same upsample
+    from the ``.npz``, each path's kernels counted on each converted
+    model, evaluate on the CPU against the card's, and the times."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pt, npz = reference_pt(os.path.join(tmp, "discrete"), model,
+                               "discrete")
+        cnf_pt, _ = reference_pt(os.path.join(tmp, "cnf"), cnf_model, "cnf")
+        work = os.path.join(tmp, "pu1k")
+        times = run_protocol(work, pt, PROTOCOL_SHAPES)
+        log(f"protocol, discrete .pt, {PROTOCOL_SHAPES} shapes at "
+            f"{N_POINTS} -> {N_POINTS * UPRATIO}: {times} ({card})")
+
+        names = sorted(os.listdir(os.path.join(work, "input")))
+        t0 = time.perf_counter()
+        run_clis(("puflow_torch.cli.upsample", "--source",
+                  os.path.join(work, "input"), "--target",
+                  os.path.join(work, "pred_npz"), "--checkpoint", npz,
+                  "--up_ratio", str(UPRATIO), "--batch",
+                  str(PROTOCOL_SHAPES)))
+        same = [Path(work, "pred", n).read_bytes()
+                == Path(work, "pred_npz", n).read_bytes() for n in names]
+        log(f"upsample from the .npz ({time.perf_counter() - t0:.1f} s): "
+            f"outputs byte-identical to the .pt's: {same}")
+        if len(names) != PROTOCOL_SHAPES or not all(same):
+            raise AssertionError("the .pt and .npz upsample outputs differ")
+
+        pc = torch.from_numpy(np.loadtxt(os.path.join(
+            work, "input", names[0]), dtype=np.float32)[None]).cuda()
+        served_like(pt, "discrete", folded, "folded", pc)
+
+        rows = read_rows(os.path.join(work, "results", "evaluation.csv"))
+        check_rows("evaluation.csv (card)", rows, PROTOCOL_SHAPES)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "puflow_torch.cli.evaluate", "--pred",
+             os.path.join(work, "pred"), "--gt", os.path.join(work, "gt"),
+             "--save_path", os.path.join(work, "results_cpu"), "--device",
+             "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        log(f"evaluate --device cpu ({time.perf_counter() - t0:.1f} s): "
+            f"{proc.stdout.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"evaluate on the CPU failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        compare_evaluations(rows, read_rows(
+            os.path.join(work, "results_cpu", "evaluation.csv")))
+
+        # make_fixtures.py writes its two named shapes at the least
+        work = os.path.join(tmp, "cnf")
+        times = run_protocol(work, cnf_pt, PROTOCOL_SHAPES, "--model", "cnf")
+        log(f"protocol, CNF .pt, {PROTOCOL_SHAPES} shapes: {times} ({card})")
+        check_rows("evaluation.csv (CNF)", read_rows(
+            os.path.join(work, "results", "evaluation.csv")), PROTOCOL_SHAPES)
+        served_like(cnf_pt, "cnf", cnf_folded, "cnf_folded", pc)
+        evaluate_pugan_pair(card, os.path.join(tmp, "pugan"))
+    time_earth_mover(card, N_POINTS * UPRATIO, 10)
+    time_earth_mover(card, PUGAN_POINTS, 5)
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2802,6 +3065,7 @@ def main():
     phase_cnf_eval(cnf_model)
     phase_cnf_train(card)
     phase_train_clis(cnf_folded)
+    phase_eval_protocol(model, folded, cnf_model, cnf_folded, card)
 
     log(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

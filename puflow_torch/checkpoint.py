@@ -1,5 +1,6 @@
-"""Checkpoints: the JAX package's native ``.npz`` format, and the bridge
-between its numpy parameter trees and the port's model.
+"""Checkpoints: the JAX package's native ``.npz`` format, the reference's
+``.pt`` state_dicts (`puflow_torch.convert`), and the bridge between their
+numpy parameter trees and the port's model.
 
 The ``.npz`` holds the (params, state) trees flattened to
 ``params/flow_blocks/0/actnorm/logs``-style keys, as
@@ -13,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from puflow_torch.convert.torch_ckpt import (load_cnf_checkpoint,
+                                             load_discrete_checkpoint)
 from puflow_torch.models.continuous import ContinuousModel
 from puflow_torch.models.discrete import DiscreteModel
 from puflow_torch.models.fold_bn import empty_bn_state, fold_bn_inference
@@ -114,24 +117,33 @@ def to_numpy_tree(model: DiscreteModel):
     return _map_tree(to_numpy, params), _map_tree(to_numpy, state)
 
 
+def load_numpy_checkpoint(path: str, model: str = "discrete"):
+    """Any supported checkpoint of the ``model`` family -> numpy (params,
+    state) trees: a native ``.npz``, or a reference ``.pt`` / ``.ckpt``
+    state_dict through `puflow_torch.convert.torch_ckpt`, as
+    `puflow_tpu.checkpoint.load_checkpoint` reads them."""
+    cls = _model_class(model)
+    if path.endswith(".npz"):
+        return load_npz_checkpoint(path)
+    if path.endswith((".pt", ".ckpt")):
+        if cls is DiscreteModel:
+            return load_discrete_checkpoint(path)
+        return load_cnf_checkpoint(path)
+    raise ValueError(f"unrecognised checkpoint format: {path}")
+
+
 def load_checkpoint(path: str, device="cuda", fold: bool = False,
                     model: str = "discrete") -> DiscreteModel:
-    """Load a native ``.npz`` checkpoint of the ``model`` family
-    (``"discrete"``, or ``"cnf"`` / ``"continuous"``) onto ``device``. ``fold=True`` folds
-    eval-mode BatchNorm into the convs (`models.fold_bn`; the flow blocks
-    of either family pass through), the inference configuration the
-    upsample CLI runs by default; do not fold parameters that will be
-    trained further."""
+    """Load a checkpoint of the ``model`` family (``"discrete"``, or
+    ``"cnf"`` / ``"continuous"``) onto ``device``: a native ``.npz`` or a
+    reference ``.pt`` / ``.ckpt`` (`load_numpy_checkpoint`).
+    ``fold=True`` folds eval-mode BatchNorm into the convs
+    (`models.fold_bn`; the flow blocks of either family pass through), the
+    inference configuration the upsample CLI runs by default; do not fold
+    parameters that will be trained further."""
     cls = _model_class(model)
-    if path.endswith((".pt", ".ckpt")):
-        raise NotImplementedError(
-            "reference .pt checkpoints are not read by the port yet "
-            "(ROADMAP.md, Queue 1: the .pt converter); convert one with "
-            "puflow_tpu and save it as .npz")
-    if not path.endswith(".npz"):
-        raise ValueError(f"unrecognised checkpoint format: {path}")
-    loaded = from_numpy_tree(*load_npz_checkpoint(path), device=device,
-                             model=model)
+    loaded = from_numpy_tree(*load_numpy_checkpoint(path, model),
+                             device=device, model=model)
     if not fold:
         return loaded
     params, state = loaded.trees()

@@ -3,7 +3,8 @@
 The port's counterpart of `puflow_tpu.cli._train_common`, with the same
 flags plus ``--device`` (default ``cuda``). ``--synthetic N`` trains on N
 synthetic steps per epoch and needs no data file; ``--begin_checkpoint``
-takes a native ``.npz`` checkpoint of the family trained.
+takes a checkpoint of the family trained, a native ``.npz`` or a
+reference ``.pt``, as the JAX CLIs do.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def run_training(args, model_family: str, make_data_loaders,
     (train_iter_fn, val_iter_fn)."""
     import torch
 
-    from puflow_torch.checkpoint import load_npz_checkpoint, save_checkpoint
+    from puflow_torch.checkpoint import load_numpy_checkpoint, save_checkpoint
     from puflow_torch.train.trainer import TrainConfig, Trainer
     from puflow_torch.utils.device import resolve_device
 
@@ -71,10 +72,8 @@ def run_training(args, model_family: str, make_data_loaders,
         train_iter, val_iter = make_data_loaders(args)
 
     if args.begin_checkpoint:
-        if not args.begin_checkpoint.endswith(".npz"):
-            raise ValueError("--begin_checkpoint takes a native .npz "
-                             f"checkpoint, got {args.begin_checkpoint}")
-        params, state = load_npz_checkpoint(args.begin_checkpoint)
+        params, state = load_numpy_checkpoint(args.begin_checkpoint,
+                                              model_family)
     else:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
         params, state = model.init(gen, device=device)

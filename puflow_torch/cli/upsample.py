@@ -4,12 +4,14 @@ The port's counterpart of `puflow_tpu.cli.upsample`, with the same flags
 plus ``--device``:
 
     python -m puflow_torch.cli.upsample --source <dir> --target <dir> \
-        --checkpoint <ckpt.npz> --up_ratio 4 [--num_patch 256] \
+        --checkpoint <ckpt> --up_ratio 4 [--num_patch 256] \
         [--num_out N] [--seed 2021] [--model discrete|cnf] [--exact] \
         [--seeded_merge] [--merge_groups G] [--device cuda]
 
-Reads the native ``.npz`` checkpoint format and, unless ``--exact`` is
-given, folds BatchNorm into the convs as `puflow_tpu.cli.upsample` does.
+Accepts either a reference torch ``.pt`` state_dict (converted on the fly
+by `puflow_torch.convert`) or a native ``.npz`` checkpoint and, unless
+``--exact`` is given, folds BatchNorm into the convs as
+`puflow_tpu.cli.upsample` does.
 ``--model cnf`` serves the continuous family (`models.continuous`): six
 CNF blocks, each block-solve one CUDA kernel launch.
 ``--seeded_merge`` and ``--merge_groups`` select the opt-in merges of
@@ -35,7 +37,8 @@ def main(argv=None):
     parser.add_argument("--source", type=str, required=True)
     parser.add_argument("--target", type=str, required=True)
     parser.add_argument("--seed", type=int, default=2021)
-    parser.add_argument("--checkpoint", type=str, required=True)
+    parser.add_argument("--checkpoint", type=str, required=True,
+                        help="reference .pt state_dict or native .npz")
     parser.add_argument("--up_ratio", type=int, default=4)
     parser.add_argument("--num_patch", type=int, default=256,
                         help="points per patch")

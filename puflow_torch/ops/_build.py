@@ -77,9 +77,11 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def digest(flags: list[str], sources: list[Path]) -> str:
+    """A hash of the flags and the sources' names and contents, which names
+    what is built from them."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -100,32 +102,49 @@ def _run(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def build_once(out: Path, make) -> tuple[Path, float]:
+    """``out``, made by ``make(tmp)`` into a temporary file beside it
+    unless it exists, then moved into place.
+
+    Returns ``(out, seconds spent making it)`` (0.0 when it was there).
+    A failed ``make`` leaves nothing behind.
+    """
+    if out.exists():
+        return out, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        make(tmp)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    seconds = time.perf_counter() - t0
+    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    return out, seconds
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels unless a library for these sources exists.
 
     Returns ``(library path, seconds spent compiling)`` (0.0 when the
     library was already there).
     """
-    lib = BUILD_DIR / f"libpuflow_kernels_{_digest()}.so"
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    objs = BUILD_DIR / f"obj.{os.getpid()}"
-    objs.mkdir(exist_ok=True)
-    srcs = sorted(CSRC.glob("*.cu"))
-    obj_paths = [objs / f"{src.stem}.o" for src in srcs]
-    t0 = time.perf_counter()
-    try:
-        _run([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-              for src, obj in zip(srcs, obj_paths)])
-        _run([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-               *(str(o) for o in obj_paths)]])
-    finally:
-        shutil.rmtree(objs, ignore_errors=True)
-    seconds = time.perf_counter() - t0
-    os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
-    return lib, seconds
+    def link(tmp: Path) -> None:
+        objs = BUILD_DIR / f"obj.{os.getpid()}"
+        objs.mkdir(exist_ok=True)
+        srcs = sorted(CSRC.glob("*.cu"))
+        obj_paths = [objs / f"{src.stem}.o" for src in srcs]
+        try:
+            _run([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(srcs, obj_paths)])
+            _run([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *(str(o) for o in obj_paths)]])
+        finally:
+            shutil.rmtree(objs, ignore_errors=True)
+
+    name = f"libpuflow_kernels_{digest(NVCC_FLAGS, _sources())}.so"
+    return build_once(BUILD_DIR / name, link)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,7 @@ from puflow_torch.utils.device import resolve_device
 from puflow_tpu.checkpoint import save_checkpoint
 from puflow_tpu.models import continuous as j_continuous
 from puflow_tpu.models import discrete as j_discrete
+from torch_ckpt_cases import save_reference_checkpoint
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,13 +40,22 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and the tests' reference-checkpoint
+    writer that `chip_smoke.py` shares, imports neither jax nor
+    `puflow_tpu`."""
+    mods = _port_modules()
+    assert {"puflow_torch.cli.evaluate", "puflow_torch.convert.torch_ckpt",
+            "puflow_torch.eval.jsd", "puflow_torch.eval.p2f",
+            "puflow_torch.eval.uniformity",
+            "puflow_torch.ops.approx_match"} <= set(mods)
     code = ("import importlib, sys\n"
-            f"for m in {_port_modules()!r}:\n"
+            f"for m in {mods + ['torch_ckpt_cases']!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'puflow_tpu')]\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -149,6 +159,25 @@ def test_cli_exits_nonzero_without_cuda(cli_inputs):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "cuda" in proc.stderr.lower()
+
+
+def test_evaluate_cli_exits_nonzero_without_cuda(tmp_path):
+    """`cli.evaluate` without ``--device`` asks for CUDA and, on a host
+    without a card, fails instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    for d in ("gt", "pred"):
+        (tmp_path / d).mkdir()
+        np.savetxt(tmp_path / d / "a.xyz", np.eye(3), fmt="%.6f")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "puflow_torch.cli.evaluate", "--pred",
+         str(tmp_path / "pred"), "--gt", str(tmp_path / "gt"),
+         "--save_path", str(tmp_path / "out")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "cuda" in proc.stderr.lower()
+    assert not (tmp_path / "out").exists()
 
 
 def test_cli_upsamples_on_cpu(cli_inputs):
@@ -300,10 +329,20 @@ def test_continuous_names_the_cnf_family(cnf_checkpoint):
 
 
 def test_pt_checkpoint_raises(cli_inputs):
+    """The CLI reads reference `.pt` checkpoints; one of the other family
+    raises, naming what the file looks like, and an unknown format
+    raises."""
     tmp, _, src = cli_inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cli.main(["--source", str(src), "--target", str(tmp / "x"),
-                    "--checkpoint", str(tmp / "model.pt"), "--device", "cpu"])
+    params, state = j_discrete.init(jax.random.PRNGKey(0))
+    pt = str(tmp / "model.pt")
+    save_reference_checkpoint(pt, jax.tree.map(np.asarray, params),
+                              jax.tree.map(np.asarray, state))
+    flags = ["--source", str(src), "--target", str(tmp / "x"),
+             "--device", "cpu", "--checkpoint"]
+    with pytest.raises(ValueError, match="looks like: discrete"):
+        t_cli.main([*flags, pt, "--model", "cnf"])
+    with pytest.raises(ValueError, match="unrecognised checkpoint format"):
+        t_cli.main([*flags, str(tmp / "model.h5")])
 
 
 def test_trainer_and_train_cli_default_to_the_card(tmp_path):
@@ -335,9 +374,16 @@ def test_trainer_and_train_cli_default_to_the_card(tmp_path):
 
 
 def test_train_cli_rejects_torch_checkpoints(tmp_path):
+    """`--begin_checkpoint` takes reference `.pt` files, and rejects one of
+    the other family before training."""
     from puflow_torch.cli import train_pu1k
 
-    with pytest.raises(ValueError, match=".npz"):
+    params, state = j_continuous.init(jax.random.PRNGKey(0))
+    pt = str(tmp_path / "cnf.pt")
+    save_reference_checkpoint(pt, jax.tree.map(np.asarray, params),
+                              jax.tree.map(np.asarray, state), "cnf")
+    with pytest.raises(ValueError, match="looks like: continuous"):
         train_pu1k.main(["--synthetic", "1", "--device", "cpu",
-                         "--begin_checkpoint", str(tmp_path / "m.pt"),
+                         "--begin_checkpoint", pt,
                          "--checkpoint", str(tmp_path / "m.npz")])
+    assert not (tmp_path / "m.npz").exists()
