@@ -140,7 +140,21 @@ Phases:
      each stage's seconds, evaluate's ms a file by metric (also in this
      process on one pair at PU-GAN's 20,000 points) and `earth_mover`'s
      ms and peak memory at 8,192 and 20,000 points;
- 22. prints its total seconds, one JSON line of kernel results and, last,
+ 22. exports the folded discrete and CNF patch samplers (symbolic batch)
+     and cloud upsamplers (8 clouds and 1) with `puflow_torch.serving`,
+     and runs `python -m puflow_torch.cli.export` for both kinds on a
+     seeded `.npz`; loads the six `.pt2` files in a fresh process that
+     imports torch and `puflow_torch.serving` alone, calls the discrete
+     sampler at 1, 32 and 256 patches and the others on their inputs
+     with the launch counts set to 0 before and read after (the folded
+     path's five kernels once a sampler call, FPS twice more a cloud
+     call; the CNF's solve 12 times, encoder and head once), holds each
+     output to the live path (samplers atol 1e-6, clouds Chamfer < 5e-5)
+     and two calls of one artifact bit-equal; prints each export's
+     seconds and MB, each artifact's ms beside the live path's (in
+     turns, one process) and each op's host dispatch beside its direct
+     ctypes launch;
+ 23. prints its total seconds, one JSON line of kernel results and, last,
      the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
@@ -166,7 +180,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from puflow_torch import checkpoint
+from puflow_torch import checkpoint, serving
 from puflow_torch.cli import evaluate
 from puflow_torch.convert import torch_ckpt
 from puflow_torch.data import tfrecord
@@ -199,6 +213,7 @@ from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
 # the reference-format checkpoint writer the CPU tests use (no jax)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_ckpt_cases import save_reference_checkpoint  # noqa: E402
+from torch_op_cases import DIRECT as OP_DIRECT  # noqa: E402
 
 SEED = 2021
 N_POINTS = 2048
@@ -1678,7 +1693,8 @@ def compare_cnf(model, results):
                                              "kernel are not bit-equal")
                     check_close(results, "cnf_solve", got, ref, tol)
                     if weights == "perturbed":
-                        witness_check(args, got, ref)
+                        witness_check(args, got, ref,
+                                      steps=WITNESS_STEPS // 4)
     blocks = params["flow_blocks"]
 
     # times and the bound at the two shapes of `bench_cnf`'s sample, cdim
@@ -2118,7 +2134,7 @@ def compare_cnf_logp(model, results):
                 check_close(results, "cnf_solve_logp", got, ref, tol)
                 if label == "perturbed":
                     witness_check(args, got, ref, rk4_witness_logp,
-                                  WITNESS_STEPS // 2, "cnf_solve_logp")
+                                  WITNESS_STEPS // 8, "cnf_solve_logp")
 
     # times and the bound, f direction at cdim 128: y and logp in and out,
     # the conditions, the layers; 1 + 6 field evaluations with the three
@@ -2999,6 +3015,287 @@ def phase_eval_protocol(model, folded, cnf_model, cnf_folded, card):
     time_earth_mover(card, PUGAN_POINTS, 5)
 
 
+# --------------------------------------------------------------------------
+# Serving artifacts: `torch.export` .pt2 files of the folded paths
+# --------------------------------------------------------------------------
+EXPORT_NPOINT = N_POINTS * UPRATIO + N_OUTLIERS   # the artifact's output
+EXPORT_PATCHES = (1, 32, 256)                     # calls of the sampler
+FOLDED_COUNTS = {"knn_self": 1, "encoder": 1, "interp_head": 1, "flow_f": 1,
+                 "flow_g_blend": 1}
+CNF_COUNTS = {"cnf_solve": CNF_SOLVES, "encoder": 1, "interp_head": 1}
+# artifact -> (kernel launches a call, input names it is called on)
+ARTIFACTS = {
+    "discrete_patch": (FOLDED_COUNTS,
+                       [f"patches{b}" for b in EXPORT_PATCHES]),
+    "discrete_cloud": (dict(FOLDED_COUNTS, fps=2), ["clouds8"]),
+    "cnf_patch": (CNF_COUNTS, ["patches32"]),
+    "cnf_cloud": (dict(CNF_COUNTS, fps=2), ["clouds1"]),
+    "cli_patch": (FOLDED_COUNTS, ["patches32"]),
+    "cli_cloud": (dict(FOLDED_COUNTS, fps=2), ["clouds8"]),
+}
+# a fresh process that imports torch and `puflow_torch.serving` alone, loads
+# every artifact, calls each twice on each of its inputs with the launch
+# counts set to 0 before the first call and read after it
+LOAD_AND_CALL = """
+import json, sys, time
+import torch
+from puflow_torch import serving
+
+spec = json.loads(sys.argv[1])
+inputs = torch.load(spec["inputs"])
+results = {}
+for name, (path, feeds) in spec["artifacts"].items():
+    t0 = time.perf_counter()
+    fn = serving.load_exported(path)
+    load_s = time.perf_counter() - t0
+    for feed in feeds:
+        x = inputs[feed].cuda()
+        for w in serving.WRAPPERS.values():
+            w.launches = 0
+        out = fn(x)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in serving.WRAPPERS.items()
+                  if w.launches}
+        again = fn(x)
+        results[name, feed] = dict(out=out.cpu(), counts=counts,
+                                   rerun_equal=bool(torch.equal(out, again)),
+                                   load_s=load_s)
+torch.save(results, spec["results"])
+print("loaded and called", len(spec["artifacts"]), "artifacts in",
+      torch.cuda.get_device_name(0))
+"""
+
+
+def graph_calls(ep) -> dict:
+    """``puflow::`` op calls in an exported graph and its submodules'."""
+    calls = {}
+    for mod in ep.graph_module.modules():
+        for node in mod.graph.nodes:
+            name = getattr(node.target, "name", lambda: "")()
+            if node.op == "call_function" and name.startswith("puflow::"):
+                op = name.split("::")[1].split(".")[0]
+                calls[op] = calls.get(op, 0) + 1
+    return calls
+
+
+def median_call_ms(fn, reps: int) -> float:
+    """Median device-clock ms of one call over ``reps`` calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Median host microseconds of one call to enqueue ``fn``, over
+    ``calls`` calls after 3 warm-up calls (too few launches to fill the
+    card's queue, so no call waits for a free slot)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def dispatch_cases(folded, cnf_folded, patches):
+    """op -> (the wrapper's call, the op's arguments) at the main path's
+    shapes: 32 patches of 256 points (the CNF's f solve of block 0 on
+    them), the seed pick of one cloud, the seeded merge's Morton cells of
+    one cloud, one patch over the shared-memory k-NN's limit."""
+    p, cp = folded.trees()[0], cnf_folded.trees()[0]
+    x = patches[:N_PATCH].contiguous()
+    idx = knn_self_plain(x, K)
+    idx8 = idx[..., :INTERP_K]
+    cs = enc_ops.encoder_conditions_plain(p, x, idx)
+    ws = interp_ops.interp_head_plain(p["interp"], x, idx8, UPRATIO)
+    z = flow_ops.flow_f_plain(p["flow_blocks"], x, cs)
+    fz = torch.einsum("bnkc,bnkr->bncr", gather_points(z, idx8),
+                      ws).contiguous()
+    enc = _build.flatten({"feat_convs": p["feat_convs"],
+                          "merge_convs": p["merge_convs"]})
+    head = _build.flatten(p["interp"])
+    blocks = _build.flatten(list(p["flow_blocks"]))
+    bp = cp["flow_blocks"][0]
+    T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
+    c0 = enc_ops.encoder_conditions_plain(cp, x, idx)[0]
+    layers = _build.flatten(list(bp["layers"]))
+    zero = torch.zeros_like(T)
+    pc = synthetic_clouds(1, SEED)
+    cells = torch.rand((16, 2048, 3), device=x.device)
+    big = clustered_patch(np.random.RandomState(SEED), 1, KNN_MAX_N + 1)
+    fb = p["flow_blocks"]
+    return {
+        "knn_self": (lambda: knn_self(x, K), (x, K)),
+        "knn_self_stream": (lambda: knn_self_stream(big, K), (big, K)),
+        "encoder": (lambda: enc_ops.encoder_conditions(p, x, idx),
+                    (x, idx, *enc)),
+        "interp_head": (lambda: interp_ops.interp_head(
+            p["interp"], x, idx8, UPRATIO),
+            (x, idx8, *head, UPRATIO, "weights", None)),
+        "flow_f": (lambda: flow_ops.flow_f(fb, x, cs), (x, cs, *blocks)),
+        "flow_g": (lambda: flow_ops.flow_g(fb, fz, cs), (fz, cs, *blocks)),
+        "flow_g_blend": (lambda: flow_ops.flow_g_blend(fb, z, ws, idx8, cs),
+                         (z, ws, idx8, cs, *blocks)),
+        "cnf_solve": (lambda: cnf_ops.cnf_solve_t(bp["layers"], c0, x, zero,
+                                                  T),
+                      (c0, x, zero, T, *layers, continuous.RTOL,
+                       continuous.ATOL, continuous.MAX_STEPS_EVAL)),
+        "fps": (lambda: farthest_point_sample(pc, N_PATCH),
+                (pc, N_PATCH, -1, -1)),
+        "fps_seeded": (lambda: farthest_point_sample_seeded(cells, pc, 386),
+                       (cells, pc, 386, -1, -1)),
+    }
+
+
+def phase_export(model, folded, cnf_folded, card):
+    """Export the folded discrete and CNF patch samplers (symbolic batch)
+    and cloud upsamplers (8 and 1 clouds), and the export CLI's two kinds;
+    load all six in a fresh process and count each call's launches; hold
+    each artifact to the live path (patch samplers atol 1e-6, cloud
+    upsamplers Chamfer < 5e-5: tests/test_serving.py's gates), two calls
+    bit-equal; time the artifact beside the live path in turns, and each
+    op's host dispatch beside its direct ctypes launch."""
+    t_phase = time.perf_counter()
+    patches = main_path_patches(8)                    # 256 patches
+    inputs = {f"patches{b}": patches[:b].contiguous() for b in EXPORT_PATCHES}
+    inputs.update(clouds8=synthetic_clouds(8, SEED),
+                  clouds1=synthetic_clouds(1, SEED))
+    live_models = {"discrete": folded, "cnf": cnf_folded}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: os.path.join(tmp, f"{name}.pt2") for name in ARTIFACTS}
+        exported = {}
+        for family in ("discrete", "cnf"):
+            params, state = live_models[family].trees()
+            for kind, batch in (("patch", None),
+                                ("cloud", 8 if family == "discrete" else 1)):
+                name = f"{family}_{kind}"
+                t0 = time.perf_counter()
+                if kind == "patch":
+                    ep = serving.export_patch_sampler(params, state, family,
+                                                      UPRATIO, PATCH)
+                else:
+                    ep = serving.export_cloud_upsampler(
+                        params, state, family, N_POINTS, EXPORT_NPOINT,
+                        UPRATIO, PATCH, EXPAND, batch)
+                export_s = time.perf_counter() - t0
+                serving.save_exported(ep, paths[name])
+                calls, want = graph_calls(ep), ARTIFACTS[name][0]
+                log(f"export {name}: {export_s:.2f} s, "
+                    f"{os.path.getsize(paths[name]) / 1e6:.3f} MB, graph "
+                    f"calls {calls} ({card})")
+                if calls != want or ep.constants:
+                    raise AssertionError(f"{name}: graph calls {calls}, "
+                                         f"constants {list(ep.constants)}")
+                exported[name] = ep
+        npz = os.path.join(tmp, "discrete.npz")
+        checkpoint.save_checkpoint(npz, *checkpoint.to_numpy_tree(model))
+        t0 = time.perf_counter()
+        shape = ("--patch_size", str(PATCH), "--cloud_points", str(N_POINTS))
+        run_clis(("puflow_torch.cli.export", "--checkpoint", npz, "--out",
+                  paths["cli_patch"], *shape),
+                 ("puflow_torch.cli.export", "--checkpoint", npz, "--kind",
+                  "cloud", "--batch", "8", "--out", paths["cli_cloud"],
+                  *shape))
+        log(f"export CLI, both kinds at once: {time.perf_counter() - t0:.2f}"
+            f" s; {os.path.getsize(paths['cli_patch']) / 1e6:.3f} / "
+            f"{os.path.getsize(paths['cli_cloud']) / 1e6:.3f} MB ({card})")
+
+        torch.save({k: v.cpu() for k, v in inputs.items()},
+                   os.path.join(tmp, "inputs.pt"))
+        spec = {"inputs": os.path.join(tmp, "inputs.pt"),
+                "results": os.path.join(tmp, "results.pt"),
+                "artifacts": {n: (paths[n], feeds)
+                              for n, (_, feeds) in ARTIFACTS.items()}}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", LOAD_AND_CALL,
+                               json.dumps(spec)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading the artifacts failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        log(f"{proc.stdout.strip()} (fresh process, "
+            f"{time.perf_counter() - t0:.2f} s with its start)")
+        results = torch.load(spec["results"])
+        fresh = {n: serving.load_exported(paths[n]) for n in ARTIFACTS}
+
+    live_ms = {}
+    with torch.no_grad():
+        for (name, feed), res in results.items():
+            x = inputs[feed]
+            family, kind = name.split("_")
+            family = "discrete" if family == "cli" else family
+            net = live_models[family]
+            if kind == "patch":
+                live = lambda net=net, x=x: net(x, UPRATIO)  # noqa: E731
+            else:
+                live = lambda net=net, x=x: upsample_cloud(  # noqa: E731
+                    net, x, EXPORT_NPOINT, UPRATIO, PATCH, EXPAND)
+            ref = live()
+            torch.cuda.synchronize()
+            got = res["out"].to(ref.device)
+            want = ARTIFACTS[name][0]
+            if res["counts"] != want:
+                raise AssertionError(f"{name} on {feed}: launches "
+                                     f"{res['counts']}, not {want}")
+            if kind == "patch":
+                gap = float((got - ref).abs().max())
+                ok, what = gap <= 1e-6, f"max_abs_diff {gap:.3e} (atol 1e-6)"
+            else:
+                gap = chamfer(got, ref)
+                ok, what = gap < 5e-5, f"chamfer {gap:.3e} (gate 5e-5)"
+            log(f"artifact {name} on {feed} {tuple(x.shape)} (loaded in "
+                f"{res['load_s']:.2f} s): launches {res['counts']}; vs the "
+                f"live path {what}, bit-equal {torch.equal(got, ref)}; two "
+                f"calls bit-equal {res['rerun_equal']} ({card})")
+            if not ok or not res["rerun_equal"]:
+                raise AssertionError(f"artifact {name} on {feed} fails its "
+                                     "gate or its rerun")
+            if name.startswith("cli") or (name, feed) in live_ms:
+                continue
+            art = lambda fn=fresh[name], x=x: fn(x)  # noqa: E731
+            reps = 5 if x.shape[0] > 1 else 10
+            l1, a1 = median_call_ms(live, reps), median_call_ms(art, reps)
+            a2, l2 = median_call_ms(art, reps), median_call_ms(live, reps)
+            live_ms[name, feed] = (l1, l2)
+            log(f"artifact {name} on {feed}: {a1:.4f} / {a2:.4f} ms a call, "
+                f"live {l1:.4f} / {l2:.4f} ms (median of {reps}, in turns "
+                f"live, artifact, artifact, live; {card})")
+
+        cases = dispatch_cases(folded, cnf_folded, patches)
+        for op, (wrapper, args) in cases.items():
+            packet = getattr(torch.ops.puflow, op)
+            w = host_us(wrapper)
+            o = host_us(lambda packet=packet, args=args: packet(*args))
+            d = host_us(lambda op=op, args=args: OP_DIRECT[op](*args))
+            log(f"dispatch {op}: wrapper {w:.1f} us, op {o:.1f} us, direct "
+                f"ctypes launch {d:.1f} us a call (host, median of 100; op "
+                f"- direct {o - d:.1f} us; {card})")
+    log(f"phase export: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def timed(phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, then its name (and path, for a phase of
+    one path) and seconds on a line of their own."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    label = " ".join([phase.__name__] + [a for a in args[:1]
+                                         if isinstance(a, str) and a in PATHS])
+    log(f"[{label}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3024,48 +3321,49 @@ def main():
     model, folded = seeded_models()
     rng = np.random.RandomState(SEED)
     with torch.no_grad():
-        compare_fps(results, rng)
+        timed(compare_fps, results, rng)
         x = main_path_patches(8)                   # 256 patches x 256
-        compare_folded(folded, x, results, rng)
-        compare_flows(model, x, results)
-    phase_main_path("folded", folded, results)
-    phase_main_path("exact", model, results)
-    phase_timing("folded", folded, card)
-    phase_timing("exact", model, card)
+        timed(compare_folded, folded, x, results, rng)
+        timed(compare_flows, model, x, results)
+    timed(phase_main_path, "folded", folded, results)
+    timed(phase_main_path, "exact", model, results)
+    timed(phase_timing, "folded", folded, card)
+    timed(phase_timing, "exact", model, card)
     params, state, sparse, dense = training_inputs(model)
-    phase_emd(results, params, state, sparse, dense)
-    phase_train(results, params, state, sparse, dense, card)
-    phase_cli()
-    phase_large_patch(results, model, folded)
+    timed(phase_emd, results, params, state, sparse, dense)
+    timed(phase_train, results, params, state, sparse, dense, card)
+    timed(phase_cli)
+    timed(phase_large_patch, results, model, folded)
 
     cnf_model, cnf_folded = seeded_models("cnf")
     with torch.no_grad():
-        compare_cnf(cnf_model, results)
-    phase_main_path("cnf_folded", cnf_folded, results)
-    phase_main_path("cnf_exact", cnf_model, results)
-    phase_cnf_bench("cnf_folded", cnf_folded, card)
-    phase_cnf_bench("cnf_exact", cnf_model, card)
-    phase_timing("cnf_folded", cnf_folded, card, batches=(1, 8))
-    phase_timing("cnf_exact", cnf_model, card, batches=(8,))
-    phase_cnf_cli(cnf_model)
+        timed(compare_cnf, cnf_model, results)
+    timed(phase_main_path, "cnf_folded", cnf_folded, results)
+    timed(phase_main_path, "cnf_exact", cnf_model, results)
+    timed(phase_cnf_bench, "cnf_folded", cnf_folded, card)
+    timed(phase_cnf_bench, "cnf_exact", cnf_model, card)
+    timed(phase_timing, "cnf_folded", cnf_folded, card, batches=(1, 8))
+    timed(phase_timing, "cnf_exact", cnf_model, card, batches=(8,))
+    timed(phase_cnf_cli, cnf_model)
 
     with torch.no_grad():
-        compare_fps_seeded(results, rng)
+        timed(compare_fps_seeded, results, rng)
     for name in ("seeded_merge", "union_groups"):
         for batch in (1, 32):
-            phase_main_path(name, folded, results, batch=batch)
-    phase_main_path("cnf_seeded_merge", cnf_folded, results, batch=1)
-    phase_merge_timing(folded, card)
-    phase_merge_cli(model)
+            timed(phase_main_path, name, folded, results, batch=batch)
+    timed(phase_main_path, "cnf_seeded_merge", cnf_folded, results, batch=1)
+    timed(phase_merge_timing, folded, card)
+    timed(phase_merge_cli, model)
 
     with torch.no_grad():
-        compare_cnf_logp(cnf_model, results)
-        compare_cnf_adjoint(cnf_model, results)
-    phase_cnf_grad(results, card)
-    phase_cnf_eval(cnf_model)
-    phase_cnf_train(card)
-    phase_train_clis(cnf_folded)
-    phase_eval_protocol(model, folded, cnf_model, cnf_folded, card)
+        timed(compare_cnf_logp, cnf_model, results)
+        timed(compare_cnf_adjoint, cnf_model, results)
+    timed(phase_cnf_grad, results, card)
+    timed(phase_cnf_eval, cnf_model)
+    timed(phase_cnf_train, card)
+    timed(phase_train_clis, cnf_folded)
+    timed(phase_eval_protocol, model, folded, cnf_model, cnf_folded, card)
+    timed(phase_export, model, folded, cnf_folded, card)
 
     log(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

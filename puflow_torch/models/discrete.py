@@ -198,12 +198,12 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
         ws = interp_head(params["interp"], xyz, idx8, upratio, "weights")
         z = flow_f(params["flow_blocks"], xyz, cs)
         x = flow_g_blend(params["flow_blocks"], z, ws, idx8, cs)
-        return x, torch.tensor(float("nan")), state
+        return x, torch.full((), float("nan"), device=xyz.device), state
     knn_idx = knn_indices(xyz, xyz, NUM_NEIGHBORS)
     cs, feat_s = feat_extract(params, state, xyz, knn_idx, train)
     if fast_f and not train:
         z = flow_f(params["flow_blocks"], xyz.contiguous(), cs)
-        logp_x = torch.tensor(float("nan"))
+        logp_x = torch.full((), float("nan"), device=xyz.device)
     else:
         z, logp_x = log_prob(params, xyz, cs)
     # K=16 sorted -> its first 8 columns ARE the K=8 graph

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -197,3 +198,78 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# A weight tree crosses a `torch.library` op's boundary as its leaves (a
+# ``Tensor[]``) and a spelling of its structure (a ``str``): JSON with
+# null for each leaf. Tokens of the structure while it is walked: these
+# ints open and close a container, a str is a dict key, None a leaf.
+_DICT, _LIST, _END = 0, 1, 2
+
+
+def _walk(tree, leaves: list, toks: list) -> None:
+    if isinstance(tree, dict):
+        toks.append(_DICT)
+        for key, val in tree.items():
+            if not isinstance(key, str):
+                raise TypeError(f"flatten: dict key {key!r} is not a str")
+            toks.append(key)
+            _walk(val, leaves, toks)
+        toks.append(_END)
+    elif isinstance(tree, (list, tuple)):
+        toks.append(_LIST)
+        for val in tree:
+            _walk(val, leaves, toks)
+        toks.append(_END)
+    else:
+        leaves.append(tree)
+        toks.append(None)
+
+
+@functools.lru_cache(maxsize=256)
+def _spell(toks: tuple) -> str:
+    """The JSON skeleton of a structure's tokens."""
+    stack, key = [[]], None
+    for tok in toks:
+        if isinstance(tok, str):
+            key = tok
+        elif tok == _END:
+            stack.pop()
+        else:
+            node = {} if tok == _DICT else [] if tok == _LIST else None
+            parent = stack[-1]
+            if isinstance(parent, dict):
+                parent[key] = node
+            else:
+                parent.append(node)
+            if node is not None:
+                stack.append(node)
+    return json.dumps(stack[0][0], separators=(",", ":"))
+
+
+@functools.lru_cache(maxsize=256)
+def _skeleton(spelling: str):
+    return json.loads(spelling)
+
+
+def flatten(tree) -> tuple[list, str]:
+    """A nested dict / list tree of tensors -> (its leaves in order, the
+    spelling of its structure), what an op takes for it; `unflatten`
+    inverts it. The spelling is made once per structure."""
+    leaves, toks = [], []
+    _walk(tree, leaves, toks)
+    return leaves, _spell(tuple(toks))
+
+
+def unflatten(leaves, spelling: str):
+    """The tree that `flatten` gave ``leaves`` and ``spelling`` for."""
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [fill(v) for v in node]
+        return next(it)
+
+    return fill(_skeleton(spelling))

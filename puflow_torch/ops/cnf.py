@@ -180,17 +180,47 @@ def _cnf_kernel(layers, c: torch.Tensor, y: torch.Tensor, t0, t1, r: int,
             int(max_steps), state.data_ptr(), partials.data_ptr(), _MAX_GRID,
             out.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "puflow_cnf_solve")
-    cnf_solve.launches += 1
-    if cnf_solve.stats_log is not None:
-        cnf_solve.stats_log.append(stats)
     return out, stats
+
+
+@torch.library.custom_op("puflow::cnf_solve", mutates_args=(),
+                         device_types="cuda")
+def _cnf_solve_op(c: torch.Tensor, y: torch.Tensor, t0: torch.Tensor,
+                  t1: torch.Tensor, leaves: list[torch.Tensor], tree: str,
+                  rtol: float, atol: float,
+                  max_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    out, stats = _cnf_kernel(_build.unflatten(leaves, tree), c, y, t0, t1,
+                             y.shape[1] // c.shape[1], rtol, atol, max_steps)
+    cnf_solve.launches += 1
+    return out, stats
+
+
+@_cnf_solve_op.register_kernel("cpu")
+def _(c, y, t0, t1, leaves, tree, rtol, atol, max_steps):
+    out, st = cnf_solve_plain(_build.unflatten(leaves, tree), c, y, t0, t1,
+                              rtol, atol, max_steps, return_stats=True)
+    # no step taken: `odeint_dopri5` hands back y itself, which an op's output
+    # may not be
+    out = out.clone() if out is y else out
+    return out, torch.tensor([st["steps"], st["accepted"]],
+                             dtype=torch.int32)
+
+
+@_cnf_solve_op.register_fake
+def _(c, y, t0, t1, leaves, tree, rtol, atol, max_steps):
+    return torch.empty_like(y), y.new_empty((2,), dtype=torch.int32)
+
+
+def _time(t, dev) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(())
 
 
 def cnf_solve_t(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
                 rtol: float = 1e-5, atol: float = 1e-5, max_steps: int = 128,
                 return_stats: bool = False):
     """Integrate the block's plain field from t0 to t1 (floats or 0-dim
-    tensors; ``t1 < t0`` runs backward): the CUDA kernel for CUDA tensors,
+    tensors; ``t1 < t0`` runs backward) through the op
+    ``puflow::cnf_solve``: the CUDA kernel for CUDA tensors,
     `cnf_solve_plain` for CPU tensors.
 
     Args:
@@ -207,12 +237,19 @@ def cnf_solve_t(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
     """
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cnf_solve: no kernel for {y.device}")
-    r = _check("cnf_solve", layers, c, y)
+    _check("cnf_solve", layers, c, y)
+    leaves, tree = _build.flatten(list(layers))
+    out, stats = torch.ops.puflow.cnf_solve(
+        c, y, _time(t0, y.device), _time(t1, y.device), leaves, tree,
+        float(rtol), float(atol), int(max_steps))
+    if y.device.type == "cuda" and cnf_solve.stats_log is not None:
+        cnf_solve.stats_log.append(stats)
+    if not return_stats:
+        return out
     if y.device.type == "cpu":
-        return cnf_solve_plain(layers, c, y, t0, t1, rtol, atol, max_steps,
-                               return_stats)
-    out, stats = _cnf_kernel(layers, c, y, t0, t1, r, rtol, atol, max_steps)
-    return (out, stats) if return_stats else out
+        steps, accepted = stats.tolist()
+        stats = {"steps": steps, "accepted": accepted, "nfe": 1 + 6 * steps}
+    return out, stats
 
 
 def cnf_solve(layers, c: torch.Tensor, y: torch.Tensor, T,

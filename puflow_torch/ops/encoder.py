@@ -14,7 +14,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.utils._pytree import tree_flatten
 
 from puflow_torch.models.encoder import feat_merge_apply, feature_extract_apply
 from puflow_torch.ops import _build
@@ -28,6 +27,8 @@ _CDIMS = (32, 64, 128)    # condition widths the kernel takes
 _PROJ_COLS = 128          # projection columns a rows phase (csrc/encoder.cu)
 _MAX_GT = 256             # projection columns of a block
 _MAX_ODIM = 128
+# `_pack`'s metadata: ints a block, and where its condition width is
+_META_INTS, _META_CDIM = 10, 4
 
 
 def encoder_conditions_plain(params, xyz: torch.Tensor,
@@ -158,22 +159,16 @@ def _pack(params):
     return weights.contiguous(), meta
 
 
-def encoder_conditions(params, xyz: torch.Tensor, knn_idx: torch.Tensor):
-    """Six conditions ``[B, n, cdim_i]`` of folded params from patches
-    ``[B, n, 3]`` and their K-NN graph ``[B, n, K]`` (indices within each
-    patch): the CUDA kernel for CUDA tensors, the plain version for CPU."""
-    if xyz.device.type == "cpu":
-        return encoder_conditions_plain(params, xyz, knn_idx)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"encoder_conditions: no kernel for {xyz.device}")
-    check_patches("encoder_conditions", xyz)
-    check_graph("encoder_conditions", knn_idx, xyz)
+def _launch(xyz: torch.Tensor, knn_idx: torch.Tensor, leaves,
+            tree: str) -> list[torch.Tensor]:
+    """Launch `csrc/encoder.cu` on checked CUDA tensors; ``leaves`` and
+    ``tree`` (`_build.flatten`) are the folded ``feat_convs`` and
+    ``merge_convs``, packed once per params (`_build.packed`)."""
     knn_idx = pad_slots(knn_idx)
     B, n, _ = xyz.shape
-    blocks = (params["feat_convs"], params["merge_convs"])
-    weights, meta = _build.packed(tree_flatten(blocks)[0],
-                                  lambda: _pack(params))
-    cdims = [mp["conv2"]["w"].shape[1] for mp in params["merge_convs"]]
+    weights, meta = _build.packed(
+        leaves, lambda: _pack(_build.unflatten(leaves, tree)))
+    cdims = meta[_META_CDIM::_META_INTS]
     cs = [torch.empty((B, n, cd), dtype=torch.float32, device=xyz.device)
           for cd in cdims]
     scratch = torch.empty(B * n * (2 * _MAX_GT + _MAX_ODIM),
@@ -188,8 +183,44 @@ def encoder_conditions(params, xyz: torch.Tensor, knn_idx: torch.Tensor):
             len(cdims), ctypes.addressof(out_ptrs), scratch.data_ptr(),
             _build.stream_ptr(xyz.device))
     _build.check(code, "puflow_encoder")
+    return cs
+
+
+@torch.library.custom_op("puflow::encoder", mutates_args=(),
+                         device_types="cuda")
+def _encoder_op(xyz: torch.Tensor, knn_idx: torch.Tensor,
+                leaves: list[torch.Tensor], tree: str) -> list[torch.Tensor]:
+    check_patches("encoder_conditions", xyz)
+    check_graph("encoder_conditions", knn_idx, xyz)
+    cs = _launch(xyz, knn_idx, leaves, tree)
     encoder_conditions.launches += 1
     return cs
+
+
+@_encoder_op.register_kernel("cpu")
+def _(xyz, knn_idx, leaves, tree):
+    return encoder_conditions_plain(_build.unflatten(leaves, tree), xyz,
+                                    knn_idx)
+
+
+@_encoder_op.register_fake
+def _(xyz, knn_idx, leaves, tree):
+    params = _build.unflatten(leaves, tree)
+    return [xyz.new_empty((xyz.shape[0], xyz.shape[1],
+                           mp["conv2"]["w"].shape[1]))
+            for mp in params["merge_convs"]]
+
+
+def encoder_conditions(params, xyz: torch.Tensor, knn_idx: torch.Tensor):
+    """Six conditions ``[B, n, cdim_i]`` of folded params from patches
+    ``[B, n, 3]`` and their K-NN graph ``[B, n, K]`` (indices within each
+    patch), through the op ``puflow::encoder``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"encoder_conditions: no kernel for {xyz.device}")
+    leaves, tree = _build.flatten({"feat_convs": params["feat_convs"],
+                                   "merge_convs": params["merge_convs"]})
+    return torch.ops.puflow.encoder(xyz, knn_idx, leaves, tree)
 
 
 encoder_conditions.launches = 0

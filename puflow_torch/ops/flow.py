@@ -22,7 +22,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.utils._pytree import tree_flatten
 
 from puflow_torch.flows.coupling import (
     additive_coupling_forward,
@@ -161,23 +160,31 @@ def _pack(flow_blocks, inverse: bool):
     return torch.cat(pieces).to(torch.float32).contiguous(), woff
 
 
+def _packed_leaves(leaves, tree: str, inverse: bool):
+    """The kernels' packing of the flow blocks that `_build.flatten` gave
+    (``leaves``, ``tree``), made once per parameters and direction
+    (`_build.packed`); the blocks are rebuilt only to pack them."""
+    return _build.packed(
+        leaves, lambda: _pack(_build.unflatten(leaves, tree), inverse),
+        "flow_g" if inverse else "flow_f")
+
+
 def _packed(flow_blocks, inverse: bool):
-    """The kernel's packing of the flow blocks, made once per parameters
-    (`_build.packed`)."""
-    leaves = tree_flatten(list(flow_blocks))[0]
-    return _build.packed(leaves, lambda: _pack(flow_blocks, inverse),
-                         "flow_g" if inverse else "flow_f")
+    """`_packed_leaves` of the flow blocks."""
+    return _packed_leaves(*_build.flatten(list(flow_blocks)), inverse)
 
 
-def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
-    """Validate what the kernels take; returns the host metadata arrays."""
+def _check_tensors(name: str, points: torch.Tensor, cs) -> None:
+    """Raise unless the input and the conditions are what the kernels read:
+    contiguous float32 on one device, a condition row per point, widths
+    even, at most `MAX_CDIM` and 8-byte aligned (the kernels read a
+    condition's columns in pairs)."""
     if points.dtype != torch.float32 or not points.is_contiguous():
         raise ValueError(f"{name}: expects contiguous float32 input, got "
                          f"{points.dtype}")
-    if len(cs) != len(flow_blocks) or not 1 <= len(cs) <= MAX_BLOCKS:
-        raise ValueError(f"{name}: {len(cs)} conditions for "
-                         f"{len(flow_blocks)} blocks (1 to {MAX_BLOCKS})")
-    for i, (bp, c) in enumerate(zip(flow_blocks, cs)):
+    if not 1 <= len(cs) <= MAX_BLOCKS:
+        raise ValueError(f"{name}: {len(cs)} conditions (1 to {MAX_BLOCKS})")
+    for i, c in enumerate(cs):
         if (c.device != points.device or c.dtype != torch.float32
                 or not c.is_contiguous()):
             raise ValueError(f"{name}: condition {i} must be contiguous "
@@ -186,6 +193,20 @@ def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
             raise ValueError(f"{name}: condition {i} has shape "
                              f"{tuple(c.shape)}; expected "
                              f"{tuple(points.shape[:2])} + (<= {MAX_CDIM},)")
+        if c.shape[-1] % 2 or c.data_ptr() % 8:
+            raise ValueError(f"{name}: condition {i} must have an even width "
+                             f"and 8-byte aligned rows, got width "
+                             f"{c.shape[-1]} at address {c.data_ptr()}")
+
+
+def _check_blocks(name: str, flow_blocks, points: torch.Tensor, cs) -> None:
+    """Raise unless the flow blocks are what the kernels take for these
+    conditions: one block a condition, on the input's device, hidden width
+    `HDIM`, each block's first layer as wide as its condition."""
+    if len(cs) != len(flow_blocks):
+        raise ValueError(f"{name}: {len(cs)} conditions for "
+                         f"{len(flow_blocks)} blocks")
+    for i, (bp, c) in enumerate(zip(flow_blocks, cs)):
         if bp["inv1x1"]["W"].device != points.device:
             raise ValueError(f"{name}: block {i} is not on {points.device}")
         if bp["coupling1"]["bias_net"]["w1"].shape != (HDIM, HDIM):
@@ -194,34 +215,24 @@ def _check_inputs(name: str, flow_blocks, points: torch.Tensor, cs):
                 c.shape[-1] + _split(i)):
             raise ValueError(f"{name}: block {i} does not match its "
                              "condition width")
-    c_ptrs = (ctypes.c_longlong * len(cs))(*(c.data_ptr() for c in cs))
-    cdims = (ctypes.c_int * len(cs))(*(c.shape[-1] for c in cs))
-    return c_ptrs, cdims
 
 
-def _check_conditions(name: str, cs):
-    """The kernels read a condition's columns in pairs: even widths, 8-byte
-    aligned."""
-    for i, c in enumerate(cs):
-        if c.shape[-1] % 2 or c.data_ptr() % 8:
-            raise ValueError(f"{name}: condition {i} must have an even width "
-                             f"and 8-byte aligned rows, got width "
-                             f"{c.shape[-1]} at address {c.data_ptr()}")
+def _launch_args(leaves, tree: str, cs, inverse: bool):
+    """What every flow kernel takes beside its own tensors: the packed
+    weights, and the host arrays of the conditions' pointers, their widths
+    and the blocks' offsets."""
+    weights, woff = _packed_leaves(leaves, tree, inverse)
+    return (weights,
+            (ctypes.c_longlong * len(cs))(*(c.data_ptr() for c in cs)),
+            (ctypes.c_int * len(cs))(*(c.shape[-1] for c in cs)),
+            (ctypes.c_int * len(woff))(*woff))
 
 
-def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
-    """Forward flow, points ``[B, N, 3]`` -> latents ``[B, N, 3]``, with no
-    log-det: the CUDA kernel for CUDA tensors, `flow_f_plain` for CPU."""
-    if x.device.type == "cpu":
-        return flow_f_plain(flow_blocks, x, cs)
-    if x.device.type != "cuda":
-        raise ValueError(f"flow_f: no kernel for {x.device}")
-    if x.ndim != 3 or x.shape[2] != 3:
-        raise ValueError(f"flow_f: expects [B, N, 3], got {tuple(x.shape)}")
-    c_ptrs, cdims = _check_inputs("flow_f", flow_blocks, x, cs)
-    _check_conditions("flow_f", cs)
-    weights, woff = _packed(flow_blocks, inverse=False)
-    woff_c = (ctypes.c_int * len(woff))(*woff)
+def _launch_f(x: torch.Tensor, cs, leaves, tree: str) -> torch.Tensor:
+    """Launch `csrc/flow_f.cu` on checked CUDA tensors; ``leaves`` and
+    ``tree`` (`_build.flatten`) are the flow blocks."""
+    weights, c_ptrs, cdims, woff_c = _launch_args(leaves, tree, cs,
+                                                  inverse=False)
     z = torch.empty_like(x)
     lib = _build.library()
     with torch.cuda.device(x.device):
@@ -231,25 +242,13 @@ def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
             x.shape[0] * x.shape[1], z.data_ptr(),
             _build.stream_ptr(x.device))
     _build.check(code, "puflow_flow_f")
-    flow_f.launches += 1
     return z
 
 
-def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
-    """Inverse flow, latents ``[B, N, 3, r]`` + un-repeated conditions ->
-    points ``[B, N * r, 3]`` point-major: the CUDA kernel for CUDA
-    tensors, `flow_g_plain` for CPU."""
-    if fz.device.type == "cpu":
-        return flow_g_plain(flow_blocks, fz, cs)
-    if fz.device.type != "cuda":
-        raise ValueError(f"flow_g: no kernel for {fz.device}")
-    if fz.ndim != 4 or fz.shape[2] != 3 or not 1 <= fz.shape[3] <= MAX_UPRATIO:
-        raise ValueError("flow_g: expects [B, N, 3, r] with r <= "
-                         f"{MAX_UPRATIO}, got {tuple(fz.shape)}")
-    c_ptrs, cdims = _check_inputs("flow_g", flow_blocks, fz, cs)
-    _check_conditions("flow_g", cs)
-    weights, woff = _packed(flow_blocks, inverse=True)
-    woff_c = (ctypes.c_int * len(woff))(*woff)
+def _launch_g(fz: torch.Tensor, cs, leaves, tree: str) -> torch.Tensor:
+    """Launch `csrc/flow_g.cu:puflow_flow_g` on checked CUDA tensors."""
+    weights, c_ptrs, cdims, woff_c = _launch_args(leaves, tree, cs,
+                                                  inverse=True)
     B, N, C, r = fz.shape
     out = torch.empty((B, N * r, C), dtype=torch.float32, device=fz.device)
     lib = _build.library()
@@ -259,36 +258,17 @@ def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
             ctypes.addressof(cdims), ctypes.addressof(woff_c), len(cs),
             B * N, r, out.data_ptr(), _build.stream_ptr(fz.device))
     _build.check(code, "puflow_flow_g")
-    flow_g.launches += 1
     return out
 
 
-def flow_g_blend(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
-                 knn_idx: torch.Tensor, cs) -> torch.Tensor:
-    """Latent blend plus inverse flow, ``[B, N * r, 3]`` point-major (see
-    `flow_g_blend_plain`): the CUDA kernel for CUDA tensors, whose
-    prologue blends each point's latents, the plain version for CPU."""
-    if z.device.type == "cpu":
-        return flow_g_blend_plain(flow_blocks, z, ws, knn_idx, cs)
-    if z.device.type != "cuda":
-        raise ValueError(f"flow_g_blend: no kernel for {z.device}")
-    if z.ndim != 3 or z.shape[2] != 3:
-        raise ValueError(f"flow_g_blend: expects z [B, N, 3], got "
-                         f"{tuple(z.shape)}")
+def _launch_g_blend(z: torch.Tensor, ws: torch.Tensor, knn_idx: torch.Tensor,
+                    cs, leaves, tree: str) -> torch.Tensor:
+    """Launch `csrc/flow_g.cu:puflow_flow_g_blend` on checked CUDA
+    tensors."""
+    weights, c_ptrs, cdims, woff_c = _launch_args(leaves, tree, cs,
+                                                  inverse=True)
     B, N, C = z.shape
-    k = check_graph("flow_g_blend", knn_idx, z)
-    if (ws.dtype != torch.float32 or ws.device != z.device
-            or not ws.is_contiguous() or ws.ndim != 4
-            or ws.shape[:3] != (B, N, k)
-            or not 1 <= ws.shape[3] <= MAX_UPRATIO):
-        raise ValueError("flow_g_blend: expects contiguous float32 ws "
-                         f"[{B}, {N}, {k}, r <= {MAX_UPRATIO}], got "
-                         f"{ws.dtype} {tuple(ws.shape)}")
-    c_ptrs, cdims = _check_inputs("flow_g_blend", flow_blocks, z, cs)
-    _check_conditions("flow_g_blend", cs)
-    weights, woff = _packed(flow_blocks, inverse=True)
-    woff_c = (ctypes.c_int * len(woff))(*woff)
-    r = ws.shape[3]
+    k, r = knn_idx.shape[2], ws.shape[3]
     out = torch.empty((B, N * r, C), dtype=torch.float32, device=z.device)
     lib = _build.library()
     with torch.cuda.device(z.device):
@@ -299,8 +279,126 @@ def flow_g_blend(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
             ctypes.addressof(woff_c), len(cs), B * N, r, out.data_ptr(),
             _build.stream_ptr(z.device))
     _build.check(code, "puflow_flow_g_blend")
+    return out
+
+
+@torch.library.custom_op("puflow::flow_f", mutates_args=(),
+                         device_types="cuda")
+def _flow_f_op(x: torch.Tensor, cs: list[torch.Tensor],
+               leaves: list[torch.Tensor], tree: str) -> torch.Tensor:
+    if x.ndim != 3 or x.shape[2] != 3:
+        raise ValueError(f"flow_f: expects [B, N, 3], got {tuple(x.shape)}")
+    _check_tensors("flow_f", x, cs)
+    z = _launch_f(x, cs, leaves, tree)
+    flow_f.launches += 1
+    return z
+
+
+@torch.library.custom_op("puflow::flow_g", mutates_args=(),
+                         device_types="cuda")
+def _flow_g_op(fz: torch.Tensor, cs: list[torch.Tensor],
+               leaves: list[torch.Tensor], tree: str) -> torch.Tensor:
+    if fz.ndim != 4 or fz.shape[2] != 3 or not 1 <= fz.shape[3] <= MAX_UPRATIO:
+        raise ValueError("flow_g: expects [B, N, 3, r] with r <= "
+                         f"{MAX_UPRATIO}, got {tuple(fz.shape)}")
+    _check_tensors("flow_g", fz, cs)
+    out = _launch_g(fz, cs, leaves, tree)
+    flow_g.launches += 1
+    return out
+
+
+@torch.library.custom_op("puflow::flow_g_blend", mutates_args=(),
+                         device_types="cuda")
+def _flow_g_blend_op(z: torch.Tensor, ws: torch.Tensor, knn_idx: torch.Tensor,
+                     cs: list[torch.Tensor], leaves: list[torch.Tensor],
+                     tree: str) -> torch.Tensor:
+    if z.ndim != 3 or z.shape[2] != 3:
+        raise ValueError(f"flow_g_blend: expects z [B, N, 3], got "
+                         f"{tuple(z.shape)}")
+    B, N, _ = z.shape
+    k = check_graph("flow_g_blend", knn_idx, z)
+    if (ws.dtype != torch.float32 or ws.device != z.device
+            or not ws.is_contiguous() or ws.ndim != 4
+            or ws.shape[:3] != (B, N, k)
+            or not 1 <= ws.shape[3] <= MAX_UPRATIO):
+        raise ValueError("flow_g_blend: expects contiguous float32 ws "
+                         f"[{B}, {N}, {k}, r <= {MAX_UPRATIO}], got "
+                         f"{ws.dtype} {tuple(ws.shape)}")
+    _check_tensors("flow_g_blend", z, cs)
+    out = _launch_g_blend(z, ws, knn_idx, cs, leaves, tree)
     flow_g_blend.launches += 1
     return out
+
+
+@_flow_f_op.register_kernel("cpu")
+def _(x, cs, leaves, tree):
+    return flow_f_plain(_build.unflatten(leaves, tree), x, cs)
+
+
+@_flow_g_op.register_kernel("cpu")
+def _(fz, cs, leaves, tree):
+    return flow_g_plain(_build.unflatten(leaves, tree), fz, cs)
+
+
+@_flow_g_blend_op.register_kernel("cpu")
+def _(z, ws, knn_idx, cs, leaves, tree):
+    return flow_g_blend_plain(_build.unflatten(leaves, tree), z, ws, knn_idx,
+                              cs)
+
+
+@_flow_f_op.register_fake
+def _(x, cs, leaves, tree):
+    return torch.empty_like(x)
+
+
+@_flow_g_op.register_fake
+def _(fz, cs, leaves, tree):
+    B, N, C, r = fz.shape
+    return fz.new_empty((B, N * r, C))
+
+
+@_flow_g_blend_op.register_fake
+def _(z, ws, knn_idx, cs, leaves, tree):
+    B, N, C = z.shape
+    return z.new_empty((B, N * ws.shape[3], C))
+
+
+def _blocks_on_card(name: str, flow_blocks, points: torch.Tensor, cs):
+    """``(leaves, tree)`` of the blocks for the op; on a CUDA tensor the
+    blocks are first held to what the kernels take (`_check_blocks`)."""
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {points.device}")
+    if points.device.type == "cuda":
+        _check_blocks(name, flow_blocks, points, cs)
+    return _build.flatten(list(flow_blocks))
+
+
+def flow_f(flow_blocks, x: torch.Tensor, cs) -> torch.Tensor:
+    """Forward flow, points ``[B, N, 3]`` -> latents ``[B, N, 3]``, with no
+    log-det, through the op ``puflow::flow_f``: the CUDA kernel for CUDA
+    tensors, `flow_f_plain` for CPU."""
+    leaves, tree = _blocks_on_card("flow_f", flow_blocks, x, cs)
+    return torch.ops.puflow.flow_f(x, list(cs), leaves, tree)
+
+
+def flow_g(flow_blocks, fz: torch.Tensor, cs) -> torch.Tensor:
+    """Inverse flow, latents ``[B, N, 3, r]`` + un-repeated conditions ->
+    points ``[B, N * r, 3]`` point-major, through the op
+    ``puflow::flow_g``: the CUDA kernel for CUDA tensors, `flow_g_plain`
+    for CPU."""
+    leaves, tree = _blocks_on_card("flow_g", flow_blocks, fz, cs)
+    return torch.ops.puflow.flow_g(fz, list(cs), leaves, tree)
+
+
+def flow_g_blend(flow_blocks, z: torch.Tensor, ws: torch.Tensor,
+                 knn_idx: torch.Tensor, cs) -> torch.Tensor:
+    """Latent blend plus inverse flow, ``[B, N * r, 3]`` point-major (see
+    `flow_g_blend_plain`), through the op ``puflow::flow_g_blend``: the
+    CUDA kernel for CUDA tensors, whose prologue blends each point's
+    latents, the plain version for CPU."""
+    leaves, tree = _blocks_on_card("flow_g_blend", flow_blocks, z, cs)
+    return torch.ops.puflow.flow_g_blend(z, ws, knn_idx, list(cs), leaves,
+                                         tree)
 
 
 flow_f.launches = 0

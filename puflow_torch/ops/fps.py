@@ -123,25 +123,13 @@ def cluster_capacity(device: torch.device, n: int, plan: FpsPlan) -> int:
     return count.value
 
 
-def farthest_point_sample(xyz: torch.Tensor, n_samples: int, *,
-                          _plan: FpsPlan | None = None) -> torch.Tensor:
-    """FPS ``[B, N, 3] -> [B, n_samples]`` int32: the CUDA kernel that
-    `_fps_plan` chooses for a CUDA tensor, the plain version for a CPU
-    tensor. ``_plan`` forces a plan (the card tests reach each one so)."""
-    if xyz.device.type == "cpu":
-        return farthest_point_sample_plain(xyz, n_samples)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"farthest_point_sample: no kernel for {xyz.device}")
-    _check_cloud("farthest_point_sample", "xyz", xyz)
+def _launch(xyz: torch.Tensor, n_samples: int,
+            plan: FpsPlan | None = None) -> torch.Tensor:
+    """Launch `csrc/fps.cu` on a checked CUDA tensor under ``plan`` (default:
+    `_fps_plan`'s, chosen here from the batch and the card)."""
     B, N, _ = xyz.shape
-    if not 1 <= n_samples <= N:
-        raise ValueError(f"farthest_point_sample: n_samples={n_samples} "
-                         f"outside [1, {N}]")
-    plan = _plan or _fps_plan(
+    plan = plan or _fps_plan(
         B, N, functools.partial(cluster_capacity, xyz.device, N))
-    if not _plan_covers(plan, N):
-        raise ValueError(f"farthest_point_sample: no kernel runs {plan} on "
-                         f"clouds of {N} points")
     out = torch.empty((B, n_samples), dtype=torch.int32, device=xyz.device)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
@@ -158,8 +146,52 @@ def farthest_point_sample(xyz: torch.Tensor, n_samples: int, *,
                 xyz.data_ptr(), B, N, n_samples, out.data_ptr(),
                 plan.cluster, plan.threads, stream)
             _build.check(code, "puflow_fps_cluster")
+    return out
+
+
+def _plan_of(cluster: int, threads: int) -> FpsPlan | None:
+    """An op's plan arguments -> the plan; -1 lets the kernel's own
+    chooser take it (inside the op, where the batch is known)."""
+    return None if cluster < 0 else FpsPlan(cluster, threads)
+
+
+@torch.library.custom_op("puflow::fps", mutates_args=(), device_types="cuda")
+def _fps_op(xyz: torch.Tensor, n_samples: int, cluster: int,
+            threads: int) -> torch.Tensor:
+    _check_cloud("farthest_point_sample", "xyz", xyz)
+    N = xyz.shape[1]
+    if not 1 <= n_samples <= N:
+        raise ValueError(f"farthest_point_sample: n_samples={n_samples} "
+                         f"outside [1, {N}]")
+    plan = _plan_of(cluster, threads)
+    if plan is not None and not _plan_covers(plan, N):
+        raise ValueError(f"farthest_point_sample: no kernel runs {plan} on "
+                         f"clouds of {N} points")
+    out = _launch(xyz, n_samples, plan)
     farthest_point_sample.launches += 1
     return out
+
+
+@_fps_op.register_kernel("cpu")
+def _(xyz, n_samples, cluster, threads):
+    return farthest_point_sample_plain(xyz, n_samples)
+
+
+@_fps_op.register_fake
+def _(xyz, n_samples, cluster, threads):
+    return xyz.new_empty((xyz.shape[0], n_samples), dtype=torch.int32)
+
+
+def farthest_point_sample(xyz: torch.Tensor, n_samples: int, *,
+                          _plan: FpsPlan | None = None) -> torch.Tensor:
+    """FPS ``[B, N, 3] -> [B, n_samples]`` int32 through the op
+    ``puflow::fps``: the CUDA kernel that `_fps_plan` chooses for a CUDA
+    tensor, the plain version for a CPU tensor. ``_plan`` forces a plan
+    (the card tests reach each one so)."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"farthest_point_sample: no kernel for {xyz.device}")
+    cluster, threads = _plan or (-1, -1)
+    return torch.ops.puflow.fps(xyz, n_samples, cluster, threads)
 
 
 farthest_point_sample.launches = 0
@@ -320,20 +352,23 @@ def _seeded_launch(xyz: torch.Tensor, seeds: torch.Tensor, out: torch.Tensor,
     _build.check(code, "puflow_fps_seeded")
 
 
-def farthest_point_sample_seeded(xyz: torch.Tensor, seeds: torch.Tensor,
-                                 n_samples: int, *,
-                                 _plan: FpsPlan | None = None
-                                 ) -> torch.Tensor:
-    """Seeded FPS ``[R, M, 3]``, seeds ``[R / G, S, 3]`` -> ``[R,
-    n_samples]`` int32 candidate indices (the seeds are not returned): the
-    CUDA kernel for CUDA tensors, its selection as `_fps_seeded_plan`
-    chooses, the plain version for CPU tensors. ``_plan`` forces a plan of
-    the selection (the card tests reach each one so)."""
-    if xyz.device.type == "cpu":
-        return farthest_point_sample_seeded_plain(xyz, seeds, n_samples)
-    if xyz.device.type != "cuda":
-        raise ValueError("farthest_point_sample_seeded: no kernel for "
-                         f"{xyz.device}")
+def _launch_seeded(xyz: torch.Tensor, seeds: torch.Tensor, n_samples: int,
+                   plan: FpsPlan | None = None) -> torch.Tensor:
+    """`_seeded_launch` of both phases into new tensors; the selection's
+    plan ``plan`` or `_fps_seeded_plan`'s."""
+    R, M, _ = xyz.shape
+    plan = _fps_seeded_plan(R, M, functools.partial(
+        seeded_capacity, xyz.device, M), plan)
+    out = torch.empty((R, n_samples), dtype=torch.int32, device=xyz.device)
+    mind = torch.empty((R, M), dtype=torch.float32, device=xyz.device)
+    _seeded_launch(xyz, seeds, out, mind, plan=plan)
+    return out
+
+
+@torch.library.custom_op("puflow::fps_seeded", mutates_args=(),
+                         device_types="cuda")
+def _fps_seeded_op(xyz: torch.Tensor, seeds: torch.Tensor, n_samples: int,
+                   cluster: int, threads: int) -> torch.Tensor:
     _check_cloud("farthest_point_sample_seeded", "xyz", xyz)
     _check_cloud("farthest_point_sample_seeded", "seeds", seeds)
     if seeds.device != xyz.device:
@@ -343,15 +378,38 @@ def farthest_point_sample_seeded(xyz: torch.Tensor, seeds: torch.Tensor,
         raise ValueError("farthest_point_sample_seeded: needs candidates and "
                          f"n_samples >= 1, got {tuple(xyz.shape)}, "
                          f"{n_samples}")
-    R, M, _ = xyz.shape
     _seed_groups(xyz, seeds)
-    plan = _fps_seeded_plan(R, M, functools.partial(
-        seeded_capacity, xyz.device, M), _plan)
-    out = torch.empty((R, n_samples), dtype=torch.int32, device=xyz.device)
-    mind = torch.empty((R, M), dtype=torch.float32, device=xyz.device)
-    _seeded_launch(xyz, seeds, out, mind, plan=plan)
+    out = _launch_seeded(xyz, seeds, n_samples, _plan_of(cluster, threads))
     farthest_point_sample_seeded.launches += 1
     return out
+
+
+@_fps_seeded_op.register_kernel("cpu")
+def _(xyz, seeds, n_samples, cluster, threads):
+    return farthest_point_sample_seeded_plain(xyz, seeds, n_samples)
+
+
+@_fps_seeded_op.register_fake
+def _(xyz, seeds, n_samples, cluster, threads):
+    return xyz.new_empty((xyz.shape[0], n_samples), dtype=torch.int32)
+
+
+def farthest_point_sample_seeded(xyz: torch.Tensor, seeds: torch.Tensor,
+                                 n_samples: int, *,
+                                 _plan: FpsPlan | None = None
+                                 ) -> torch.Tensor:
+    """Seeded FPS ``[R, M, 3]``, seeds ``[R / G, S, 3]`` -> ``[R,
+    n_samples]`` int32 candidate indices (the seeds are not returned)
+    through the op ``puflow::fps_seeded``: the CUDA kernel for CUDA
+    tensors, its selection as `_fps_seeded_plan` chooses, the plain
+    version for CPU tensors. ``_plan`` forces a plan of the selection (the
+    card tests reach each one so)."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError("farthest_point_sample_seeded: no kernel for "
+                         f"{xyz.device}")
+    cluster, threads = _plan or (-1, -1)
+    return torch.ops.puflow.fps_seeded(xyz, seeds, n_samples, cluster,
+                                       threads)
 
 
 farthest_point_sample_seeded.launches = 0

@@ -16,7 +16,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.utils._pytree import tree_flatten
 
 from puflow_torch.models.encoder import (R_MAX, knn_context_apply,
                                          weight_unit_apply)
@@ -145,39 +144,34 @@ def _pack(params):
     return torch.cat(pieces).to(torch.float32).contiguous(), offsets
 
 
+def _packed_leaves(leaves, tree: str):
+    """The kernel's packing of the head that `_build.flatten` gave
+    (``leaves``, ``tree``), made once per parameters (`_build.packed`);
+    the tree is rebuilt only to pack it."""
+    return _build.packed(
+        leaves, lambda: _pack(_build.unflatten(leaves, tree)), "interp_head")
+
+
 def _packed(params):
-    """The kernel's packing of the head, made once per parameters
-    (`_build.packed`)."""
-    return _build.packed(tree_flatten(params)[0], lambda: _pack(params),
-                         "interp_head")
+    """`_packed_leaves` of the head's params."""
+    return _packed_leaves(*_build.flatten(params))
 
 
-def interp_head(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
-                upratio: int, mode: str = "weights",
-                z: torch.Tensor | None = None):
-    """The folded interpolation head (see `interp_head_plain` for shapes):
-    the CUDA kernel for CUDA tensors, the plain version for CPU."""
-    if mode not in MODES:
-        raise ValueError(f"interp_head: mode {mode!r} not in {MODES}")
-    if not 1 <= upratio <= R_MAX:
-        raise ValueError(f"interp_head: upratio={upratio} outside "
-                         f"[1, {R_MAX}]")
-    if xyz.device.type == "cpu":
-        return interp_head_plain(params, xyz, knn_idx, upratio, mode, z)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"interp_head: no kernel for {xyz.device}")
-    check_patches("interp_head", xyz)
-    k = check_graph("interp_head", knn_idx, xyz)
+def _out_shape(xyz: torch.Tensor, k: int, upratio: int, mode: str):
     B, n, _ = xyz.shape
-    if mode == "latents" and (
-            z is None or z.shape != xyz.shape or z.dtype != torch.float32
-            or z.device != xyz.device or not z.is_contiguous()):
-        raise ValueError("interp_head: mode 'latents' takes contiguous "
-                         f"float32 z of shape {tuple(xyz.shape)}")
-    shape = {"logits": (B, n, k, R_MAX), "weights": (B, n, k, upratio),
-             "latents": (B, n, 3, upratio)}[mode]
-    out = torch.empty(shape, dtype=torch.float32, device=xyz.device)
-    weights, offsets = _packed(params)
+    return {"logits": (B, n, k, R_MAX), "weights": (B, n, k, upratio),
+            "latents": (B, n, 3, upratio)}[mode]
+
+
+def _launch(xyz: torch.Tensor, knn_idx: torch.Tensor, leaves, tree: str,
+            upratio: int, mode: str, z: torch.Tensor | None):
+    """Launch `csrc/interp.cu` on checked CUDA tensors; ``leaves`` and
+    ``tree`` (`_build.flatten`) are the folded head's params."""
+    B, n, _ = xyz.shape
+    k = knn_idx.shape[2]
+    out = torch.empty(_out_shape(xyz, k, upratio, mode),
+                      dtype=torch.float32, device=xyz.device)
+    weights, offsets = _packed_leaves(leaves, tree)
     off_c = (ctypes.c_int * len(offsets))(*offsets)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
@@ -188,8 +182,53 @@ def interp_head(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
             z.data_ptr() if mode == "latents" else None, out.data_ptr(),
             _build.stream_ptr(xyz.device))
     _build.check(code, "puflow_interp_head")
+    return out
+
+
+@torch.library.custom_op("puflow::interp_head", mutates_args=(),
+                         device_types="cuda")
+def _interp_head_op(xyz: torch.Tensor, knn_idx: torch.Tensor,
+                    leaves: list[torch.Tensor], tree: str, upratio: int,
+                    mode: str, z: torch.Tensor | None) -> torch.Tensor:
+    check_patches("interp_head", xyz)
+    check_graph("interp_head", knn_idx, xyz)
+    if mode == "latents" and (
+            z is None or z.shape != xyz.shape or z.dtype != torch.float32
+            or z.device != xyz.device or not z.is_contiguous()):
+        raise ValueError("interp_head: mode 'latents' takes contiguous "
+                         f"float32 z of shape {tuple(xyz.shape)}")
+    out = _launch(xyz, knn_idx, leaves, tree, upratio, mode, z)
     interp_head.launches += 1
     return out
+
+
+@_interp_head_op.register_kernel("cpu")
+def _(xyz, knn_idx, leaves, tree, upratio, mode, z):
+    return interp_head_plain(_build.unflatten(leaves, tree), xyz, knn_idx,
+                             upratio, mode, z)
+
+
+@_interp_head_op.register_fake
+def _(xyz, knn_idx, leaves, tree, upratio, mode, z):
+    return xyz.new_empty(_out_shape(xyz, knn_idx.shape[2], upratio, mode))
+
+
+def interp_head(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
+                upratio: int, mode: str = "weights",
+                z: torch.Tensor | None = None):
+    """The folded interpolation head (see `interp_head_plain` for shapes)
+    through the op ``puflow::interp_head``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU."""
+    if mode not in MODES:
+        raise ValueError(f"interp_head: mode {mode!r} not in {MODES}")
+    if not 1 <= upratio <= R_MAX:
+        raise ValueError(f"interp_head: upratio={upratio} outside "
+                         f"[1, {R_MAX}]")
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"interp_head: no kernel for {xyz.device}")
+    leaves, tree = _build.flatten(params)
+    return torch.ops.puflow.interp_head(xyz, knn_idx, leaves, tree, upratio,
+                                        mode, z)
 
 
 interp_head.launches = 0

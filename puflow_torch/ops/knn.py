@@ -124,14 +124,13 @@ def knn_self_plain(xyz: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _check_self(name: str, xyz: torch.Tensor, k: int) -> None:
-    if xyz.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {xyz.device}")
     check_patches(name, xyz)
     if not 1 <= k <= min(KNN_MAX_K, xyz.shape[1]):
         raise ValueError(f"{name}: k={k} outside [1, min({KNN_MAX_K}, n)]")
 
 
 def _launch_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """Launch `csrc/knn.cu:puflow_knn_self` on checked CUDA patches."""
     B, n, _ = xyz.shape
     out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
     lib = _build.library()
@@ -139,20 +138,6 @@ def _launch_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
         code = lib.puflow_knn_self(xyz.data_ptr(), B, n, k, out.data_ptr(),
                                    _build.stream_ptr(xyz.device))
     _build.check(code, "puflow_knn_self")
-    return out
-
-
-def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
-    """Self k-NN ``[B, n, 3] -> [B, n, k]`` int64: for a CUDA tensor the
-    shared-memory kernel where it holds the patch (`knn_self_in_smem`), else
-    `knn_self_stream`; `knn_self_plain` for a CPU tensor."""
-    if xyz.device.type == "cpu":
-        return knn_self_plain(xyz, k)
-    _check_self("knn_self", xyz, k)
-    if not knn_self_in_smem(xyz.shape[1]):
-        return knn_self_stream(xyz, k)
-    out = _launch_self(xyz, k)
-    knn_self.launches += 1
     return out
 
 
@@ -167,15 +152,9 @@ def _stream_scratch_bytes(batch: int, n: int) -> int:
     return size.value
 
 
-def knn_self_stream(xyz: torch.Tensor, k: int) -> torch.Tensor:
-    """`knn_self` for patches of any size: for a CUDA tensor one call of
-    `csrc/knn.cu:puflow_knn_self_stream` (`knn_cells_kernel` and
-    `knn_scatter_kernel` sort each patch into a scratch of its own,
-    `knn_stream_kernel` walks it), `knn_self_plain` for a CPU tensor; the
-    same indices."""
-    if xyz.device.type == "cpu":
-        return knn_self_plain(xyz, k)
-    _check_self("knn_self_stream", xyz, k)
+def _launch_stream(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """Launch `csrc/knn.cu:puflow_knn_self_stream` on checked CUDA patches,
+    with a scratch of its own."""
     B, n, _ = xyz.shape
     out = torch.empty((B, n, k), dtype=torch.int64, device=xyz.device)
     scratch = torch.empty(_stream_scratch_bytes(B, n), dtype=torch.uint8,
@@ -186,8 +165,62 @@ def knn_self_stream(xyz: torch.Tensor, k: int) -> torch.Tensor:
             xyz.data_ptr(), B, n, k, out.data_ptr(), scratch.data_ptr(),
             scratch.numel(), _build.stream_ptr(xyz.device))
     _build.check(code, "puflow_knn_self_stream")
+    return out
+
+
+# One `torch.library` op a kernel: the CUDA implementation checks the
+# tensors (also those a loaded artifact is given), launches the kernel and
+# counts the launch, the CPU one runs the plain version, the fake one only
+# allocates the output (what `torch.export` traces).
+@torch.library.custom_op("puflow::knn_self", mutates_args=(),
+                         device_types="cuda")
+def _knn_self_op(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    _check_self("knn_self", xyz, k)
+    out = _launch_self(xyz, k)
+    knn_self.launches += 1
+    return out
+
+
+@torch.library.custom_op("puflow::knn_self_stream", mutates_args=(),
+                         device_types="cuda")
+def _knn_self_stream_op(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    _check_self("knn_self_stream", xyz, k)
+    out = _launch_stream(xyz, k)
     knn_self_stream.launches += 1
     return out
+
+
+for _op in (_knn_self_op, _knn_self_stream_op):
+    _op.register_kernel("cpu")(knn_self_plain)
+
+    @_op.register_fake
+    def _(xyz, k):
+        return xyz.new_empty((xyz.shape[0], xyz.shape[1], k),
+                             dtype=torch.int64)
+
+
+def knn_self(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """Self k-NN ``[B, n, 3] -> [B, n, k]`` int64 through the op
+    ``puflow::knn_self``: for a CUDA tensor the shared-memory kernel where
+    it holds the patch (`knn_self_in_smem`), else `knn_self_stream`;
+    `knn_self_plain` for a CPU tensor."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"knn_self: no kernel for {xyz.device}")
+    if xyz.device.type == "cuda" and not knn_self_in_smem(xyz.shape[1]):
+        return knn_self_stream(xyz, k)
+    return torch.ops.puflow.knn_self(xyz, k)
+
+
+def knn_self_stream(xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """`knn_self` for patches of any size, through the op
+    ``puflow::knn_self_stream``: for a CUDA tensor one call of
+    `csrc/knn.cu:puflow_knn_self_stream` (`knn_cells_kernel` and
+    `knn_scatter_kernel` sort each patch into a scratch of its own,
+    `knn_stream_kernel` walks it), `knn_self_plain` for a CPU tensor; the
+    same indices."""
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"knn_self_stream: no kernel for {xyz.device}")
+    return torch.ops.puflow.knn_self_stream(xyz, k)
 
 
 knn_self.launches = 0

@@ -26,6 +26,10 @@ from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_seeded_plain)
 from puflow_torch.ops.knn import (knn_indices, knn_self, knn_self_plain,
                                   knn_self_stream)
+from puflow_torch.serving import WRAPPERS as OP_WRAPPERS
+from torch_op_cases import CASES as OP_CASES
+from torch_op_cases import DIRECT as OP_DIRECT
+from torch_op_cases import op_cases, op_model
 
 pytestmark = pytest.mark.cuda
 
@@ -1178,3 +1182,72 @@ def test_cnf_trainer_step_launches_the_training_kernels(card):
     assert float(m["logpx"]) == float(nll)
     assert float(m["emd"]) == float(dist.sum())
     assert bool(torch.isfinite(tr.params).all())
+
+
+@pytest.fixture(scope="module")
+def op_inputs(card):
+    return op_model(card)
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_op_opcheck_on_the_card(card, op_inputs, name):
+    """`torch.library.opcheck` on CUDA tensors: the schema, the fake
+    implementation against the kernel's outputs and a dynamic-shape trace
+    (tests/test_torch_library.py runs the same on the CPU)."""
+    op, args = op_cases(op_inputs)[name]
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def _leaves(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_op_is_its_direct_launch(card, op_inputs, name):
+    """Through the op, each kernel gives the bits of its launch through
+    ctypes on the same inputs, and the op counts one launch."""
+    op, args = op_cases(op_inputs)[name]
+    short = op._qualified_op_name.split("::")[1]
+    counted = OP_WRAPPERS[short]
+    before = counted.launches
+    got = _leaves(op(*args))
+    assert counted.launches == before + 1
+    ref = _leaves(OP_DIRECT[short](*args))
+    assert counted.launches == before + 1
+    assert len(got) == len(ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_wrappers_are_their_direct_launches(card, op_inputs):
+    """Each wrapper, through its op, gives the bits of the direct launch."""
+    m = op_inputs
+    f, xyz, idx, cs = m["folded"], m["xyz"], m["idx"], m["cs"]
+    idx8 = idx[..., :8]
+    blocks = f["flow_blocks"]
+    enc = _build.flatten({"feat_convs": f["feat_convs"],
+                          "merge_convs": f["merge_convs"]})
+    head = _build.flatten(f["interp"])
+    fl = _build.flatten(list(blocks))
+    pairs = [
+        (knn_self(xyz, 16), knn_ops._launch_self(xyz, 16)),
+        (knn_self_stream(xyz, 16), knn_ops._launch_stream(xyz, 16)),
+        (encoder.encoder_conditions(f, xyz, idx),
+         encoder._launch(xyz, idx, *enc)),
+        (interp.interp_head(f["interp"], xyz, idx8, 4, "latents", m["z"]),
+         interp._launch(xyz, idx8, *head, 4, "latents", m["z"])),
+        (flow.flow_f(blocks, xyz, cs), flow._launch_f(xyz, cs, *fl)),
+        (flow.flow_g(blocks, m["fz"], cs), flow._launch_g(m["fz"], cs, *fl)),
+        (flow.flow_g_blend(blocks, m["z"], m["ws"], idx8, cs),
+         flow._launch_g_blend(m["z"], m["ws"], idx8, cs, *fl)),
+        (cnf.cnf_solve_t(m["layers"], m["c"], xyz, 0.0, 0.5),
+         cnf._cnf_kernel(m["layers"], m["c"], xyz, 0.0, 0.5, 1, 1e-5, 1e-5,
+                         128)[0]),
+        (farthest_point_sample(m["clouds"], 12),
+         fps_ops._launch(m["clouds"], 12)),
+        (farthest_point_sample_seeded(m["rows"], m["seeds"], 7),
+         fps_ops._launch_seeded(m["rows"], m["seeds"], 7)),
+    ]
+    for got, ref in pairs:
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_leaves(got), _leaves(ref)))

@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
     assert {"puflow_torch.cli.evaluate", "puflow_torch.convert.torch_ckpt",
             "puflow_torch.eval.jsd", "puflow_torch.eval.p2f",
             "puflow_torch.eval.uniformity",
-            "puflow_torch.ops.approx_match"} <= set(mods)
+            "puflow_torch.ops.approx_match", "puflow_torch.serving",
+            "puflow_torch.cli.export"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['torch_ckpt_cases']!r}:\n"
             "    importlib.import_module(m)\n"
@@ -146,6 +147,44 @@ def test_entry_points_default_to_the_card(cli_inputs):
         t_checkpoint.from_numpy_tree(params, state)
     with pytest.raises(RuntimeError, match="cuda"):
         t_checkpoint.load_checkpoint(ckpt)
+
+
+def test_export_entry_points_default_to_the_card(cli_inputs, tmp_path):
+    """`serving.export_patch_sampler` and `load_exported` ask for CUDA
+    unless told otherwise: without a card they raise, and an artifact made
+    on the CPU loads only when the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from puflow_torch import serving as t_serving
+
+    _, ckpt, _ = cli_inputs
+    params, state = t_checkpoint.load_checkpoint(ckpt, "cpu",
+                                                 fold=True).trees()
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_serving.export_patch_sampler(params, state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_serving.export_cloud_upsampler(params, state)
+    path = str(tmp_path / "sampler.pt2")
+    t_serving.save_exported(t_serving.export_patch_sampler(
+        params, state, batch=1, patch_size=32, device="cpu"), path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_serving.load_exported(path)
+    assert t_serving.load_exported(path, device="cpu").exported is not None
+
+
+def test_export_cli_exits_nonzero_without_cuda(cli_inputs):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    tmp, ckpt, _ = cli_inputs
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = tmp / "sampler_cuda.pt2"
+    proc = subprocess.run(
+        [sys.executable, "-m", "puflow_torch.cli.export", "--checkpoint",
+         ckpt, "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "cuda" in proc.stderr.lower()
+    assert not out.exists()
 
 
 def test_cli_exits_nonzero_without_cuda(cli_inputs):
