@@ -33,6 +33,9 @@ CNF, PU-GAN and PUGeo train CLIs. Last it runs the evaluation protocol
 (`scripts/eval_fixtures_torch.sh`) on the seeded models written as the
 reference's `.pt` checkpoints: upsample on the folded path's kernels,
 the p2f tool, and `cli.evaluate` with its approx-match EMD on the card.
+Last it trains the discrete model data parallel on two ranks that share
+the card (each rank's step launches the EMD kernel) and upsamples with the
+clouds sharded over them (each rank launches the folded path's kernels).
 Phases:
 
   1. checks the card, prints its name and power limit, checks that
@@ -154,7 +157,20 @@ Phases:
      seconds and MB, each artifact's ms beside the live path's (in
      turns, one process) and each op's host dispatch beside its direct
      ctypes launch;
- 23. prints its total seconds, one JSON line of kernel results and, last,
+ 23. trains the discrete model data parallel (`puflow_torch.parallel`):
+     two ranks spawned on the one card with `gloo` take the first-step
+     gradient at one cloud a rank (held to the one-process gradient at
+     the JAX package's gate, at the one-process run's EMD assignment; the
+     assignments each run's own auction takes are counted), 10 steps at
+     global batch 32 (parameters, BN state and Adam moments bit-equal
+     across ranks after every step, one EMD launch a step a rank, each
+     rank's split with the gradient all-reduce's ms) and
+     `upsample_cloud_sharded` of 8 clouds on the folded path's six
+     kernels (each rank's shard bit-equal to its clouds alone, Chamfer <
+     1e-4 against the one-process run, ms a call); one NCCL rank at world
+     size 1 keeps the plain trainer's bits over 3 steps; with more cards
+     the same under NCCL across up to 4;
+ 24. prints its total seconds, one JSON line of kernel results and, last,
      the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
@@ -214,6 +230,9 @@ from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_ckpt_cases import save_reference_checkpoint  # noqa: E402
 from torch_op_cases import DIRECT as OP_DIRECT  # noqa: E402
+from torch_parallel_cases import (card_train_rank, gradients,  # noqa: E402
+                                  nccl_one_rank, run_ranks,
+                                  seeded_first_step, upsample_one_process)
 
 SEED = 2021
 N_POINTS = 2048
@@ -3285,6 +3304,183 @@ def phase_export(model, folded, cnf_folded, card):
     log(f"phase export: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+DP_WORLD = 2             # ranks sharing the one card through gloo
+DP_STEPS = 10            # data-parallel train steps at bench_train's batch
+DP_CLOUDS = 8            # clouds of the sharded upsample (4 a rank)
+DP_COUNTS = {k: 2 if k == "fps" else 1 for k in PATHS["folded"]}
+
+
+def dp_gradient_gate(label, layout, got, want) -> None:
+    """A data-parallel gradient against the one-process one, per leaf at
+    the JAX package's gate ``5e-4 * scale + 1e-6`` (tests/test_train.py);
+    leaves zero to rounding on both sides (`rounding_zero`) are held to
+    being so on both."""
+    zero_want = rounding_zero(layout.paths, want.split(layout.sizes))
+    zero_got = rounding_zero(layout.paths, got.split(layout.sizes))
+    if set(zero_want) != set(zero_got):
+        raise AssertionError(f"{label}: the leaves zero to rounding differ: "
+                             f"{sorted(set(zero_want) ^ set(zero_got))}")
+    worst, worst_all = 0.0, 0.0
+    for path, a, b in zip(layout.paths, got.split(layout.sizes),
+                          want.split(layout.sizes)):
+        scale = max(float(b.abs().max()), 1e-3)
+        ratio = float((a - b).abs().max()) / (5e-4 * scale + 1e-6)
+        worst_all = max(worst_all, ratio)
+        if path in zero_want:
+            continue
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label} {path}: {ratio:.3f} of the gate")
+        worst = max(worst, ratio)
+    log(f"{label}: {len(layout.paths) - len(zero_want)} leaves within 5e-4 "
+        f"* scale + 1e-6 of the one-process gradient (worst {worst:.3e} of "
+        f"the gate; over all {len(layout.paths)} leaves, the {len(zero_want)}"
+        f" zero to rounding included, {worst_all:.3e})")
+
+
+def check_dp_ranks(label, ranks, layout, one, one_sharded) -> None:
+    """The checks of `card_train_rank`'s results on every rank.
+
+    The first-step gradient: bit-equal across ranks; at the one-process
+    run's auction assignment held to the one-process gradient at that
+    assignment (`dp_gradient_gate`); with each run's own auction, the
+    assignments that differ and the gradients' distance printed (the two
+    runs' predictions differ by rounding, and the auction is not
+    continuous in them). Every step's parameters, BN state and Adam
+    moments bit-equal to rank 0's, the loss finite, one EMD launch a step.
+    The sharded upsample: the folded path's six kernels launched (FPS
+    twice), each rank's shard bit-equal to `upsample_cloud` of its clouds
+    alone, and against the one-process run of all the clouds at
+    `phase_main_path`'s pipeline gate (Chamfer < 1e-4 a cloud): the
+    pipeline's mean over a cloud's points rounds differently at another
+    batch size (6e-8), and the merge's FPS then takes other points from
+    near-ties, so the share of points beyond atol 2e-4 of their place is
+    printed, not gated. Prints each rank's step split and times."""
+    for r, res in enumerate(ranks):
+        for key in ("fixed", "auction"):
+            if not np.array_equal(res["grads"][key], ranks[0]["grads"][key]):
+                raise AssertionError(f"{label}: rank {r}'s gradient ({key}) "
+                                     "is not rank 0's")
+    dp = ranks[0]["grads"]
+    dp_gradient_gate(f"{label} first-step gradient ({len(ranks)} ranks, "
+                     "one cloud a rank, 256 -> 1024) at the one-process "
+                     "assignment", layout, torch.from_numpy(dp["fixed"]),
+                     torch.from_numpy(one["fixed"]))
+    assign = np.concatenate([res["grads"]["assign"] for res in ranks])
+    scale = np.abs(one["auction"]).max()
+    differ = int((assign != one["assign"]).sum())
+    log(f"{label} with each run's own auction: {differ} of {assign.size} "
+        f"assignments differ, loss {dp['loss']:.7f} vs "
+        f"{one['loss']:.7f} one-process, gradients' max |diff| "
+        f"{np.abs(dp['auction'] - one['auction']).max():.3e} (largest entry "
+        f"{scale:.3e})")
+    for r, res in enumerate(ranks):
+        steps = res["steps"]
+        bad = [i for i, s in enumerate(steps)
+               if not s["bit_equal"] or s["emd_launches"] != 1
+               or s["nan_step"] or not np.isfinite(s["loss"])]
+        if bad:
+            raise AssertionError(f"{label} rank {r}: steps {bad} broke "
+                                 f"bit-equality, the EMD count, or the "
+                                 f"loss: {[steps[i] for i in bad]}")
+        log(f"{label} rank {r}: {len(steps)} steps at global batch "
+            f"{TRAIN_B} ({TRAIN_B // len(ranks)} a rank), parameters, BN "
+            "state and Adam moments bit-equal to rank 0's after every step, "
+            "1 EMD launch a step, loss first "
+            f"{steps[0]['loss']:.6f} last {steps[-1]['loss']:.6f}; step ms "
+            "(host clock) " + ", ".join(f"{s['wall_ms']:.1f}" for s in steps)
+            + "; split, ms (median, CUDA events): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in res["split_median"].items()))
+        sh = res["sharded"]
+        if sh["launches"] != DP_COUNTS:
+            raise AssertionError(f"{label} rank {r}: sharded upsample "
+                                 f"launches {sh['launches']}, not "
+                                 f"{DP_COUNTS}")
+        b = sh["alone"].shape[0]
+        if not np.array_equal(sh["out"][r * b:(r + 1) * b], sh["alone"]):
+            raise AssertionError(f"{label} rank {r}: its shard of the "
+                                 "sharded upsample is not its clouds alone")
+        out = sh["out"]
+        err = np.abs(out - one_sharded).max(-1)
+        moved = float((err > 2e-4).mean())
+        cd = chamfer(torch.from_numpy(out).cuda(),
+                     torch.from_numpy(one_sharded).cuda())
+        log(f"{label} rank {r}: upsample_cloud_sharded of {DP_CLOUDS} clouds "
+            f"({b} a rank) launches {sh['launches']}; its shard bit-equal to "
+            f"its clouds alone; vs one process on all {out.shape[0]}: "
+            f"bit-equal {np.array_equal(out, one_sharded)}, max_abs_diff "
+            f"{float(err.max()):.3e}, {moved:.4%} of the points beyond atol "
+            f"2e-4 (merge near-ties), Chamfer {cd:.3e} (gate 1e-4); ms a "
+            "call " + ", ".join(f"{t:.2f}" for t in sh["ms"]) + "; a gloo "
+            f"all-reduce of 64 floats on the card {res['small_ms']:.3f} ms")
+        if not cd < 1e-4:
+            raise AssertionError(f"{label}: sharded upsample vs one process: "
+                                 f"Chamfer {cd}")
+
+
+def phase_data_parallel(model, card):
+    """Data-parallel training and cloud-sharded upsampling of the discrete
+    family (`puflow_torch.parallel`): two ranks spawned on the one card
+    with `gloo` (NCCL refuses two ranks on one card), each through
+    `torch_parallel_cases.card_train_rank` (the first-step gradient at one
+    cloud a rank held to the one-process gradient on the card; 10 steps at
+    global batch 32; the folded model's `upsample_cloud_sharded` of 8
+    clouds held to the one-process run; `check_dp_ranks`); one NCCL rank
+    at world size 1 held bit-equal to the plain `Trainer` over 3 steps,
+    both with PyTorch's deterministic algorithms; with more than one card
+    the same checks under NCCL across ``min(count, 4)`` cards. Two ranks
+    on one card measure correctness and overhead, not scaling."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(0)
+    batch = synthetic_pairs(rng, TRAIN_B, TRAIN_N, UPRATIO)
+    params, state = seeded_first_step(batch[0], "cuda")
+    up_params, up_state = checkpoint.to_numpy_tree(model)
+    pc = synthetic_clouds(DP_CLOUDS, SEED).cpu().numpy()
+    layout = TreeLayout(params)
+    one_sharded = upsample_one_process(up_params, up_state, pc, NPOINT,
+                                       "cuda").cpu().numpy()
+
+    def two_rank_run(label, n, backend, devices):
+        grad_batch = synthetic_pairs(np.random.RandomState(1), n, TRAIN_N,
+                                     UPRATIO)
+        b = TRAIN_B - TRAIN_B % n
+        tr = Trainer(TrainConfig(), params, state, device="cuda")
+        one = gradients(tr, *grad_batch)
+        one["fixed"] = gradients(tr, *grad_batch, one["assign"])["fixed"]
+        t0 = time.perf_counter()
+        ranks = run_ranks(card_train_rank, n, params, state, grad_batch,
+                          one["assign"], (batch[0][:b], batch[1][:b]),
+                          DP_STEPS, (up_params, up_state,
+                                     pc[:DP_CLOUDS // n * n], NPOINT),
+                          backend=backend, devices=devices, timeout_s=300)
+        log(f"{label}: {n} ranks spawned and run in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        check_dp_ranks(label, ranks, layout, one,
+                       one_sharded[:DP_CLOUDS // n * n])
+
+    two_rank_run("data_parallel gloo, 2 ranks on one card", DP_WORLD, "gloo",
+                 ["cuda:0"] * DP_WORLD)
+    t0 = time.perf_counter()
+    batches = [synthetic_pairs(rng, TRAIN_B, TRAIN_N, UPRATIO)
+               for _ in range(3)]
+    (rows,) = run_ranks(nccl_one_rank, 1, params, state, batches,
+                        backend="nccl", devices=["cuda:0"], timeout_s=300)
+    log(f"data_parallel nccl, world size 1 ({time.perf_counter() - t0:.1f} "
+        f"s): trainer vs the plain Trainer over {len(rows)} steps at batch "
+        f"{TRAIN_B}, (params bit-equal, BN state bit-equal, max |diff|) "
+        f"{rows}")
+    if not all(p and s for p, s, _ in rows):
+        raise AssertionError("nccl at world size 1 is not the plain trainer")
+    count = torch.cuda.device_count()
+    if count > 1:
+        n = min(count, 4)
+        two_rank_run(f"data_parallel nccl, {n} cards", n, "nccl",
+                     [f"cuda:{i}" for i in range(n)])
+    else:
+        log("data_parallel nccl across cards: one card here, not run")
+    log(f"phase data_parallel: {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+
+
 def timed(phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, then its name (and path, for a phase of
     one path) and seconds on a line of their own."""
@@ -3364,6 +3560,7 @@ def main():
     timed(phase_train_clis, cnf_folded)
     timed(phase_eval_protocol, model, folded, cnf_model, cnf_folded, card)
     timed(phase_export, model, folded, cnf_folded, card)
+    timed(phase_data_parallel, model, card)
 
     log(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -5,6 +5,16 @@ flags plus ``--device`` (default ``cuda``). ``--synthetic N`` trains on N
 synthetic steps per epoch and needs no data file; ``--begin_checkpoint``
 takes a checkpoint of the family trained, a native ``.npz`` or a
 reference ``.pt``, as the JAX CLIs do.
+
+Under torchrun (``WORLD_SIZE`` over 1) the discrete family trains data
+parallel, as the JAX CLIs do over all devices: each rank starts the
+process group (`parallel.init_group`, backend ``--dist_backend``: by
+default ``nccl`` on CUDA, ``gloo`` on the CPU; device ``cuda:LOCAL_RANK``
+with ``--device cuda``), reads the same global batches from the same
+seed and trains on its shard; the ActNorm warm-up runs on the global
+first batch, and only rank 0 prints and saves:
+
+    torchrun --nproc_per_node 4 -m puflow_torch.cli.train_pu1k --data ...
 """
 
 from __future__ import annotations
@@ -31,7 +41,12 @@ def build_parser(defaults: dict) -> argparse.ArgumentParser:
                    help="train on N synthetic steps/epoch instead of data")
     p.add_argument("--val_batches", type=int, default=400)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to train on (default cuda)")
+                   help="torch device to train on (default cuda; under "
+                        "torchrun cuda:LOCAL_RANK)")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=("nccl", "gloo"),
+                   help="collectives under torchrun (default nccl on "
+                        "cuda, gloo on cpu)")
     return p
 
 
@@ -41,16 +56,37 @@ def run_training(args, model_family: str, make_data_loaders,
     (train_iter_fn, val_iter_fn)."""
     import torch
 
-    from puflow_torch.checkpoint import load_numpy_checkpoint, save_checkpoint
-    from puflow_torch.train.trainer import TrainConfig, Trainer
-    from puflow_torch.utils.device import resolve_device
+    from puflow_torch import parallel
 
     if model_family == "cnf":
         from puflow_torch.models import continuous as model
     else:
         from puflow_torch.models import discrete as model
 
-    device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _train(args, model_family, model, make_data_loaders,
+                      cd_weight, None)
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = None                            # cuda:LOCAL_RANK
+    group = parallel.init_group(args.dist_backend, device=device)
+    try:
+        return _train(args, model_family, model, make_data_loaders,
+                      cd_weight, group)
+    finally:
+        parallel.destroy_group()
+
+
+def _train(args, model_family, model, make_data_loaders, cd_weight, group):
+    import torch
+
+    from puflow_torch.checkpoint import load_numpy_checkpoint, save_checkpoint
+    from puflow_torch.train.trainer import TrainConfig, Trainer
+    from puflow_torch.utils.device import resolve_device
+
+    device = group.device if group is not None else resolve_device(
+        args.device)
+    writer = group is None or group.is_writer
     cfg = TrainConfig(
         learning_rate=args.learning_rate,
         sched_patience=args.sched_patience,
@@ -78,20 +114,22 @@ def run_training(args, model_family: str, make_data_loaders,
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
         params, state = model.init(gen, device=device)
         if model_family == "discrete":
+            # on the global first batch, on every rank
             first = next(iter(train_iter()))
             params = model.actnorm_warmup(
                 params, state, torch.as_tensor(first[0], device=device))
 
     trainer = Trainer(cfg, params, state, forward_fn=model.forward,
-                      device=device)
-    os.makedirs(os.path.dirname(args.checkpoint) or ".", exist_ok=True)
+                      device=device, group=group)
+    if writer:
+        os.makedirs(os.path.dirname(args.checkpoint) or ".", exist_ok=True)
 
     def save(epoch, p, s, path=None):
         save_checkpoint(path or args.checkpoint, p, s)
 
     trainer.fit(train_iter, val_iter, checkpoint_fn=save)
     # the final save is skipped on interruption, as in the reference
-    if not trainer.interrupted:
+    if not trainer.interrupted and writer:
         final = args.checkpoint.replace(".npz",
                                         f"-epoch{args.max_epochs}.npz")
         save(args.max_epochs, *trainer.numpy_params(), path=final)

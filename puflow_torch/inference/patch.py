@@ -195,3 +195,38 @@ def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
     else:
         merged = merge_patches(union.contiguous(), npoint)
     return merged * g_furthest + g_centroid
+
+
+def upsample_cloud_sharded(model, pc: torch.Tensor, npoint: int,
+                           upratio: int = 4, patch_size: int = 256,
+                           expand_ratio: float = 4.0,
+                           group=None) -> torch.Tensor:
+    """Whole-cloud upsampling with the clouds sharded over the ranks of a
+    `parallel.Group` (default: `parallel.default_group`, the running group
+    or one started from torchrun's environment on ``cuda:LOCAL_RANK``).
+
+    Counterpart of `puflow_tpu.inference.patch.upsample_cloud_sharded`:
+    each rank runs `upsample_cloud` (the exact union merge) on its ``B /
+    W`` clouds with no collective in the compute, and every rank gets the
+    whole ``[B, npoint, 3]`` in the clouds' order (`parallel.gather_batch`).
+    ``pc`` is the global batch, the same on every rank; ``model`` a
+    `DiscreteModel` on the group's device.
+
+    The continuous family is refused: its solves take one dopri5 step size
+    over the whole batch, so a rank's shard would be solved with other
+    steps than the one-device run (ROADMAP.md, Queue 1 item 9c).
+    """
+    from puflow_torch import parallel
+    from puflow_torch.models.continuous import ContinuousModel
+
+    if isinstance(model, ContinuousModel):
+        raise NotImplementedError(
+            "upsample_cloud_sharded takes the discrete family only: a CNF "
+            "solve's step size is the whole batch's (ROADMAP.md, Queue 1 "
+            "item 9c: CNF data parallelism)")
+    if group is None:
+        group = parallel.default_group()
+    local = parallel.shard_batch(pc, group).to(group.device)
+    out = upsample_cloud(model, local, npoint, upratio, patch_size,
+                         expand_ratio)
+    return parallel.gather_batch(out, group)

@@ -50,6 +50,7 @@ from puflow_torch.ops.flow import (
 )
 from puflow_torch.ops.interp import interp_head
 from puflow_torch.ops.knn import knn_indices, knn_self
+from puflow_torch.parallel.mesh import all_reduce_sum, is_distributed
 from puflow_torch.utils.device import resolve_device
 
 NUM_BLOCKS = 6
@@ -113,14 +114,16 @@ def encoder_is_folded(params) -> bool:
 
 
 def feat_extract(params, state, xyz: torch.Tensor, knn_idx: torch.Tensor,
-                 train: bool = False):
+                 train: bool = False, group=None):
     """EdgeConv pyramid -> (per-block conditions ``[B, N, cdim_i]``, new
     encoder BN state; ``state`` may be None when the params are folded).
 
     Folded params at inference go through `ops.encoder.encoder_conditions`
     (the CUDA kernel for CUDA tensors, its plain version for CPU tensors),
     the dispatch of `puflow_tpu.models.discrete.feat_extract` without its
-    size gate; unfolded params, and training, are tensor ops with BN.
+    size gate; unfolded params, and training, are tensor ops with BN
+    (train-mode BN on the global batch's statistics with a
+    `parallel.Group`).
     """
     feat_s = None if state is None else state["feat_convs"]
     if not train:
@@ -132,7 +135,8 @@ def feat_extract(params, state, xyz: torch.Tensor, knn_idx: torch.Tensor,
     c = xyz
     for fp, fs, mp in zip(params["feat_convs"], feat_s,
                           params["merge_convs"]):
-        c, fs = feature_extract_apply(fp, fs, c, knn_idx, train=True)
+        c, fs = feature_extract_apply(fp, fs, c, knn_idx, train=True,
+                                      group=group)
         new_fs.append(fs)
         cs.append(feat_merge_apply(mp, c))
     return cs, new_fs
@@ -159,10 +163,16 @@ def g_transform(params, z: torch.Tensor, cs, upratio: int,
     return flow_g_plain(params["flow_blocks"], z, cs)
 
 
-def log_prob(params, x: torch.Tensor, cs):
-    """(z, scalar NLL objective): ``-mean(log p(z) + log|det J|)``."""
+def log_prob(params, x: torch.Tensor, cs, group=None):
+    """(z, scalar NLL objective): ``-mean(log p(z) + log|det J|)``; with a
+    `parallel.Group` of more than one rank, ``x`` is this rank's shard and
+    the mean is the global batch's, through the differentiable all-reduce
+    (every rank gets the same value)."""
     z, log_det = f_transform(params, x, cs)
     logp = standard_gaussian_logp(z)
+    if is_distributed(group):
+        total = all_reduce_sum(torch.sum(logp + log_det))
+        return z, -total / (x.shape[0] * group.world_size)
     return z, -torch.mean(logp + log_det)
 
 
@@ -175,7 +185,7 @@ def is_folded(params) -> bool:
 
 
 def forward(params, state, xyz: torch.Tensor, upratio: int,
-            train: bool = False, fast_f: bool = False):
+            train: bool = False, fast_f: bool = False, group=None):
     """Full upsampling pass ``[B, N, 3] -> ([B, N*r, 3], scalar NLL,
     new state)``.
 
@@ -189,6 +199,10 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
     interpolation head as tensor ops, and both flows through their kernel
     wrappers. Inference without ``fast_f`` (validation) computes the NLL
     with the plain f.
+    ``group`` (a `parallel.Group`, training only): ``xyz`` is this rank's
+    shard of the global batch; train-mode BN takes the global batch's
+    statistics and the NLL is the global batch's mean, as the JAX
+    package's forward computes them under a sharded jit.
     """
     if fast_f and not train and is_folded(params):
         xyz = xyz.contiguous()
@@ -200,16 +214,16 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
         x = flow_g_blend(params["flow_blocks"], z, ws, idx8, cs)
         return x, torch.full((), float("nan"), device=xyz.device), state
     knn_idx = knn_indices(xyz, xyz, NUM_NEIGHBORS)
-    cs, feat_s = feat_extract(params, state, xyz, knn_idx, train)
+    cs, feat_s = feat_extract(params, state, xyz, knn_idx, train, group)
     if fast_f and not train:
         z = flow_f(params["flow_blocks"], xyz.contiguous(), cs)
         logp_x = torch.full((), float("nan"), device=xyz.device)
     else:
-        z, logp_x = log_prob(params, xyz, cs)
+        z, logp_x = log_prob(params, xyz, cs, group)
     # K=16 sorted -> its first 8 columns ARE the K=8 graph
     fz, interp_s = interpolation_apply(
         params["interp"], None if state is None else state["interp"], z,
-        xyz, upratio, train, knn_idx=knn_idx)
+        xyz, upratio, train, knn_idx=knn_idx, group=group)
     x = g_transform(params, fz, cs, upratio, fast=not train)
     new_state = None if state is None else {"interp": interp_s,
                                             "feat_convs": feat_s}

@@ -56,9 +56,11 @@ def feature_extract_init(generator, idim: int, odim: int, growth_width: int,
 
 def feature_extract_apply(params, state, x: torch.Tensor,
                           knn_idx: torch.Tensor, train: bool = False,
-                          pooling: bool = True):
+                          pooling: bool = True, group=None):
     """x: [B, N, C] -> (pooled [B, N, odim] or per-slot [B, N, K, odim],
-    new state). ``state`` is None when the params are folded.
+    new state). ``state`` is None when the params are folded. ``group``
+    (a `parallel.Group`) makes train-mode BN use the global batch's
+    statistics (`models.nn.bn_apply`).
 
     The edge feature [x, x_nbr, x_nbr - x] of every layer factorises onto
     the block input: ``e @ W = x @ (W_0 - W_2) + x_nbr @ (W_1 + W_2)``. So
@@ -90,7 +92,7 @@ def feature_extract_apply(params, state, x: torch.Tensor,
         h = h + conv_p["lin"]["b"]
         bn_s = None if state is None else state["convs"][i]
         if "bn" in conv_p:
-            h, bn_s = bn_apply(conv_p["bn"], bn_s, h, train)
+            h, bn_s = bn_apply(conv_p["bn"], bn_s, h, train, group)
         new_bn.append(bn_s)
         h = F.leaky_relu(h, _FEU_SLOPE)
         h_cat = h if h_cat is None else torch.cat([h_cat, h], dim=-1)
@@ -119,7 +121,8 @@ def distance_encoder_init(generator, dim_in: int = 3, dim_out: int = 128,
 
 
 def distance_encoder_apply(params, state, xyz: torch.Tensor,
-                           knn_idx: torch.Tensor, train: bool = False):
+                           knn_idx: torch.Tensor, train: bool = False,
+                           group=None):
     """[pt, neighbour, pt - neighbour, |pt - neighbour|] per slot through a
     BN-MLP -> ([B, N, K, dim_out], new state)."""
     neighbours = gather_points(xyz, knn_idx)                # [B, N, K, 3]
@@ -127,10 +130,10 @@ def distance_encoder_apply(params, state, xyz: torch.Tensor,
     vec = pt - neighbours
     dist = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True))
     f = torch.cat([pt, neighbours, vec, dist], dim=-1)
-    return _mlp3_apply(params, state, f, train)
+    return _mlp3_apply(params, state, f, train, group)
 
 
-def _mlp3_apply(params, state, x: torch.Tensor, train: bool):
+def _mlp3_apply(params, state, x: torch.Tensor, train: bool, group=None):
     """lin0 -> [bn0] -> LeakyReLU -> lin1 -> [bn1] -> LeakyReLU -> lin2,
     BN skipped where folded. Returns (out, new state)."""
     h = x
@@ -139,7 +142,8 @@ def _mlp3_apply(params, state, x: torch.Tensor, train: bool):
         h = linear_apply(params[f"lin{i}"], h)
         if f"bn{i}" in params:
             h, new_state[f"bn{i}"] = bn_apply(params[f"bn{i}"],
-                                              state[f"bn{i}"], h, train)
+                                              state[f"bn{i}"], h, train,
+                                              group)
         h = F.leaky_relu(h, _MLP_SLOPE)
     return linear_apply(params["lin2"], h), new_state
 
@@ -154,16 +158,18 @@ def knn_context_init(generator, pc_channel: int = 3, device=None):
 
 
 def knn_context_apply(params, state, xyz: torch.Tensor,
-                      knn_idx: torch.Tensor, train: bool = False):
+                      knn_idx: torch.Tensor, train: bool = False,
+                      group=None):
     """xyz: [B, N, 3]; knn_idx: [B, N, k] -> ([B, N, k, 256], new state).
     ``state`` is None when the params are folded."""
     de_s = fe_s = None
     if state is not None:
         de_s, fe_s = state["distance_encoder"], state["feat_conv"]
     dist, de_s = distance_encoder_apply(params["distance_encoder"], de_s,
-                                        xyz, knn_idx, train)
+                                        xyz, knn_idx, train, group)
     feat, fe_s = feature_extract_apply(params["feat_conv"], fe_s, xyz,
-                                       knn_idx, train, pooling=False)
+                                       knn_idx, train, pooling=False,
+                                       group=group)
     new_state = (None if state is None
                  else {"distance_encoder": de_s, "feat_conv": fe_s})
     return torch.cat([dist, feat], dim=-1), new_state
@@ -182,9 +188,9 @@ def weight_unit_init(generator, feat_dim: int = 256, device=None):
 
 
 def weight_unit_apply(params, state, context: torch.Tensor,
-                      train: bool = False):
+                      train: bool = False, group=None):
     """context: [B, N, k, C] -> (logits [B, N, k, R_MAX], new state)."""
-    return _mlp3_apply(params, state, context, train)
+    return _mlp3_apply(params, state, context, train, group)
 
 
 def interpolation_init(generator, pc_channel: int = 3, device=None):
@@ -196,7 +202,7 @@ def interpolation_init(generator, pc_channel: int = 3, device=None):
 
 def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
                         upratio: int, train: bool = False,
-                        knn_idx: torch.Tensor | None = None):
+                        knn_idx: torch.Tensor | None = None, group=None):
     """Blend each point's k-NN latents into `upratio` new latents.
 
     z: [B, N, C] latents; xyz: [B, N, 3] geometry -> ([B, N, C, upratio],
@@ -204,7 +210,8 @@ def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
     sorted by ascending distance; its first INTERP_K columns are then the
     K=8 graph. Folded params at inference go through
     `ops.interp.interp_head` (the CUDA kernel for CUDA tensors); unfolded
-    ones, and training, through its plain version with BN.
+    ones, and training, through its plain version with BN (on the global
+    batch's statistics with a `parallel.Group`).
     """
     # ops.interp builds its plain version from this module's functions
     from puflow_torch.ops.interp import interp_head, interp_head_plain
@@ -220,7 +227,7 @@ def interpolation_apply(params, state, z: torch.Tensor, xyz: torch.Tensor,
     knn_idx = knn_idx[..., :INTERP_K]
     if train:
         return interp_head_plain(params, xyz, knn_idx, upratio, "latents", z,
-                                 state, train=True)
+                                 state, train=True, group=group)
     if "bn0" not in params["weight_unit"]:
         return interp_head(params, xyz, knn_idx, upratio, "latents", z), state
     return interp_head_plain(params, xyz, knn_idx, upratio, "latents", z,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from puflow_torch.parallel.mesh import all_reduce_sum, is_distributed
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
@@ -47,19 +49,32 @@ def bn_init(channel: int, device=None):
 
 
 def bn_apply(params: dict, state: dict, x: torch.Tensor,
-             train: bool = False):
+             train: bool = False, group=None):
     """BatchNorm over the last axis. Returns ``(y, new_state)``.
 
     Eval mode normalises with the running statistics and returns ``state``
     unchanged. Train mode normalises with the batch statistics over every
     other axis (biased variance) and moves the running statistics towards
     them (unbiased variance, momentum 0.1), as torch's BatchNorm does.
+
+    With a `parallel.Group` of more than one rank, ``x`` is this rank's
+    shard and the statistics are the global batch's, as `jnp.mean` /
+    `jnp.var` give them under a sharded jit: the mean from an all-reduced
+    sum, then the variance from an all-reduced sum of ``(x - mean)^2``
+    (the one-device formula, not ``E[x^2] - E[x]^2``), both through the
+    differentiable all-reduce; ``n`` is the global row count.
     """
     if train:
         axes = tuple(range(x.ndim - 1))
-        mean = torch.mean(x, dim=axes)
-        var = torch.mean(torch.square(x - mean), dim=axes)   # biased
         n = x.numel() // x.shape[-1]
+        if is_distributed(group):
+            n *= group.world_size
+            mean = all_reduce_sum(torch.sum(x, dim=axes)) / n
+            var = all_reduce_sum(
+                torch.sum(torch.square(x - mean), dim=axes)) / n  # biased
+        else:
+            mean = torch.mean(x, dim=axes)
+            var = torch.mean(torch.square(x - mean), dim=axes)   # biased
         unbiased = var * n / max(n - 1, 1)
         new_state = {
             "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,

@@ -33,19 +33,21 @@ _WU_SHAPES = [(256, 128), (128, 64), (64, R_MAX)]
 def interp_head_plain(params, xyz: torch.Tensor, knn_idx: torch.Tensor,
                       upratio: int, mode: str = "weights",
                       z: torch.Tensor | None = None, state=None,
-                      train: bool = False):
+                      train: bool = False, group=None):
     """The head as tensor ops. xyz ``[B, n, 3]``, knn_idx ``[B, n, K]`` ->
     ``logits`` ``[B, n, K, R_MAX]``, ``weights`` ``[B, n, K, r]`` (softmax
     over the K slots) or ``latents`` ``[B, n, 3, r]`` from z ``[B, n, 3]``.
     ``state`` holds the BN statistics of unfolded params (None when
-    folded). ``train=True`` runs BN on batch statistics and returns
-    ``(out, new_state)``; otherwise the output alone."""
+    folded). ``train=True`` runs BN on batch statistics (the global
+    batch's with a `parallel.Group`) and returns ``(out, new_state)``;
+    otherwise the output alone."""
     kc_s = wu_s = None
     if state is not None:
         kc_s, wu_s = state["knn_context"], state["weight_unit"]
     ctx, kc_s = knn_context_apply(params["knn_context"], kc_s, xyz, knn_idx,
-                                  train)
-    out, wu_s = weight_unit_apply(params["weight_unit"], wu_s, ctx, train)
+                                  train, group)
+    out, wu_s = weight_unit_apply(params["weight_unit"], wu_s, ctx, train,
+                                  group)
     if mode != "logits":
         out = torch.softmax(out[..., :upratio], dim=2)     # over the slots
     if mode == "latents":

@@ -18,8 +18,24 @@ The parameters and the BN state are each held as one flat float32 vector
 (`TreeLayout`), so a step runs a handful of optimizer kernels instead of
 a few per leaf; the model functions get trees of views into it, and
 checkpoints use the `.npz` keys of the trees. Metrics stay on the device
-until an epoch ends. Single device: the multi-GPU trainer is open
-(ROADMAP.md, Queue 1 item 9).
+until an epoch ends.
+
+Data parallel (``Trainer(..., group=...)``, a `parallel.Group`): the JAX
+package's semantics under its sharded jit. Every rank takes the same
+global batch and trains on its shard (`parallel.shard_batch`); train-mode
+BN normalises with the global batch's statistics and the NLL is the
+global batch's mean, both through the differentiable all-reduce, so each
+rank's gradient holds the cross-rank terms; each rank's loss term is
+weighted by how its global value is reduced (the NLL, a global mean that
+every rank holds, and the chamfer mean over ``W``; the EMD sum as it
+is), and one all-reduce of the flat gradient vector (with the loss and
+the EMD) a step gives the global loss's gradient. The NaN guard, the
+clip and Adam then run on identical inputs on every rank, so the
+parameters stay bit-equal; rank 0's parameters, BN state and Adam state
+are broadcast at construction and after a restore, and only rank 0
+writes files and logs. The continuous family is refused over more than
+one rank: its dopri5 step size is taken over the whole batch (ROADMAP.md,
+Queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -37,6 +53,8 @@ from puflow_torch.checkpoint import (_flatten, _unflatten,
 from puflow_torch.models import discrete
 from puflow_torch.ops.chamfer import chamfer_distance, chamfer_distance_kaolin
 from puflow_torch.ops.emd import emd_auction
+from puflow_torch.parallel.mesh import (all_reduce_, broadcast_,
+                                        is_distributed, shard_batch)
 from puflow_torch.utils.device import resolve_device
 
 
@@ -151,30 +169,61 @@ def _no_mark(stage: str) -> None:
     pass
 
 
-def make_train_step(optimizer: ClipAdam, cfg: TrainConfig,
-                    param_layout: TreeLayout, state_layout: TreeLayout,
-                    forward_fn: Callable = discrete.forward):
-    """The train step ``(params, bn_state, opt_state, sparse, dense) ->
-    (params, bn_state, opt_state, metrics)`` on flat vectors (the layouts
-    give their trees); ``forward_fn`` selects the model family.
-    ``mark(stage)``, if given, is called after the forward, the EMD and
-    loss, the backward and the optimizer update (for timing)."""
+def make_loss_and_grad(cfg: TrainConfig, param_layout: TreeLayout,
+                       state_layout: TreeLayout,
+                       forward_fn: Callable = discrete.forward, group=None):
+    """The loss's gradient ``(params, bn_state, sparse, dense) -> (grads,
+    loss, logpx, emd, new_bn)`` on flat vectors, before the NaN guard.
+    With ``group`` the batch is this rank's shard and every output is the
+    global batch's, the same on every rank (module docstring); ``mark``
+    as in `make_train_step`, with an ``allreduce`` stage."""
+    w = 1 if group is None else group.world_size
+    kw = {"group": group} if is_distributed(group) else {}
 
-    def train_step(params, bn_state, opt_state, sparse, dense,
-                   mark: Callable = _no_mark):
+    def loss_and_grad(params, bn_state, sparse, dense,
+                      mark: Callable = _no_mark):
         leaf = params.detach().requires_grad_()
         pred, logpx, new_bn = forward_fn(
             param_layout.unflatten(leaf), state_layout.unflatten(bn_state),
-            sparse, cfg.upratio, train=True)
+            sparse, cfg.upratio, train=True, **kw)
         mark("forward")
         emd_dist, _ = emd_auction(pred, dense, cfg.emd_eps, cfg.emd_iters)
         emd = torch.sum(emd_dist)
-        loss = logpx * cfg.logpx_weight + emd * cfg.emd_weight
+        loss = logpx * (cfg.logpx_weight / w) + emd * cfg.emd_weight
         if cfg.cd_weight:
-            loss = loss + chamfer_distance(pred, dense) * cfg.cd_weight
+            loss = loss + chamfer_distance(pred, dense) * (cfg.cd_weight / w)
         mark("emd")
         (grads,) = torch.autograd.grad(loss, leaf)
         mark("backward")
+        loss, logpx, emd = loss.detach(), logpx.detach(), emd.detach()
+        if group is not None:
+            # one all-reduce: the gradient, the loss and the EMD
+            flat = torch.cat([grads, loss.reshape(1), emd.reshape(1)])
+            all_reduce_(flat)
+            grads, loss, emd = flat[:-2], flat[-2], flat[-1]
+            mark("allreduce")
+        return grads, loss, logpx, emd, new_bn
+
+    return loss_and_grad
+
+
+def make_train_step(optimizer: ClipAdam, cfg: TrainConfig,
+                    param_layout: TreeLayout, state_layout: TreeLayout,
+                    forward_fn: Callable = discrete.forward, group=None):
+    """The train step ``(params, bn_state, opt_state, sparse, dense) ->
+    (params, bn_state, opt_state, metrics)`` on flat vectors (the layouts
+    give their trees); ``forward_fn`` selects the model family; ``group``
+    (a `parallel.Group`) makes it data parallel over this rank's shard.
+    ``mark(stage)``, if given, is called after the forward, the EMD and
+    loss, the backward, the gradient's all-reduce (with a group) and the
+    optimizer update (for timing)."""
+    loss_and_grad = make_loss_and_grad(cfg, param_layout, state_layout,
+                                       forward_fn, group)
+
+    def train_step(params, bn_state, opt_state, sparse, dense,
+                   mark: Callable = _no_mark):
+        grads, loss, logpx, emd, new_bn = loss_and_grad(
+            params, bn_state, sparse, dense, mark)
         with torch.no_grad():
             # NaN guard: zero gradients, and the optimizer still steps
             ok = torch.isfinite(loss)
@@ -183,8 +232,7 @@ def make_train_step(optimizer: ClipAdam, cfg: TrainConfig,
             params = params + updates
             bn_state = torch.where(ok, state_layout.flatten(new_bn), bn_state)
         mark("optimizer")
-        metrics = {"loss": loss.detach(), "logpx": logpx.detach(),
-                   "emd": emd.detach(), "nan_step": ~ok}
+        metrics = {"loss": loss, "logpx": logpx, "emd": emd, "nan_step": ~ok}
         return params, bn_state, opt_state, metrics
 
     return train_step
@@ -201,12 +249,16 @@ def eval_step(params, bn_state, sparse, dense, upratio: int,
                                                                      dense))}
 
 
-def _stack(step_metrics: list, device) -> dict:
-    """Per-step metric tensors -> numpy arrays, with one device read."""
+def _stack(step_metrics: list, device, group=None) -> dict:
+    """Per-step metric tensors -> numpy arrays, with one device read;
+    with ``group``, each summed over the ranks first (one all-reduce)."""
     keys = list(step_metrics[0])
     rows = torch.stack([
         torch.stack([m[k].to(device, torch.float32).reshape(()) for k in keys])
-        for m in step_metrics]).cpu().numpy()
+        for m in step_metrics])
+    if group is not None:
+        all_reduce_(rows)
+    rows = rows.cpu().numpy()
     return {k: rows[:, i] for i, k in enumerate(keys)}
 
 
@@ -215,24 +267,45 @@ class Trainer:
 
     ``params`` and ``bn_state`` are trees of numpy arrays or tensors (the
     JAX package's trees after ``jax.tree.map(np.asarray, ...)`` work); they
-    are copied onto ``device``. ``forward_fn`` selects the model family:
-    `discrete.forward` or `continuous.forward`.
+    are copied onto ``device`` (default ``cuda``). ``forward_fn`` selects
+    the model family: `discrete.forward` or `continuous.forward`.
+
+    ``group`` (a `parallel.Group` from `parallel.init_group`) makes it data
+    parallel on the group's device (module docstring): `step`,
+    `train_epoch` and `validate` take the global batches, the same on
+    every rank, and train on this rank's shard.
     """
 
     def __init__(self, cfg: TrainConfig, params, bn_state,
-                 forward_fn: Callable = discrete.forward, device="cuda"):
+                 forward_fn: Callable = discrete.forward, device=None,
+                 group=None):
+        if is_distributed(group) and forward_fn is not discrete.forward:
+            raise NotImplementedError(
+                "data-parallel training takes the discrete family only: "
+                "the continuous family's dopri5 step size is taken over "
+                "the whole batch, which a rank's shard does not see "
+                "(ROADMAP.md, Queue 1 item 9c: CNF data parallelism)")
+        if group is not None:
+            if device is not None and resolve_device(device) != group.device:
+                raise ValueError(f"device {device} is not the group's "
+                                 f"{group.device}")
+            device = group.device
         self.cfg = cfg
         self.forward_fn = forward_fn
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = resolve_device("cuda" if device is None else device)
         self.param_layout = TreeLayout(params)
         self.state_layout = TreeLayout(bn_state)
         self.params = self.param_layout.flatten(params, self.device)
         self.bn_state = self.state_layout.flatten(bn_state, self.device)
         self.optimizer = make_optimizer(cfg)
         self.opt_state = self.optimizer.init(self.params)
+        self._broadcast_state()
+        self._loss_and_grad = make_loss_and_grad(
+            cfg, self.param_layout, self.state_layout, forward_fn, group)
         self._train_step = make_train_step(
             self.optimizer, cfg, self.param_layout, self.state_layout,
-            forward_fn)
+            forward_fn, group)
 
         # ReduceLROnPlateau state
         self._lr = cfg.learning_rate
@@ -256,6 +329,25 @@ class Trainer:
     def _set_lr(self):
         self.opt_state.learning_rate = self._lr
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process logs and writes files (rank 0)."""
+        return self.group is None or self.group.is_writer
+
+    def _broadcast_state(self):
+        """With a group: rank 0's parameters, BN state and Adam state
+        (moments and step count) on every rank, in one broadcast."""
+        if self.group is None:
+            return
+        st = self.opt_state
+        count = torch.tensor([float(st.count)], device=self.device)
+        flat = broadcast_(torch.cat([self.params, self.bn_state, st.mu,
+                                     st.nu, count]))
+        n, m = self.params.numel(), self.bn_state.numel()
+        self.params, self.bn_state, mu, nu, count = flat.split(
+            [n, m, n, n, 1])
+        self.opt_state = AdamState(int(count), mu, nu, st.learning_rate)
+
     def trees(self):
         """The (params, bn_state) trees of views into the flat vectors."""
         return (self.param_layout.unflatten(self.params),
@@ -264,12 +356,25 @@ class Trainer:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
+    def _shard(self, a) -> torch.Tensor:
+        """This rank's shard of a global batch, on the device."""
+        return self._tensor(shard_batch(a, self.group))
+
     def step(self, sparse, dense, mark: Callable = _no_mark) -> dict:
         """One train step on a batch; returns its metrics as tensors."""
         self.params, self.bn_state, self.opt_state, m = self._train_step(
-            self.params, self.bn_state, self.opt_state, self._tensor(sparse),
-            self._tensor(dense), mark)
+            self.params, self.bn_state, self.opt_state, self._shard(sparse),
+            self._shard(dense), mark)
         return m
+
+    def gradient(self, sparse, dense):
+        """The loss's gradient at the current parameters on a batch, as a
+        flat vector (the global batch's with a group), and the loss; no
+        update."""
+        grads, loss, _, _, _ = self._loss_and_grad(
+            self.params, self.bn_state, self._shard(sparse),
+            self._shard(dense))
+        return grads, loss
 
     def train_epoch(self, batches) -> dict:
         """batches: iterable of (sparse [B,N,3], dense [B,N*r,3]) numpy.
@@ -288,12 +393,15 @@ class Trainer:
     def validate(self, batches) -> dict:
         params, bn_state = self.trees()
         step_metrics = [
-            eval_step(params, bn_state, self._tensor(sparse),
-                      self._tensor(dense), self.cfg.upratio, self.forward_fn)
+            eval_step(params, bn_state, self._shard(sparse),
+                      self._shard(dense), self.cfg.upratio, self.forward_fn)
             for sparse, dense in batches]
         if not step_metrics:
             return {"CD": 0.0, "vloss": 0.0}
-        stacked = _stack(step_metrics, self.device)
+        # with a group: CD summed over the ranks, the NLL their mean
+        stacked = _stack(step_metrics, self.device, self.group)
+        if self.group is not None:
+            stacked["vloss"] = stacked["vloss"] / self.group.world_size
         # the reference sums CD over validation batches
         return {"CD": float(stacked["CD"].sum()),
                 "vloss": float(stacked["vloss"].sum()) * 1e-5}
@@ -301,8 +409,11 @@ class Trainer:
     def fit(self, train_iter_fn, val_iter_fn, max_epochs=None,
             log_fn=print, checkpoint_fn=None):
         """Epoch loop. A KeyboardInterrupt stops cleanly and sets
-        `self.interrupted` (the reference then skips the final save)."""
+        `self.interrupted` (the reference then skips the final save).
+        With a group only rank 0 calls ``log_fn`` and ``checkpoint_fn``."""
         max_epochs = max_epochs or self.cfg.max_epochs
+        if not self.is_writer:
+            log_fn = checkpoint_fn = None
         self.interrupted = False
         try:
             for epoch in range(max_epochs):
@@ -313,14 +424,16 @@ class Trainer:
                 row = {"epoch": epoch, **tr, **va,
                        "time_s": round(time.time() - t0, 2)}
                 self.history.append(row)
-                log_fn(f"[epoch {epoch:3d}] " + "  ".join(
-                    f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
-                    for k, v in row.items() if k != "epoch"))
+                if log_fn:
+                    log_fn(f"[epoch {epoch:3d}] " + "  ".join(
+                        f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                        for k, v in row.items() if k != "epoch"))
                 if checkpoint_fn:
                     checkpoint_fn(epoch, *self.numpy_params())
         except KeyboardInterrupt:
             self.interrupted = True
-            log_fn(f"interrupted at epoch {len(self.history)}")
+            if log_fn:
+                log_fn(f"interrupted at epoch {len(self.history)}")
         return self.history
 
     def numpy_params(self):
@@ -334,7 +447,10 @@ class Trainer:
         """``path``: the weights (`checkpoint.save_checkpoint`);
         ``path + ".opt.npz"``: the Adam moments in the params' keys under
         ``mu/`` and ``nu/`` and the step count; ``path + ".meta.json"``:
-        the plateau controller and the history."""
+        the plateau controller and the history. With a group only rank 0
+        writes."""
+        if not self.is_writer:
+            return
         save_checkpoint(path, *self.numpy_params())
         opt = {"count": np.asarray(self.opt_state.count, np.int64)}
         _flatten("mu", self.param_layout.numpy_tree(self.opt_state.mu), opt)
@@ -347,7 +463,9 @@ class Trainer:
             json.dump(meta, f)
 
     def restore_train_state(self, path: str) -> int:
-        """Inverse of `save_train_state`; returns the epochs done."""
+        """Inverse of `save_train_state`; returns the epochs done. With a
+        group every rank reads the files and then takes rank 0's
+        parameters, BN state and Adam state."""
         params, bn_state = load_npz_checkpoint(path)
         self.params = self.param_layout.flatten(params, self.device)
         self.bn_state = self.state_layout.flatten(bn_state, self.device)
@@ -364,4 +482,5 @@ class Trainer:
         self._bad_epochs = meta["bad_epochs"]
         self.history = meta["history"]
         self._set_lr()
+        self._broadcast_state()
         return meta["epochs_done"]

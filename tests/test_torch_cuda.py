@@ -1251,3 +1251,48 @@ def test_wrappers_are_their_direct_launches(card, op_inputs):
     for got, ref in pairs:
         assert all(torch.equal(a, b)
                    for a, b in zip(_leaves(got), _leaves(ref)))
+
+
+def test_nccl_world_size_one_trainer_is_the_plain_trainer(card, tmp_path):
+    """One NCCL rank: the data-parallel `Trainer` (its gradient all-reduce
+    through NCCL) keeps the plain `Trainer`'s parameters and BN state bit
+    for bit over 3 steps."""
+    from puflow_torch.data.synthetic import synthetic_pairs
+    from torch_parallel_cases import (nccl_one_rank, run_ranks,
+                                      seeded_first_step)
+
+    rng = np.random.RandomState(0)
+    batches = [synthetic_pairs(rng, 4, 256, 4) for _ in range(3)]
+    params, state = seeded_first_step(batches[0][0], card)
+    (rows,) = run_ranks(nccl_one_rank, 1, params, state, batches,
+                        backend="nccl", devices=["cuda:0"], tmp=tmp_path)
+    assert all(p and s for p, s, _ in rows), rows
+
+
+def test_gloo_sharded_upsample_on_the_card(card, tmp_path):
+    """Two `gloo` ranks on the one card: `upsample_cloud_sharded` of the
+    folded model launches the folded path's six kernels on each rank (FPS
+    twice), each rank's shard is bit-equal to `upsample_cloud` of its
+    clouds alone, and against the one-process run of all four clouds the
+    pipeline gate of `chip_smoke.py:phase_main_path` holds (Chamfer <
+    1e-4): on the card the pipeline's mean over a cloud's points rounds
+    differently at another batch size, and the merge's FPS takes other
+    points from near-ties."""
+    from puflow_torch.ops.chamfer import chamfer_parts
+    from torch_parallel_cases import (FOLDED, perturbed_trees, run_ranks,
+                                      sharded_upsample_rank,
+                                      upsample_one_process)
+
+    params, state = perturbed_trees()
+    pc = np.random.RandomState(4).randn(4, 1024, 3).astype(np.float32)
+    ranks = run_ranks(sharded_upsample_rank, 2, params, state, pc, 4096,
+                      devices=["cuda:0"] * 2, tmp=tmp_path)
+    one = upsample_one_process(params, state, pc, 4096, card)
+    for r, res in enumerate(ranks):
+        assert res["launches"] == {k: 2 if k == "fps" else 1
+                                   for k in FOLDED}
+        np.testing.assert_array_equal(res["out"][2 * r:2 * r + 2],
+                                      res["alone"])
+        out = torch.from_numpy(res["out"]).to(card)
+        d_xy, _, d_yx, _ = chamfer_parts(out, one)
+        assert float((d_xy.mean(1) + d_yx.mean(1)).max()) < 1e-4

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from puflow_torch import checkpoint as t_checkpoint
+from puflow_torch import parallel as t_parallel
 from puflow_torch.cli import upsample as t_cli
+from puflow_torch.inference import patch as t_patch
 from puflow_torch.models import continuous as t_continuous
 from puflow_torch.models import discrete as t_discrete
 from puflow_torch.ops import cnf as t_cnf
@@ -41,16 +43,18 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Every module of the port, and the tests' reference-checkpoint
-    writer that `chip_smoke.py` shares, imports neither jax nor
-    `puflow_tpu`."""
+    writer and data-parallel rank bodies that `chip_smoke.py` shares,
+    imports neither jax nor `puflow_tpu`."""
     mods = _port_modules()
     assert {"puflow_torch.cli.evaluate", "puflow_torch.convert.torch_ckpt",
             "puflow_torch.eval.jsd", "puflow_torch.eval.p2f",
             "puflow_torch.eval.uniformity",
             "puflow_torch.ops.approx_match", "puflow_torch.serving",
-            "puflow_torch.cli.export"} <= set(mods)
+            "puflow_torch.cli.export",
+            "puflow_torch.parallel.mesh"} <= set(mods)
+    shared = ["torch_ckpt_cases", "torch_parallel_cases"]
     code = ("import importlib, sys\n"
-            f"for m in {mods + ['torch_ckpt_cases']!r}:\n"
+            f"for m in {mods + shared!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'puflow_tpu')]\n"
@@ -134,7 +138,8 @@ def cli_inputs(tmp_path_factory):
 
 def test_entry_points_default_to_the_card(cli_inputs):
     """Called without a device, the public entry points ask for CUDA, and
-    on a host without a card that raises."""
+    on a host without a card that raises: the models, the checkpoints,
+    the data-parallel group's start and the sharded upsampler."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     _, ckpt, _ = cli_inputs
@@ -147,6 +152,14 @@ def test_entry_points_default_to_the_card(cli_inputs):
         t_checkpoint.from_numpy_tree(params, state)
     with pytest.raises(RuntimeError, match="cuda"):
         t_checkpoint.load_checkpoint(ckpt)
+    # the data-parallel group starts on cuda:LOCAL_RANK, and the sharded
+    # upsampler without a group starts one there
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_parallel.init_group("gloo", 0, 1)
+    model = t_checkpoint.from_numpy_tree(params, state, "cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_patch.upsample_cloud_sharded(model, torch.zeros((2, 64, 3)), 256)
+    assert not torch.distributed.is_initialized()
 
 
 def test_export_entry_points_default_to_the_card(cli_inputs, tmp_path):
