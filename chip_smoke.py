@@ -36,6 +36,9 @@ the p2f tool, and `cli.evaluate` with its approx-match EMD on the card.
 Last it trains the discrete model data parallel on two ranks that share
 the card (each rank's step launches the EMD kernel) and upsamples with the
 clouds sharded over them (each rank launches the folded path's kernels).
+Last it runs the library surface that has no kernel of its own: the spline
+couplings, the folding net and its point-order helper, `profile_trace`
+around the folded path, `hausdorff_distance`.
 Phases:
 
   1. checks the card, prints its name and power limit, checks that
@@ -170,7 +173,18 @@ Phases:
      1e-4 against the one-process run, ms a call); one NCCL rank at world
      size 1 keeps the plain trainer's bits over 3 steps; with more cards
      the same under NCCL across up to 4;
- 24. prints its total seconds, one JSON line of kernel results and, last,
+ 24. runs the library surface (`phase_library`, no kernel of its own): the
+     three spline couplings at the discrete flow's widths (3 channels split
+     1 and 2, hidden 64, conditions of 128, 64 bins, tail bound 5) on 32
+     patches of 256 points and the inverse on 1,024 (x4), forward then
+     inverse within JAX's round-trip gates, each direction held to the
+     CPU's float64 at the CPU tests' gates, ms a call; the folding net
+     trained 150 steps (the loss falls, shuffled input moves no reference
+     point, the `.npz` helper permutes as the in-memory net);
+     `profile_trace` around one folded `upsample_cloud` of 8 clouds (the
+     trace holds the port's kernels); `hausdorff_distance` on the card
+     against the CPU (2e-6);
+ 25. prints its total seconds, one JSON line of kernel results and, last,
      the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
@@ -185,6 +199,7 @@ import functools
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -201,6 +216,7 @@ from puflow_torch.cli import evaluate
 from puflow_torch.convert import torch_ckpt
 from puflow_torch.data import tfrecord
 from puflow_torch.data.synthetic import synthetic_pairs
+from puflow_torch.flows import spline_coupling
 from puflow_torch.inference.patch import (auto_merge_groups, normalize_cloud,
                                           remove_outliers, upsample_cloud)
 from puflow_torch.models import continuous, discrete
@@ -214,7 +230,8 @@ from puflow_torch.ops import flow as flow_ops
 from puflow_torch.ops import fps as fps_ops
 from puflow_torch.ops import interp as interp_ops
 from puflow_torch.ops.approx_match import earth_mover
-from puflow_torch.ops.chamfer import chamfer_parts
+from puflow_torch.ops.chamfer import (chamfer_distance, chamfer_parts,
+                                      hausdorff_distance)
 from puflow_torch.ops.emd import emd_auction, emd_auction_plain
 from puflow_torch.ops.fps import (farthest_point_sample,
                                   farthest_point_sample_morton,
@@ -225,6 +242,8 @@ from puflow_torch.ops.fps import (farthest_point_sample,
 from puflow_torch.ops.knn import (KNN_MAX_N, gather_points, knn_indices,
                                   knn_self, knn_self_plain, knn_self_stream)
 from puflow_torch.train.trainer import TrainConfig, Trainer, TreeLayout
+from puflow_torch.utils import folding, permute
+from puflow_torch.utils.timers import profile_trace
 
 # the reference-format checkpoint writer the CPU tests use (no jax)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -233,6 +252,8 @@ from torch_op_cases import DIRECT as OP_DIRECT  # noqa: E402
 from torch_parallel_cases import (card_train_rank, gradients,  # noqa: E402
                                   nccl_one_rank, run_ranks,
                                   seeded_first_step, upsample_one_process)
+from torch_spline_cases import (KINDS as SPLINE_KINDS,  # noqa: E402
+                                check_direction, coupling_case, lanes)
 
 SEED = 2021
 N_POINTS = 2048
@@ -3481,6 +3502,169 @@ def phase_data_parallel(model, card):
         f"({card})")
 
 
+# the port's own kernels, by the names their sources give them
+PORT_KERNEL_NAMES = ("fps_kernel", "fps_cluster_kernel", "knn_self_kernel",
+                     "encoder_rows_kernel", "encoder_edge_kernel",
+                     "interp_head_kernel", "flow_f_kernel", "flow_g_kernel")
+FOLDING_STEPS = 150
+TRACE_PAD = 1000
+
+
+def library_splines(card):
+    """The three spline couplings at the discrete flow's widths (3
+    channels split 1 and 2, hidden 64, conditions of 128, 64 bins, tail
+    bound 5) on 32 patches of 256 points and, for the inverse, of 1,024
+    (x4): forward then inverse within JAX's round-trip gates (1e-4, cubic
+    2e-2) lane by lane, the forward at 256 and the inverse at 1,024 held
+    to the CPU's float64 at the CPU tests' gates, ms a call."""
+    for kind in SPLINE_KINDS:
+        for split in (1, 2):
+            params, x, c = coupling_case(SEED + split, kind, split, N_PATCH,
+                                         PATCH, "cuda")
+            _, y, cy = coupling_case(SEED + 10 + split, kind, split,
+                                     N_PATCH, PATCH * UPRATIO, "cuda")
+            gate = 2e-2 if kind == "cubic" else 1e-4
+            trips = []
+            for inp, cc in ((x, c), (y, cy)):
+                out, ld = lanes(params, inp, cc, split, kind, False)
+                back, ld_back = lanes(
+                    params, torch.cat([inp[..., :split], out], -1), cc,
+                    split, kind, True)
+                trip = (float((back - inp[..., split:]).abs().max()),
+                        float((ld + ld_back).abs().max()))
+                if max(trip) > gate:
+                    raise AssertionError(f"spline {kind} split {split}: round"
+                                         f" trip {trip} past {gate}")
+                trips.append(trip)
+            z = spline_coupling.spline_coupling_forward(params, y, cy, split,
+                                                        kind)[0]
+            fwd = check_direction(params, x, c, split, kind, False)
+            inv = check_direction(params, z, cy, split, kind, True)
+            ms_f = time_ms(lambda: spline_coupling.spline_coupling_forward(
+                params, x, c, split, kind), 20)
+            ms_i = time_ms(lambda: spline_coupling.spline_coupling_inverse(
+                params, z, cy, split, kind), 20)
+            log(f"spline {kind} split {split}: forward [{N_PATCH}, {PATCH}, "
+                f"3] {ms_f:.4f} ms a call, inverse [{N_PATCH}, "
+                f"{PATCH * UPRATIO}, 3] {ms_i:.4f} ms a call ({card}); "
+                f"round trip (out, logdet) {trips[0][0]:.3g}, "
+                f"{trips[0][1]:.3g} / {trips[1][0]:.3g}, {trips[1][1]:.3g} "
+                f"(gate {gate}); against the CPU's float64 forward "
+                f"{fwd['out']:.3g} / {fwd['logdet']:.3g}, inverse "
+                f"{inv['out']:.3g} / {inv['logdet']:.3g} (gates 2e-5 / "
+                f"lane gates up to {max(fwd['gate'], inv['gate']):.3g})")
+
+
+def library_folding(card, tmp, clouds):
+    """The folding net trained on the card from seeded parameters; the
+    loss must fall, the reference points must not move when the input is
+    shuffled, and a `PermutateHelper` loaded from the saved `.npz` must
+    permute as the in-memory function."""
+    init = folding.folding_net_init(
+        torch.Generator(device=clouds.device).manual_seed(SEED),
+        device=clouds.device)
+    init_loss = float(chamfer_distance(
+        folding.folding_net_apply(init, clouds), clouds))
+    # the first step of a process loads the optimizer's and the backward's
+    # CUDA modules (8-12 s on an H100 with torch 2.11): one throwaway step
+    # first
+    t0 = time.perf_counter()
+    folding.train_folding_net(None, clouds, 1, lr=3e-3, device=clouds.device,
+                              params=init)
+    torch.cuda.synchronize(clouds.device)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, loss = folding.train_folding_net(None, clouds, FOLDING_STEPS,
+                                             lr=3e-3, device=clouds.device,
+                                             params=init)
+    torch.cuda.synchronize(clouds.device)
+    train_s = time.perf_counter() - t0
+    if not loss < init_loss:
+        raise AssertionError(f"folding net: loss {loss} not below its "
+                             f"initial {init_loss}")
+    perm = torch.from_numpy(np.random.RandomState(SEED).permutation(
+        clouds.shape[1])).to(clouds.device)
+    with torch.no_grad():
+        ref_a = folding.folding_net_apply(params, clouds)
+        ref_b = folding.folding_net_apply(params, clouds[:, perm])
+    moved = float((ref_a - ref_b).abs().max())
+    if moved > 1e-5:
+        raise AssertionError(f"folding net: shuffled input moved the "
+                             f"reference points by {moved}")
+    path = os.path.join(tmp, "folding.npz")
+    permute.save_folding_params(path, params)
+    helper = permute.PermutateHelper()
+    helper.permutebyfolding(path, device=clouds.device)
+    pts = clouds.cpu().numpy()
+    out = helper.permute(pts)
+    want = permute.permute_by_folding(pts, permute.bind_folding(params))
+    if not np.allclose(out, want, rtol=0, atol=1e-6):
+        raise AssertionError("folding net: the helper loaded from the .npz "
+                             "permutes otherwise than the in-memory net")
+    log(f"folding net: {FOLDING_STEPS} steps on {tuple(clouds.shape)} in "
+        f"{train_s:.2f} s after a first step of {first_s:.2f} s ({card}); "
+        f"chamfer {init_loss:.5f} -> {loss:.5f}; "
+        f"shuffled input moves the reference points by {moved:.3g}; the "
+        f".npz helper's permutation equal to the in-memory net's")
+
+
+def library_trace(model, card, tmp):
+    """`profile_trace` around one folded `upsample_cloud` of 8 clouds: its
+    Chrome trace must hold a kernel record of each of the port's kernel
+    functions that the folded path launches. On an H100 with torch 2.11 a
+    trace loses its first kernel records, one for each CUDA child process
+    this process has run before (4 records a trace after 4 children; 54 by
+    this phase of the smoke): `TRACE_PAD` tiny kernels open the window and
+    absorb them."""
+    pc = synthetic_clouds(8, SEED)
+    pad = torch.zeros(1, device="cuda")
+    logdir = os.path.join(tmp, "trace")
+    with torch.no_grad(), profile_trace(logdir):
+        for _ in range(TRACE_PAD):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        out = upsample_cloud(model, pc, NPOINT, UPRATIO, PATCH, EXPAND)
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    launches = sum(e.get("cat") == "cuda_runtime"
+                   and "aunch" in e.get("name", "") for e in events)
+    found = sorted({k for k in PORT_KERNEL_NAMES for name in kernels
+                    if re.search(rf"\b{k}[(<]", name)})
+    log(f"profile_trace: {len(kernels)} CUDA kernel records of {launches} "
+        f"launches ({TRACE_PAD} of them the pad; {launches - len(kernels)} "
+        f"records lost) around one folded upsample_cloud of 8 clouds, the "
+        f"port's kernels among them: {found} ({card})")
+    if found != sorted(PORT_KERNEL_NAMES):
+        raise AssertionError(f"profile_trace: no record of "
+                             f"{sorted(set(PORT_KERNEL_NAMES) - set(found))}"
+                             " in the trace")
+    return pc, out
+
+
+def phase_library(model, card):
+    """The library surface on the card: the spline couplings, the folding
+    net and its permutation helper, `profile_trace` and
+    `hausdorff_distance` (no kernel of its own: plain PyTorch)."""
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        library_splines(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        clouds, _, _ = normalize_cloud(synthetic_clouds(4, SEED + 1))
+        library_folding(card, tmp, clouds)
+        pc, out = library_trace(model, card, tmp)
+    hd = hausdorff_distance(out, pc)
+    hd_cpu = hausdorff_distance(out.cpu(), pc.cpu())
+    err = float((hd.cpu() - hd_cpu).abs().max())
+    log(f"hausdorff_distance: 8 clouds of {out.shape[1]} against their "
+        f"{pc.shape[1]} inputs, card {hd.cpu().numpy().round(6).tolist()}, "
+        f"card - CPU {err:.3g}")
+    if not torch.isfinite(hd).all() or err > 2e-6:
+        raise AssertionError(f"hausdorff_distance: card and CPU differ by "
+                             f"{err}")
+    log(f"phase library: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def timed(phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, then its name (and path, for a phase of
     one path) and seconds on a line of their own."""
@@ -3561,6 +3745,7 @@ def main():
     timed(phase_eval_protocol, model, folded, cnf_model, cnf_folded, card)
     timed(phase_export, model, folded, cnf_folded, card)
     timed(phase_data_parallel, model, card)
+    timed(phase_library, folded, card)
 
     log(f"chip_smoke total {time.perf_counter() - start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,10 +1,16 @@
-"""Additive coupling, affine injector and their transform MLP (LinearA1D).
+"""Coupling layers (additive / affine / affineEx / injector) and their
+transform MLP (LinearA1D).
 
 Counterpart of `puflow_tpu.flows.coupling`, with the same sign conventions:
 
   forward additive: h2 = h2 - bias                  (logdet = 0)
+  forward affine:   h2 = (h2 - bias) * exp(-scale), logdet = -sum(scale)
+  inverse affine:   h2 = h2 * exp(scale) + bias
   forward injector: x = (x - bias) * exp(-scale),   logdet = -sum(scale)
   inverse injector: z = z * exp(scale) + bias
+
+The discrete model ships the additive coupling and the injector; the
+affine and affineEx couplings are library surface.
 """
 
 from __future__ import annotations
@@ -63,6 +69,52 @@ def additive_coupling_inverse(params: dict, z: torch.Tensor,
     h1, h2 = z[..., :split], z[..., split:]
     h2 = h2 + linear_a1d_apply(params["bias_net"], h1, c)
     return torch.cat([h1, h2], dim=-1), None
+
+
+def affine_coupling_forward(params: dict, x: torch.Tensor,
+                            c: torch.Tensor | None, split: int):
+    h1, h2 = x[..., :split], x[..., split:]
+    scale = linear_a1d_apply(params["scale_net"], h1, c)
+    bias = linear_a1d_apply(params["bias_net"], h1, c)
+    h2 = (h2 - bias) * torch.exp(-scale)
+    return (torch.cat([h1, h2], dim=-1),
+            -torch.sum(scale.reshape(scale.shape[0], -1), dim=1))
+
+
+def affine_coupling_inverse(params: dict, z: torch.Tensor,
+                            c: torch.Tensor | None, split: int):
+    h1, h2 = z[..., :split], z[..., split:]
+    scale = linear_a1d_apply(params["scale_net"], h1, c)
+    bias = linear_a1d_apply(params["bias_net"], h1, c)
+    h2 = h2 * torch.exp(scale) + bias
+    return (torch.cat([h1, h2], dim=-1),
+            torch.sum(scale.reshape(scale.shape[0], -1), dim=1))
+
+
+# affineEx: h1 receives an additive update from h2, then h2 is affinely
+# transformed. As in the JAX package (and unlike the reference, whose
+# forward takes scale and bias from the pre-update h1), scale and bias come
+# from the post-update h1 in both directions, so the layer is a bijection.
+def affine_ex_coupling_forward(params: dict, x: torch.Tensor,
+                               c: torch.Tensor | None, split: int):
+    h1, h2 = x[..., :split], x[..., split:]
+    h1 = h1 + linear_a1d_apply(params["g1"], h2)
+    scale = linear_a1d_apply(params["g2"], h1, c)
+    bias = linear_a1d_apply(params["g3"], h1, c)
+    h2 = torch.exp(scale) * h2 + bias
+    return (torch.cat([h1, h2], dim=-1),
+            torch.sum(scale.reshape(scale.shape[0], -1), dim=1))
+
+
+def affine_ex_coupling_inverse(params: dict, z: torch.Tensor,
+                               c: torch.Tensor | None, split: int):
+    h1, h2 = z[..., :split], z[..., split:]
+    scale = linear_a1d_apply(params["g2"], h1, c)
+    bias = linear_a1d_apply(params["g3"], h1, c)
+    h2 = (h2 - bias) * torch.exp(-scale)
+    h1 = h1 - linear_a1d_apply(params["g1"], h2)
+    return (torch.cat([h1, h2], dim=-1),
+            -torch.sum(scale.reshape(scale.shape[0], -1), dim=1))
 
 
 def affine_injector_forward(params: dict, x: torch.Tensor, c: torch.Tensor):

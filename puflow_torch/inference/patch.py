@@ -96,6 +96,15 @@ def merge_patches_approx(points: torch.Tensor, npoint: int, n_cand: int,
     return gather_points(cand, farthest_point_sample(cand, npoint))
 
 
+def jitter_cloud(generator: torch.Generator, pc: torch.Tensor,
+                 sigma: float = 0.010, clip: float = 0.020) -> torch.Tensor:
+    """Clipped gaussian perturbation of ``pc``; the generator must live on
+    ``pc``'s device."""
+    noise = torch.randn(pc.shape, generator=generator, device=pc.device,
+                        dtype=pc.dtype)
+    return pc + torch.clamp(sigma * noise, -clip, clip)
+
+
 def auto_merge_groups(n_candidates: int) -> int:
     """Merge-FPS group count for an n-candidate union: exact below 16384
     candidates, else Morton cells of >= 2048 candidates up to G=16,

@@ -54,6 +54,15 @@ def feature_extract_init(generator, idim: int, odim: int, growth_width: int,
     return params, {"convs": bn_states}
 
 
+def derive_edge_feat(x: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
+    """x: [B, N, C], knn_idx: [B, N, K] -> [B, N, K, 3C]:
+    [x_tiled, knn_feat, knn_feat - x_tiled], the edge feature that
+    `feature_extract_apply` factorises onto its input."""
+    knn_feat = gather_points(x, knn_idx)                    # [B, N, K, C]
+    x_tiled = x[:, :, None, :].expand_as(knn_feat)
+    return torch.cat([x_tiled, knn_feat, knn_feat - x_tiled], dim=-1)
+
+
 def feature_extract_apply(params, state, x: torch.Tensor,
                           knn_idx: torch.Tensor, train: bool = False,
                           pooling: bool = True, group=None):
@@ -118,6 +127,17 @@ def distance_encoder_init(generator, dim_in: int = 3, dim_out: int = 128,
         "lin2": linear_init(generator, 64, dim_out, device=device),
     }
     return params, {"bn0": bn0_s, "bn1": bn1_s}
+
+
+def distance_feat(xyz: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
+    """[pt, neighbour, pt - neighbour, |pt - neighbour|] per slot:
+    [B, N, K, 10] for 3-D points. The vector is point minus neighbour, the
+    opposite sign to `derive_edge_feat`'s."""
+    neighbours = gather_points(xyz, knn_idx)                # [B, N, K, 3]
+    pt = xyz[:, :, None, :].expand_as(neighbours)
+    vec = pt - neighbours
+    dist = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True))
+    return torch.cat([pt, neighbours, vec, dist], dim=-1)
 
 
 def distance_encoder_apply(params, state, xyz: torch.Tensor,

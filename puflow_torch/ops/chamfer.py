@@ -3,7 +3,8 @@
 Counterpart of `puflow_tpu.ops.chamfer`: `chamfer_parts` (outlier removal,
 `inference.patch.remove_outliers`, reduces them), `chamfer_distance` (the
 training loss term of the pugan recipe, pytorch3d convention) and
-`chamfer_distance_kaolin` (validation).
+`chamfer_distance_kaolin` (validation), and `hausdorff_distance` (the
+evaluation's convention, per cloud).
 """
 
 from __future__ import annotations
@@ -35,3 +36,10 @@ def chamfer_distance_kaolin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     ``mean_i d_xy + mean_j d_yx``; callers pick the batch reduction."""
     d_xy, _, d_yx, _ = chamfer_parts(x, y)
     return torch.mean(d_xy, dim=-1) + torch.mean(d_yx, dim=-1)
+
+
+def hausdorff_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-cloud symmetric Hausdorff distance ``[B]`` on squared NN
+    distances: ``max_i d_xy + max_j d_yx``."""
+    d_xy, _, d_yx, _ = chamfer_parts(x, y)
+    return torch.amax(d_xy, dim=-1) + torch.amax(d_yx, dim=-1)

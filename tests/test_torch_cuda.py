@@ -1296,3 +1296,30 @@ def test_gloo_sharded_upsample_on_the_card(card, tmp_path):
         out = torch.from_numpy(res["out"]).to(card)
         d_xy, _, d_yx, _ = chamfer_parts(out, one)
         assert float((d_xy.mean(1) + d_yx.mean(1)).max()) < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["quadratic", "linear-rational", "cubic"])
+@pytest.mark.parametrize("split", [1, 2])
+def test_spline_coupling_card_matches_cpu(card, kind, split):
+    """The spline coupling at the discrete flow's widths, forward and
+    inverse, on the card in float32 against the same call on the CPU in
+    float64, at the CPU tests' gates (`tests/torch_spline_cases.py`)."""
+    from torch_spline_cases import check_against_cpu, coupling_case
+
+    params, x, c = coupling_case(split, kind, split, 4, 256, card)
+    check_against_cpu(params, x, c, split, kind)
+
+
+def test_folding_net_apply_card_matches_cpu(card):
+    """The folding net's apply on the card against the CPU (atol 1e-5, the
+    CPU tests' gate against JAX)."""
+    from puflow_torch.utils.folding import folding_net_apply, folding_net_init
+
+    params = folding_net_init(torch.Generator(device=card).manual_seed(0),
+                              device=card)
+    pts = torch.randn(4, 500, 3, device=card,
+                      generator=torch.Generator(device=card).manual_seed(1))
+    got = folding_net_apply(params, pts)
+    ref = folding_net_apply(tree_map(lambda t: t.cpu(), params), pts.cpu())
+    assert got.shape == (4, 256, 3)
+    assert float((got.cpu() - ref).abs().max()) < 1e-5
