@@ -35,8 +35,11 @@ reference's `.pt` checkpoints: upsample on the folded path's kernels,
 the p2f tool, and `cli.evaluate` with its approx-match EMD on the card.
 Last it trains the discrete model data parallel on two ranks that share
 the card (each rank's step launches the EMD kernel) and upsamples with the
-clouds sharded over them (each rank launches the folded path's kernels).
-Last it runs the library surface that has no kernel of its own: the spline
+clouds sharded over them (each rank launches the folded path's kernels),
+then serves the CNF family so, with its validation NLL: every block-solve
+runs the whole-solve kernels' per-attempt mode, one launch an attempt,
+with the ranks' error sums exchanged between launches so that both ranks
+take the one-process run's steps. Last it runs the library surface that has no kernel of its own: the spline
 couplings, the folding net and its point-order helper, `profile_trace`
 around the folded path, `hausdorff_distance`.
 Phases:
@@ -173,7 +176,22 @@ Phases:
      1e-4 against the one-process run, ms a call); one NCCL rank at world
      size 1 keeps the plain trainer's bits over 3 steps; with more cards
      the same under NCCL across up to 4;
- 24. runs the library surface (`phase_library`, no kernel of its own): the
+ 24. serves the CNF family data parallel (`phase_cnf_data_parallel`): two
+     `gloo` ranks on the card run `upsample_cloud_sharded` of 8 clouds on
+     the folded model and `continuous.forward(train=False)` on 32
+     main-path patches of the unfolded one, at seeded and perturbed
+     weights, every solve in the per-attempt mode: ranks bit-equal, each
+     solve's [attempted, accepted] the one-process run's, the predictions
+     and the dense clouds within atol 1e-4 of it, the NLL within rtol
+     1e-5, the merged clouds within Chamfer 1e-4, one launch an attempt
+     and one to finish counted on each rank, ms a call; one NCCL rank at
+     world size 1 holds the per-attempt mode of both entries bit-equal to
+     the one-launch kernel at R = 8,192 (f, log-density) and 32,768 (g, r
+     = 4) and to the plain versions at `compare_cnf`'s gates, and times a
+     solve with and without the exchange beside the one-launch kernel,
+     with each mode's device time; with more cards the two-rank checks
+     under NCCL across up to 4;
+ 25. runs the library surface (`phase_library`, no kernel of its own): the
      three spline couplings at the discrete flow's widths (3 channels split
      1 and 2, hidden 64, conditions of 128, 64 bins, tail bound 5) on 32
      patches of 256 points and the inverse on 1,024 (x4), forward then
@@ -184,7 +202,7 @@ Phases:
      `profile_trace` around one folded `upsample_cloud` of 8 clouds (the
      trace holds the port's kernels); `hausdorff_distance` on the card
      against the CPU (2e-6);
- 25. prints its total seconds, one JSON line of kernel results and, last,
+ 26. prints its total seconds, one JSON line of kernel results and, last,
      the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
@@ -252,6 +270,9 @@ from torch_op_cases import DIRECT as OP_DIRECT  # noqa: E402
 from torch_parallel_cases import (card_train_rank, gradients,  # noqa: E402
                                   nccl_one_rank, run_ranks,
                                   seeded_first_step, upsample_one_process)
+from torch_parallel_cnf_cases import (attempt_solves_rank,  # noqa: E402
+                                      card_cnf_rank, cnf_eval_one_process,
+                                      cnf_upsample_one_process)
 from torch_spline_cases import (KINDS as SPLINE_KINDS,  # noqa: E402
                                 check_direction, coupling_case, lanes)
 
@@ -314,6 +335,15 @@ KERNELS = {
     "cnf_adjoint_bwd": {"route": "cuda",
                         "source": "puflow_torch/csrc/cnf_adjoint.cu",
                         "replaces": PALLAS + "cnf_adjoint_pallas.py:378"},
+    # the solves' per-attempt mode (`puflow_cnf_solve_attempt`, the kernel
+    # in `csrc/cnf_solve.cuh`; data parallel): a launch an attempt, the
+    # ranks' error sums exchanged between
+    "cnf_solve_attempt": {"route": "cuda",
+                          "source": "puflow_torch/csrc/cnf_solve_attempt.cu",
+                          "replaces": PALLAS + "cnf_pallas.py:372"},
+    "cnf_solve_logp_attempt": {
+        "route": "cuda", "source": "puflow_torch/csrc/cnf_solve_attempt.cu",
+        "replaces": PALLAS + "cnf_pallas.py:281"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
             "knn_self_stream": knn_self_stream,
@@ -1737,30 +1767,46 @@ def compare_cnf(model, results):
                                       steps=WITNESS_STEPS // 4)
     blocks = params["flow_blocks"]
 
-    # times and the bound at the two shapes of `bench_cnf`'s sample, cdim
-    # 128: the function reads y, c, the layers and t0, t1 and writes y(t1);
-    # it makes 1 + 6 field evaluations a step attempted on every row
-    # (4,480 multiply-adds each, 4,096 of them the 64 x 64 product, which
-    # counts at 3xTF32 on the tensor cores, `set_bound_3xtf32`; its log
-    # gives the FP32 bound beside) and projects the conditions once
+    # times and the bound (`solve_bound`; the FP32 bound in its log) at
+    # the two shapes of `bench_cnf`'s sample, cdim 128
     for label, y, reverse in (("f, R = 8,192", x, False),
                               ("g, R = 32,768, r = 4", latents, True)):
         args = solve_args(blocks, 3, cs[3], y, reverse)
         _, stats = cnf_ops.cnf_solve_t(*args, return_stats=True)
         attempted, accepted = stats.tolist()
-        rows, c_rows = y.shape[0] * y.shape[1], B * n
-        layers = args[0]
-        evals = rows * (1 + 6 * attempted)
         log(f"cnf_solve {label}: steps [attempted, accepted] [{attempted}, "
             f"{accepted}], {1 + 6 * attempted} field evaluations a row")
-        set_bound_3xtf32(results["cnf_solve"],
-                         2 * nbytes(y) + nbytes(cs[3]) + tree_bytes(layers)
-                         + 8, 2 * evals * TC_MACS,
-                         2 * (evals * (FIELD_MACS - TC_MACS)
-                              + c_rows * cs[3].shape[-1] * (4 * 64 + 6)))
+        solve_bound(results["cnf_solve"], args[0], cs[3], y, attempted)
         # the kernel line keeps the last: the g solve
         time_pair(results, "cnf_solve", lambda: cnf_ops.cnf_solve_t(*args),
                   lambda: cnf_ops.cnf_solve_plain(*args), reps=5)
+
+
+def solve_bound(entry, layers, c, y, attempted: int) -> None:
+    """`cnf_solve`'s bound on these inputs: it reads y, c, the layers and
+    t0, t1 and writes y(t1); it makes 1 + 6 field evaluations a step
+    attempted on every row (4,480 multiply-adds each, 4,096 of them the 64
+    x 64 product, counted at 3xTF32 on the tensor cores) and projects the
+    conditions once."""
+    evals = y.shape[0] * y.shape[1] * (1 + 6 * attempted)
+    c_rows = c.shape[0] * c.shape[1]
+    set_bound_3xtf32(entry, 2 * nbytes(y) + nbytes(c) + tree_bytes(layers)
+                     + 8, 2 * evals * TC_MACS,
+                     2 * (evals * (FIELD_MACS - TC_MACS)
+                          + c_rows * c.shape[-1] * (4 * 64 + 6)))
+
+
+def logp_bound(entry, layers, c, y, logp0, attempted: int) -> None:
+    """`cnf_solve_logp`'s bound: y and logp in and out, the conditions,
+    the layers; 1 + 6 field evaluations with the three tangent chains a
+    step attempted on every row (the four 64 x 64 products, x1 W2 and u1_k
+    W2, at 3xTF32, the rest at the FP32 peak), and the projections."""
+    evals = y.shape[0] * y.shape[1] * (1 + 6 * attempted)
+    c_rows = c.shape[0] * c.shape[1]
+    set_bound_3xtf32(entry, 2 * nbytes(y, logp0) + nbytes(c)
+                     + tree_bytes(layers) + 8, 2 * evals * 4 * TC_MACS,
+                     2 * (evals * (FIELD_MACS + TANGENT_MACS - 4 * TC_MACS)
+                          + c_rows * c.shape[-1] * (4 * 64 + 6)))
 
 
 def phase_cnf_bench(name, model, card):
@@ -2176,26 +2222,17 @@ def compare_cnf_logp(model, results):
                     witness_check(args, got, ref, rk4_witness_logp,
                                   WITNESS_STEPS // 8, "cnf_solve_logp")
 
-    # times and the bound, f direction at cdim 128: y and logp in and out,
-    # the conditions, the layers; 1 + 6 field evaluations with the three
-    # tangent chains a step attempted on every row, and the projections
+    # times and the bound (`logp_bound`), f direction at cdim 128
     bp = weights[1][1][3]
     T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
     args = (bp["layers"], cs[3], x, logp0, torch.zeros_like(T), T)
-    # the four 64 x 64 products a row and evaluation (x1 W2, u1_k W2) count
-    # at 3xTF32, the rest at the FP32 peak
     _, stats = cnf_ops.cnf_solve_logp(*args, return_stats=True)
     attempted, accepted = stats.tolist()
-    rows = x.shape[0] * x.shape[1]
-    evals = rows * (1 + 6 * attempted)
     log(f"cnf_solve_logp f, R = 8,192, cdim 128: steps [attempted, "
         f"accepted] [{attempted}, {accepted}], {1 + 6 * attempted} field "
         "evaluations a row")
-    set_bound_3xtf32(results["cnf_solve_logp"],
-                     2 * nbytes(x, logp0) + nbytes(cs[3])
-                     + tree_bytes(bp["layers"]) + 8, 2 * evals * 4 * TC_MACS,
-                     2 * (evals * (FIELD_MACS + TANGENT_MACS - 4 * TC_MACS)
-                          + rows * cs[3].shape[-1] * (4 * 64 + 6)))
+    logp_bound(results["cnf_solve_logp"], bp["layers"], cs[3], x, logp0,
+               attempted)
     time_pair(results, "cnf_solve_logp",
               lambda: cnf_ops.cnf_solve_logp(*args),
               lambda: cnf_ops.cnf_solve_logp_plain(*args), reps=5,
@@ -3502,6 +3539,237 @@ def phase_data_parallel(model, card):
         f"({card})")
 
 
+DPC_CLOUDS = 8           # clouds of the sharded CNF upsample (4 a rank)
+DPC_REPS = 5             # timed sharded upsamples a rank
+
+
+def check_cnf_dp_ranks(label, ranks, refs) -> dict:
+    """The checks of `card_cnf_rank`'s results against the one-process
+    runs ``refs`` (label -> {"upsample", "eval"}), for each weight set:
+
+      * the sharded upsample: the ranks' outputs bit-equal; on every rank
+        the 12 solves' [attempted, accepted] those of the one-process
+        `upsample_cloud`; the model's predictions (the ranks' patches in
+        rank order) within atol 1e-4 of the one-process run's (the
+        `sample` gate); the merged clouds by Chamfer < 1e-4 a cloud (the
+        pipeline gate of `phase_main_path`), their largest difference and
+        the share beyond atol 1e-4 printed: a cloud's mean rounds by batch
+        size on the card, and the merge's FPS takes other points from
+        near-ties;
+      * `forward(train=False)`: the 12 solves' steps the one-process
+        run's, the NLL the same on every rank and within rtol 1e-5 of the
+        one-process NLL, the dense clouds within atol 1e-4;
+      * the unrecorded runs' counts: 12 solves an upsample (6 f, 6 g) and
+        6 + 6 an eval, each in the per-attempt mode: one launch an attempt
+        and one that finishes.
+    -> label -> the launches of the per-attempt kernels summed over the
+    ranks, {"cnf_solve": from the upsample, "cnf_solve_logp": from the
+    eval}."""
+    counts = {}
+    for w, ref in refs.items():
+        one, one_eval = ref["upsample"], ref["eval"]
+        ups = [r[w]["upsample"] for r in ranks]
+        evs = [r[w]["eval"] for r in ranks]
+        for r, (up, ev) in enumerate(zip(ups, evs)):
+            if not np.array_equal(up["out"], ups[0]["out"]):
+                raise AssertionError(f"{label} {w}: rank {r}'s upsample is "
+                                     "not rank 0's")
+            if up["steps"] != one["steps"] or ev["steps"] != one_eval["steps"]:
+                raise AssertionError(
+                    f"{label} {w} rank {r}: steps {up['steps']} / "
+                    f"{ev['steps']}, one process {one['steps']} / "
+                    f"{one_eval['steps']}")
+            if ev["nll"] != evs[0]["nll"]:
+                raise AssertionError(f"{label} {w}: the ranks' NLLs differ")
+        pred = np.concatenate([u["pred"] for u in ups])
+        p_err = float(np.abs(pred - one["pred"]).max())
+        out = ups[0]["out"]
+        err = np.abs(out - one["out"]).max(-1)
+        cd = chamfer(torch.from_numpy(out).cuda(),
+                     torch.from_numpy(one["out"]).cuda())
+        dense = np.concatenate([e["x"] for e in evs])
+        d_err = float(np.abs(dense - one_eval["x"]).max())
+        nll_rel = abs(evs[0]["nll"] - one_eval["nll"]) / abs(one_eval["nll"])
+        log(f"{label} {w}: upsample_cloud_sharded of {out.shape[0]} clouds "
+            f"({out.shape[0] // len(ranks)} a rank): ranks bit-equal, the "
+            f"12 solves' steps the one-process run's {one['steps']}; "
+            f"predictions max_abs_err {p_err:.3e} (atol 1e-4); merged "
+            f"clouds largest difference {float(err.max()):.3e}, "
+            f"{float((err > 1e-4).mean()):.4%} of the points beyond atol "
+            f"1e-4 (merge near-ties), Chamfer {cd:.3e} (gate 1e-4)")
+        log(f"{label} {w}: forward(train=False) on {dense.shape[0]} patches "
+            f"({dense.shape[0] // len(ranks)} a rank): steps the one-process "
+            f"run's {one_eval['steps']}; NLL {evs[0]['nll']:.6f} vs "
+            f"{one_eval['nll']:.6f} (rel {nll_rel:.3e}, rtol 1e-5); dense "
+            f"max_abs_err {d_err:.3e} (atol 1e-4)")
+        if not (p_err <= 1e-4 and cd < 1e-4 and d_err <= 1e-4
+                and nll_rel <= 1e-5):
+            raise AssertionError(f"{label} {w}: sharded CNF paths off the "
+                                 "one-process run")
+        expect = {"upsample": {"cnf_solve": 12, "cnf_solve_logp": 0},
+                  "eval": {"cnf_solve": 6, "cnf_solve_logp": 6}}
+        for r, res in enumerate(ranks):
+            runs = res[w]["launches"]
+            steps = {"upsample": (one["steps"], []),
+                     "eval": (one_eval["steps"][6:],
+                              one_eval["steps"][:6])}
+            for run, counts_of in runs.items():
+                plain, logp = steps[run]
+                want = {"cnf_solve": [expect[run]["cnf_solve"], sum(
+                            s[0] + 1 for s in plain)],
+                        "cnf_solve_logp": [expect[run]["cnf_solve_logp"],
+                                           sum(s[0] + 1 for s in logp)]}
+                if counts_of != want:
+                    raise AssertionError(
+                        f"{label} {w} rank {r} {run}: [solves, per-attempt "
+                        f"launches] {counts_of}, not {want}")
+            log(f"{label} {w} rank {r}: [solves, per-attempt launches] "
+                f"{runs}; sharded upsample ms a call (host clock) "
+                + ", ".join(f"{t:.2f}" for t in res[w]["ms"]))
+        counts[w] = {
+            "cnf_solve": sum(r[w]["launches"]["upsample"]["cnf_solve"][1]
+                             for r in ranks),
+            "cnf_solve_logp": sum(
+                r[w]["launches"]["eval"]["cnf_solve_logp"][1]
+                for r in ranks)}
+    return counts
+
+
+def attempt_cases(model):
+    """The NCCL world-size-1 cases of `attempt_solves_rank` at the
+    training solves' inputs (`training_solve_inputs`, block 3, condition
+    width 128), seeded and perturbed weights: the log-density solve f, R =
+    8,192, 0 -> T, and the plain solve g, R = 32,768, r = 4, T -> 0. ->
+    [(weights, name, args on the card, numpy case)]."""
+    x, cs, latents, weights = training_solve_inputs(model)
+    rng = np.random.RandomState(SEED + 8)
+    logp0 = torch.from_numpy((rng.randn(*x.shape[:2], 1) * 0.1)
+                             .astype(np.float32)).cuda()
+    out = []
+    for label, blocks in weights:
+        bp = blocks[3]
+        T = float(bp["sqrt_end_time"] * bp["sqrt_end_time"])
+        for name, args in (
+                ("cnf_solve_logp", (bp["layers"], cs[3], x, logp0, 0.0, T)),
+                ("cnf_solve", (bp["layers"], cs[3], latents, T, 0.0))):
+            case = (name, tree_map(lambda t: t.cpu().numpy(),
+                                   bp["layers"])) + tuple(
+                a.cpu().numpy() if torch.is_tensor(a) else a
+                for a in args[1:])
+            out.append((label, name, args, case))
+    return out
+
+
+def check_attempt_mode(results, cases, rows, card) -> None:
+    """`attempt_solves_rank`'s results (one NCCL rank): the per-attempt
+    mode bit-equal to the one-launch kernel (outputs and stats, two runs),
+    one launch an attempt plus one; against the plain version on the same
+    inputs within 5e-6 at seeded weights, `SOLVER_TOL` and `witness_check`
+    at perturbed ones; the perturbed solves give the kernel line's rows
+    (ms a solve in each mode, the plain version's, the bound)."""
+    for (label, name, args, _), res in zip(cases, rows):
+        row = f"{name}_attempt"
+        if not (np.array_equal(res["attempt"], res["one"])
+                and np.array_equal(res["again"], res["one"])
+                and res["steps"] == res["one_steps"]
+                and res["attempt_launches"] == res["steps"][0] + 1):
+            raise AssertionError(f"{row} {label}: not the one-launch "
+                                 f"kernel's bits, steps {res['steps']} vs "
+                                 f"{res['one_steps']}, launches "
+                                 f"{res['attempt_launches']}")
+        plain = (cnf_ops.cnf_solve_logp_plain if name == "cnf_solve_logp"
+                 else cnf_ops.cnf_solve_plain)
+        ref, ref_stats = plain(*args, return_stats=True)
+        ref = torch.cat(ref, -1) if isinstance(ref, tuple) else ref
+        if res["steps"] != [ref_stats["steps"], ref_stats["accepted"]]:
+            raise AssertionError(f"{row} {label}: steps {res['steps']}, "
+                                 f"plain {ref_stats}")
+        got = torch.from_numpy(res["attempt"]).cuda()
+        log(f"{row} {label} weights, world size 1 over NCCL: bit-equal to "
+            f"the one-launch kernel (two runs), steps {res['steps']}, "
+            f"{res['attempt_launches']} launches")
+        check_close(results, row, got, ref,
+                    5e-6 if label == "seeded" else SOLVER_TOL)
+        if label != "perturbed":
+            continue
+        if name == "cnf_solve_logp":
+            witness_check(args, got, ref, rk4_witness_logp,
+                          WITNESS_STEPS // 8, row)
+            logp_bound(results[row], *args[:4], res["steps"][0])
+            plain_ms = time_ms(lambda: plain(*args), 1)
+        else:
+            witness_check(args, got, ref, steps=WITNESS_STEPS // 4,
+                          name=row)
+            solve_bound(results[row], args[0], args[1], args[2],
+                        res["steps"][0])
+            plain_ms = time_ms(lambda: plain(*args), 3)
+        results[row].update(ms=res["ms"], plain_ms=plain_ms, library_ms=None)
+        log(f"{row}: per-attempt {res['ms']:.4f} ms a solve (CUDA events; "
+            f"{res['local_ms']:.4f} with no exchange), one-launch "
+            f"{res['one_ms']:.4f} (x{res['ms'] / res['one_ms']:.2f}); the "
+            f"kernels' device ms a solve (profiler) {res['device_ms']:.4f} "
+            f"in {res['attempt_launches']} launches, one-launch "
+            f"{res['one_device_ms']:.4f}; plain {plain_ms:.4f}, bound "
+            f"{results[row]['bound_ms']:.4f} ms ({results[row]['bound_by']}; "
+            f"{card})")
+
+
+def phase_cnf_data_parallel(results, model, card):
+    """CNF serving and validation data parallel (`upsample_cloud_sharded`
+    and `continuous.forward(train=False, group=)` of the CNF family, every
+    solve in `csrc/cnf_solve.cu`'s per-attempt mode with the ranks' error
+    sums exchanged each attempt): two `gloo` ranks spawned on the one card
+    (`torch_parallel_cnf_cases.card_cnf_rank`) at the seeded and the
+    perturbed full-width model (the folded model's sharded upsample of 8
+    clouds, 2048 -> 8192 points; the unfolded model's forward on 32
+    main-path patches), held to the one-process runs on the card by
+    `check_cnf_dp_ranks`; one NCCL rank at world size 1 holding the
+    per-attempt mode of both entries bit-equal to the one-launch kernel
+    and to the plain versions (`check_attempt_mode`); with more than one
+    card the two-rank checks under NCCL across ``min(count, 4)`` cards.
+    ``model``: the perturbed unfolded CNF model. Sets the kernel line's
+    per-attempt rows."""
+    t_phase = time.perf_counter()
+    pc = synthetic_clouds(DPC_CLOUDS, SEED + 9).cpu().numpy()
+    x = main_path_patches(1).cpu().numpy()
+    weights = [("seeded", *checkpoint.to_numpy_tree(seeded_cnf_model())),
+               ("perturbed", *checkpoint.to_numpy_tree(model))]
+    refs = {w: {"upsample": cnf_upsample_one_process(
+                    p, s, pc, NPOINT, UPRATIO, PATCH, EXPAND, "cuda"),
+                "eval": cnf_eval_one_process(p, s, x, UPRATIO, "cuda")}
+            for w, p, s in weights}
+
+    def ranks_run(label, n, backend, devices):
+        t0 = time.perf_counter()
+        ranks = run_ranks(card_cnf_rank, n, weights, pc[:DPC_CLOUDS // n * n],
+                          NPOINT, x[:len(x) // n * n], DPC_REPS,
+                          backend=backend, devices=devices, timeout_s=300)
+        log(f"{label}: {n} ranks spawned and run in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        return check_cnf_dp_ranks(label, ranks, refs)
+
+    counts = ranks_run("cnf_data_parallel gloo, 2 ranks on one card", 2,
+                       "gloo", ["cuda:0"] * 2)
+    for name in ("cnf_solve", "cnf_solve_logp"):
+        results[f"{name}_attempt"]["launches"] = counts["perturbed"][name]
+    t0 = time.perf_counter()
+    cases = attempt_cases(model)
+    (rows,) = run_ranks(attempt_solves_rank, 1, [c[3] for c in cases], 5,
+                        backend="nccl", devices=["cuda:0"], timeout_s=300)
+    log(f"cnf_data_parallel nccl, world size 1: run in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_attempt_mode(results, cases, rows, card)
+    count = torch.cuda.device_count()
+    if count > 1:
+        n = min(count, 4)
+        ranks_run(f"cnf_data_parallel nccl, {n} cards", n, "nccl",
+                  [f"cuda:{i}" for i in range(n)])
+    else:
+        log("cnf_data_parallel nccl across cards: one card here, not run")
+    log(f"phase cnf_data_parallel: {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+
+
 # the port's own kernels, by the names their sources give them
 PORT_KERNEL_NAMES = ("fps_kernel", "fps_cluster_kernel", "knn_self_kernel",
                      "encoder_rows_kernel", "encoder_edge_kernel",
@@ -3745,6 +4013,7 @@ def main():
     timed(phase_eval_protocol, model, folded, cnf_model, cnf_folded, card)
     timed(phase_export, model, folded, cnf_folded, card)
     timed(phase_data_parallel, model, card)
+    timed(phase_cnf_data_parallel, results, cnf_model, card)
     timed(phase_library, folded, card)
 
     log(f"chip_smoke total {time.perf_counter() - start:.1f} s")

@@ -142,7 +142,7 @@ def remove_outliers(sr: torch.Tensor, lr: torch.Tensor,
 def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
                    patch_size: int = 256, expand_ratio: float = 4.0,
                    merge_candidates=None, seeded_merge: bool = False,
-                   merge_groups: int = 0) -> torch.Tensor:
+                   merge_groups: int = 0, group=None) -> torch.Tensor:
     """Upsample whole clouds patch-wise.
 
     Args:
@@ -158,6 +158,8 @@ def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
         ``npoint <= N``.
       merge_groups: without ``seeded_merge``, values above 1 run the
         union's FPS in that many Morton cells.
+      group: a `parallel.Group` passed on to the model call, where ``pc``
+        is this rank's shard of the clouds (`upsample_cloud_sharded`).
 
     The default (all three off) is the exact union merge.
 
@@ -173,7 +175,8 @@ def upsample_cloud(model, pc: torch.Tensor, npoint: int, upratio: int = 4,
     flat = patches.reshape(B * n_patch, patch_size, C)
 
     flat_n, centroids, furthest = normalize_cloud(flat)
-    pred = model(flat_n, upratio)                          # [B*P, k*r, 3]
+    pred = (model(flat_n, upratio) if group is None
+            else model(flat_n, upratio, group=group))      # [B*P, k*r, 3]
     pred = pred * furthest + centroids
     pred = pred.reshape(B, -1, C)                          # [B, P*k*r, 3]
 
@@ -216,26 +219,26 @@ def upsample_cloud_sharded(model, pc: torch.Tensor, npoint: int,
 
     Counterpart of `puflow_tpu.inference.patch.upsample_cloud_sharded`:
     each rank runs `upsample_cloud` (the exact union merge) on its ``B /
-    W`` clouds with no collective in the compute, and every rank gets the
-    whole ``[B, npoint, 3]`` in the clouds' order (`parallel.gather_batch`).
-    ``pc`` is the global batch, the same on every rank; ``model`` a
-    `DiscreteModel` on the group's device.
+    W`` clouds, and every rank gets the whole ``[B, npoint, 3]`` in the
+    clouds' order (`parallel.gather_batch`). ``pc`` is the global batch,
+    the same on every rank; ``model`` a `DiscreteModel` or
+    `ContinuousModel` on the group's device, either BN configuration.
 
-    The continuous family is refused: its solves take one dopri5 step size
-    over the whole batch, so a rank's shard would be solved with other
-    steps than the one-device run (ROADMAP.md, Queue 1 item 9c).
+    The discrete family's compute has no collective. A CNF solve's dopri5
+    step size is the whole batch's, as under JAX's sharded jit: each of
+    the 12 block-solves of a sample exchanges every rank's error sum once
+    an attempt (`ops.cnf`'s per-attempt kernel on the card, `models.ode`'s
+    plain solver loop elsewhere), so every rank takes the one-process run's
+    steps. That costs a collective of two doubles and a host read of the
+    solve's finished flag an attempt, some 60 a sample at 4-6 attempts a
+    solve: about 0.3 ms of host time each with NCCL, milliseconds each
+    with `gloo` on CUDA tensors (measured beside an H100, `PERF.md`).
     """
     from puflow_torch import parallel
-    from puflow_torch.models.continuous import ContinuousModel
 
-    if isinstance(model, ContinuousModel):
-        raise NotImplementedError(
-            "upsample_cloud_sharded takes the discrete family only: a CNF "
-            "solve's step size is the whole batch's (ROADMAP.md, Queue 1 "
-            "item 9c: CNF data parallelism)")
     if group is None:
         group = parallel.default_group()
     local = parallel.shard_batch(pc, group).to(group.device)
     out = upsample_cloud(model, local, npoint, upratio, patch_size,
-                         expand_ratio)
+                         expand_ratio, group=group)
     return parallel.gather_batch(out, group)

@@ -26,6 +26,13 @@ exact-trace log-density solve), those of g `ops.cnf.cnf_solve_t`, and
 every backward solve `ops.cnf.cnf_adjoint_bwd`: kernels on the card, 24
 launches a loss's gradient, their plain versions on the CPU.
 
+Data parallel serving and validation (``group=`` a `parallel.Group`):
+`sample` and `forward(train=False)` on this rank's shard of the batch take
+every solve's steps from the global batch's error norm (`ops.cnf`'s
+per-attempt kernel on the card, `models.ode`'s early-exit loop with the
+group elsewhere), and the NLL is the global batch's mean. Training with a
+group (`forward(train=True)`) is ROADMAP.md Queue 1 item 9c-ii.
+
 Parameters are the JAX package's (params, state) trees, keys unchanged
 (``flow_blocks[i].sqrt_end_time``, ``.layers[j].layer / hyper_gate /
 hyper_bias``), held as `ContinuousModel`'s parameters and buffers.
@@ -52,6 +59,7 @@ from puflow_torch.models.encoder import (feat_merge_init,
                                          interpolation_init)
 from puflow_torch.models.ode import make_adjoint_odeint, odeint_dopri5
 from puflow_torch.ops.knn import knn_indices
+from puflow_torch.parallel.mesh import all_reduce_sum, is_distributed
 from puflow_torch.utils.device import resolve_device
 
 NUM_BLOCKS = 6
@@ -443,7 +451,8 @@ def flow_block_init(generator, cdim: int, idim: int = 3, T: float = T_INIT,
 def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
                differentiable: bool, max_steps: int | None = None,
                layer_type: str = "concatsquash",
-               nonlinearity: str = "tanh", with_logp: bool = True):
+               nonlinearity: str = "tanh", with_logp: bool = True,
+               group=None):
     """One block-solve -> (y(t1), accumulated delta-logp ``[B, N, 1]``).
 
     ``c`` is ``[B, N, cdim]``, or ``[B, N / r, cdim]`` when each condition
@@ -451,7 +460,9 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
     latents): the kernel path indexes it in place, the others repeat it.
     ``differentiable`` solves take gradients by the continuous adjoint.
     Every solve of the shipped field goes through `ops.cnf`'s wrappers, or
-    through the functions `training_solves` gives.
+    through the functions `training_solves` gives. With a ``group`` ``y``
+    is this rank's shard and the solve's steps the global batch's (not
+    ``differentiable``).
     """
     # ops.cnf builds its plain version from this module's field
     from puflow_torch.ops import cnf as cnf_ops
@@ -469,6 +480,11 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
         solves = _TRAINING_SOLVES.get() or (
             cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t,
             cnf_ops.cnf_adjoint_bwd)
+    if is_distributed(group) and differentiable:
+        raise NotImplementedError(_TRAIN_GROUP)
+    # the group goes only where there is one, so that `training_solves`
+    # functions without a group argument still serve one process
+    kw = {} if group is None else {"group": group}
     if differentiable:
         if solves is None and c.shape[1] != y.shape[1]:
             c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
@@ -486,43 +502,46 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
         if with_logp:
             # the NLL's solve: the log-density kernel on the card
             return solve_logp(block["layers"], c, y, logp0, t0, t1, RTOL,
-                              ATOL, steps)
+                              ATOL, steps, **kw)
         # sampling: no divergence channel (the caller discards logp), one
         # whole-solve kernel on the card
         return solve(block["layers"], c, y, t0, t1, RTOL, ATOL,
-                     steps), logp0
+                     steps, **kw), logp0
     if c.shape[1] != y.shape[1]:
         c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
     if not with_logp and layer_type == "concatsquash":
         fn = field_plain_csl(block["layers"], c, nonlinearity)
         yf = odeint_dopri5(fn, y, t0, t1, RTOL, ATOL, max_steps=steps,
-                           differentiable=False)
+                           differentiable=False, group=group)
         return yf, logp0
     fn = field_with_exact_div(block["layers"], c, layer_type, nonlinearity)
     return odeint_dopri5(fn, (y, logp0), t0, t1, RTOL, ATOL, max_steps=steps,
-                         differentiable=False)
+                         differentiable=False, group=group)
 
 
 def flow_block_forward(block, x: torch.Tensor, c: torch.Tensor,
                        differentiable: bool = True,
                        layer_type: str = "concatsquash",
-                       nonlinearity: str = "tanh"):
+                       nonlinearity: str = "tanh", group=None):
     """x -> z with the accumulated delta-logp summed per cloud."""
     z, logp = _integrate(block, x, c, reverse=False,
                          differentiable=differentiable,
-                         layer_type=layer_type, nonlinearity=nonlinearity)
+                         layer_type=layer_type, nonlinearity=nonlinearity,
+                         group=group)
     return z, torch.sum(logp, dim=(1, 2))
 
 
 def flow_block_inverse(block, z: torch.Tensor, c: torch.Tensor,
                        differentiable: bool = False,
                        layer_type: str = "concatsquash",
-                       nonlinearity: str = "tanh") -> torch.Tensor:
+                       nonlinearity: str = "tanh",
+                       group=None) -> torch.Tensor:
     """z -> x; the inverse pass never consumes the log-density channel, so
     it integrates the plain field."""
     x, _ = _integrate(block, z, c, reverse=True,
                       differentiable=differentiable, layer_type=layer_type,
-                      nonlinearity=nonlinearity, with_logp=False)
+                      nonlinearity=nonlinearity, with_logp=False,
+                      group=group)
     return x
 
 
@@ -676,33 +695,34 @@ def init(generator: torch.Generator, device="cuda"):
 
 
 def f_transform(params, x: torch.Tensor, cs, differentiable: bool = True,
-                need_logp: bool = True):
+                need_logp: bool = True, group=None):
     """Points -> (latents, total delta-logp per cloud; zero when
-    ``need_logp`` is off, where the plain field is integrated)."""
+    ``need_logp`` is off, where the plain field is integrated). With a
+    ``group``, ``x`` is this rank's shard (`_integrate`)."""
     log_det = torch.zeros((x.shape[0],), dtype=torch.float32,
                           device=x.device)
     for bp, c in zip(params["flow_blocks"], cs):
         if not need_logp and not differentiable:
             x, _ = _integrate(bp, x, c, reverse=False, differentiable=False,
-                              with_logp=False)
+                              with_logp=False, group=group)
             continue
-        x, ld = flow_block_forward(bp, x, c, differentiable)
+        x, ld = flow_block_forward(bp, x, c, differentiable, group=group)
         log_det = log_det + ld
     return x, log_det
 
 
 def g_transform(params, z: torch.Tensor, cs, upratio: int,
-                differentiable: bool = False) -> torch.Tensor:
+                differentiable: bool = False, group=None) -> torch.Tensor:
     """Latents ``[B, N, C, r]`` -> points ``[B, N * r, C]``, point-major,
     with the un-repeated conditions: each condition row serves its point's
-    r consecutive rows."""
+    r consecutive rows. ``group`` as `f_transform`'s."""
     B, N, C, r = z.shape
     if r != upratio:
         raise ValueError(f"latents carry {r} samples, not {upratio}")
     z = z.transpose(2, 3).reshape(B, N * r, C)
     for i in reversed(range(len(params["flow_blocks"]))):
         z = flow_block_inverse(params["flow_blocks"][i], z, cs[i],
-                               differentiable)
+                               differentiable, group=group)
     return z
 
 
@@ -710,8 +730,14 @@ def _bn_state(state, key: str):
     return None if state is None else state[key]
 
 
+_TRAIN_GROUP = (
+    "data-parallel CNF training is not ported yet: the adjoint kernel's "
+    "error norm across ranks, forward(train=True, group=), the trainer and "
+    "train_cnf under torchrun are ROADMAP.md Queue 1 item 9c-ii")
+
+
 def forward(params, state, xyz: torch.Tensor, upratio: int,
-            train: bool = False):
+            train: bool = False, group=None):
     """``[B, N, 3] -> ([B, N * r, 3], scalar NLL, new state)``; the NLL is
     ``-mean(logp_z - log_det)`` through the exact-trace field.
 
@@ -721,36 +747,51 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
     batch statistics (the new state carries the moved running statistics)
     and differentiable solves by the continuous adjoint, six f solves with
     the log-density and six g solves without.
+
+    ``group`` (a `parallel.Group`, ``train=False`` only): ``xyz`` is this
+    rank's shard, every solve's steps are the global batch's and the NLL
+    is the global batch's mean (the sum through `all_reduce_sum`, over B x
+    W clouds), the same on every rank.
     """
+    if train and is_distributed(group):
+        raise NotImplementedError(_TRAIN_GROUP)
     knn_idx = knn_indices(xyz, xyz, _discrete.NUM_NEIGHBORS)
     cs, feat_s = _discrete.feat_extract(params, state, xyz, knn_idx, train)
-    z, log_det = f_transform(params, xyz, cs, differentiable=train)
+    z, log_det = f_transform(params, xyz, cs, differentiable=train,
+                             group=group)
     logp_z = standard_gaussian_logp(z)
-    logp_x = -torch.mean(logp_z - log_det)
+    if is_distributed(group):
+        total = all_reduce_sum(torch.sum(logp_z - log_det))
+        logp_x = -total / (xyz.shape[0] * group.world_size)
+    else:
+        logp_x = -torch.mean(logp_z - log_det)
     # K=16 sorted -> its first 8 columns ARE the K=8 graph
     fz, interp_s = interpolation_apply(
         params["interp"], _bn_state(state, "interp"), z.contiguous(), xyz,
         upratio, train, knn_idx=knn_idx)
-    x = g_transform(params, fz, cs, upratio, differentiable=train)
+    x = g_transform(params, fz, cs, upratio, differentiable=train,
+                    group=group)
     new_state = None if state is None else {"interp": interp_s,
                                             "feat_convs": feat_s}
     return x, logp_x, new_state
 
 
-def sample(params, state, sparse: torch.Tensor,
-           upratio: int = 4) -> torch.Tensor:
+def sample(params, state, sparse: torch.Tensor, upratio: int = 4,
+           group=None) -> torch.Tensor:
     """Inference entry, the dense cloud only: both integration directions
     run the divergence-free hoisted-condition field (the log-density is
-    never consumed when sampling)."""
+    never consumed when sampling). With a ``group`` (a `parallel.Group`),
+    ``sparse`` is this rank's shard of the patches and every solve's steps
+    are the global batch's, as one process over all of them takes them."""
     xyz = sparse.contiguous()
     knn_idx = knn_indices(xyz, xyz, _discrete.NUM_NEIGHBORS)
     cs, _ = _discrete.feat_extract(params, state, xyz, knn_idx)
     z, _ = f_transform(params, xyz, cs, differentiable=False,
-                       need_logp=False)
+                       need_logp=False, group=group)
     fz, _ = interpolation_apply(
         params["interp"], _bn_state(state, "interp"), z.contiguous(), xyz,
         upratio, knn_idx=knn_idx)
-    return g_transform(params, fz, cs, upratio)
+    return g_transform(params, fz, cs, upratio, group=group)
 
 
 class ContinuousModel(_discrete.DiscreteModel):
@@ -758,9 +799,10 @@ class ContinuousModel(_discrete.DiscreteModel):
     `DiscreteModel`'s layout (parameters ``params....``, buffers
     ``state....``) and call signature ``(patches, upratio)``, so
     `inference.patch.upsample_cloud` takes either. Calling the module runs
-    this module's `sample`."""
+    this module's `sample` (with ``group``, on this rank's shard)."""
 
     @torch.no_grad()
-    def forward(self, sparse: torch.Tensor, upratio: int = 4) -> torch.Tensor:
+    def forward(self, sparse: torch.Tensor, upratio: int = 4,
+                group=None) -> torch.Tensor:
         params, state = self.trees()
-        return sample(params, state, sparse, upratio)
+        return sample(params, state, sparse, upratio, group)

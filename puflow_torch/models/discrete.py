@@ -300,7 +300,11 @@ class DiscreteModel(nn.Module):
         return _module_tree(self.params), _module_tree(self.state)
 
     @torch.no_grad()
-    def forward(self, sparse: torch.Tensor, upratio: int = 4) -> torch.Tensor:
+    def forward(self, sparse: torch.Tensor, upratio: int = 4,
+                group=None) -> torch.Tensor:
+        """`sample` of the patches. ``group`` (a `parallel.Group`, as
+        `ContinuousModel` takes one) changes nothing: every patch is
+        sampled alone, BN on its running statistics."""
         params, state = self.trees()
         return sample(params, state, sparse, upratio)
 

@@ -20,6 +20,16 @@ Integration runs backward when ``t1 < t0``. The controller's scalars are
 solver's; the early-exit loop reads one flag pair from the device per
 step, which is what makes it the plain version: `ops.cnf` runs the same
 solves for the shipped field as kernels with no host read.
+
+Data parallel (the early-exit loop, ``group=`` a `parallel.Group` of more
+than one rank): each rank holds its shard of the batch, and every step
+is decided on the error norm of the global batch, as a sharded jit of
+the JAX solver decides it. Each rank sums its own entries' squared error
+ratios, the ranks' sums are added in rank order (`rank_order_sum`, the
+same bits on every rank) and divided by the global count of entries, so
+every rank takes the same steps, accepts the same ones and stops after
+the same attempt. A rank with no rows adds 0 and still joins every
+exchange. The masked loop and the adjoint take no group.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+from puflow_torch.parallel.mesh import is_distributed, rank_order_sum
 
 # Dormand-Prince coefficients.
 _C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
@@ -61,13 +73,26 @@ def _weighted_sum(ks, w):
     return out
 
 
-def _error_ratio(err, y0, y1, rtol: float, atol: float) -> torch.Tensor:
+def _error_ratio(err, y0, y1, rtol: float, atol: float,
+                 group=None) -> torch.Tensor:
+    """The RMS of ``err / (atol + rtol max(|y0|, |y1|))`` over every entry;
+    with a group of more than one rank, over every rank's entries: this
+    rank's sum and count, exchanged as float64 (exactly) and added in rank
+    order, the sum then rounded to float32 and divided as one process
+    divides it."""
     sums, count = 0.0, 0
     for e, a, b in zip(err, y0, y1):
         tol = atol + rtol * torch.maximum(a.abs(), b.abs())
         r = e / tol
         sums = sums + torch.sum(r * r)
         count += e.numel()
+    if is_distributed(group):
+        local = torch.stack([torch.as_tensor(sums, dtype=torch.float64,
+                                             device=err[0].device),
+                             torch.tensor(float(count), dtype=torch.float64,
+                                          device=err[0].device)])
+        total = rank_order_sum(local, group).to(torch.float32)
+        sums, count = total[0], total[1]
     return torch.sqrt(sums / count + 1e-24)
 
 
@@ -120,7 +145,7 @@ def _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol, max_steps):
 
 def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
                   max_steps: int = 128, differentiable: bool = True,
-                  return_stats: bool = False):
+                  return_stats: bool = False, group=None):
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1.
 
     Args:
@@ -134,11 +159,18 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
       return_stats: also return ``{"steps": attempts, "nfe": 1 + 6 *
         attempts}`` as Python ints, and ``"accepted"`` from the early-exit
         loop.
+      group: a `parallel.Group`; with more than one rank, ``y0`` is this
+        rank's shard and every step is decided on the global batch's error
+        norm (module docstring). The early-exit loop only.
 
     Returns:
       ``y(t1)`` in the structure of ``y0`` (the last state reached if
       ``max_steps`` attempts did not get there).
     """
+    if differentiable and is_distributed(group):
+        raise NotImplementedError(
+            "the masked dopri5 loop takes no group: differentiable "
+            "data-parallel CNF solves are ROADMAP.md Queue 1 item 9c-ii")
     y, spec = tree_flatten(y0)
     dev = y[0].device
 
@@ -166,7 +198,7 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
         # never step past t1
         h_c = torch.where(h.abs() > remaining.abs(), remaining, h)
         y5, err, k7 = _dp_step(field, t, y, h_c, k1)
-        ratio = _error_ratio(err, y, y5, rtol, atol)
+        ratio = _error_ratio(err, y, y5, rtol, atol, group)
         accept = ratio <= 1.0
         factor = torch.clamp(
             _SAFETY * torch.clamp_min(ratio, 1e-10) ** (-1.0 / _ORDER),

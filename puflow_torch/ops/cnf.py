@@ -30,6 +30,18 @@ projections by ``row // r`` instead of repeating them.
 
 Unlike the TPU dispatch there is no cap on rows: the kernel walks over
 tiles of rows and keeps the state in device memory between steps.
+
+Data parallel (``group=`` a `parallel.Group` of more than one rank): each
+rank holds its shard of the batch and every step is decided on the
+global batch's error norm. The plain versions pass the group to
+`odeint_dopri5`; on CUDA tensors both solves run the kernel's per-attempt
+mode (`_attempt_solve`): a launch an attempt, this rank's error sum and
+entry count exchanged exactly between launches (`parallel.gather_batch`)
+and added in rank order by the next launch, so every rank takes the same
+steps. ``per_attempt=True`` runs that mode at any world size (with a
+group of one rank, or no group and no exchange): at world size 1 it is
+the one-launch kernel bit for bit. The exchange is a collective per
+attempt: it does not go through the ``puflow::cnf_solve`` op.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from puflow_torch.models.continuous import (exact_div_field, field_plain_csl,
 from puflow_torch.models.ode import adjoint_backward, odeint_dopri5
 from puflow_torch.ops import _build
 from puflow_torch.ops.encoder import b_fragments
+from puflow_torch.parallel.mesh import gather_batch, is_distributed
 
 IDIM, HDIM = 3, 64                 # the field the kernel is built for
 _PROJ = 4 * HDIM + 2 * IDIM        # projections of one condition row
@@ -83,16 +96,19 @@ def _check(name: str, layers, c: torch.Tensor, y: torch.Tensor) -> int:
 
 def cnf_solve_plain(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
                     rtol: float = 1e-5, atol: float = 1e-5,
-                    max_steps: int = 128, return_stats: bool = False):
+                    max_steps: int = 128, return_stats: bool = False,
+                    group=None):
     """The solve as tensor ops on any device: `odeint_dopri5` on
     `field_plain_csl`, the conditions repeated where they serve r rows.
-    With ``return_stats`` also ``{"steps", "accepted", "nfe"}``."""
+    With ``return_stats`` also ``{"steps", "accepted", "nfe"}``; with a
+    ``group`` of more than one rank, ``y`` is this rank's shard and the
+    steps are the global batch's."""
     r = y.shape[1] // c.shape[1]
     if r != 1:
         c = torch.repeat_interleave(c, r, dim=1)
     return odeint_dopri5(field_plain_csl(layers, c), y, t0, t1, rtol, atol,
                          max_steps, differentiable=False,
-                         return_stats=return_stats)
+                         return_stats=return_stats, group=group)
 
 
 def _pack(layers):
@@ -215,9 +231,73 @@ def _time(t, dev) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(())
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _attempt_solve(name, layers, c, y, logp0, t0, t1, r, rtol, atol,
+                   max_steps, group):
+    """A solve in the per-attempt mode (`csrc/cnf_solve_attempt.cu`) on
+    CUDA tensors (``logp0`` None: the plain field) -> (y(t1), logp(t1) or
+    None, stats int32 [2] on the device). One launch an attempt; after each, the host
+    reads the finished flag and, with a group, the ranks exchange their
+    (error sum, entry count) pairs, which the next launch adds in rank
+    order. Every rank makes the same launches and exchanges, a rank with
+    no rows too. Counts its launches in `attempt_launches` of the
+    solve's wrapper."""
+    dev = y.device
+    _on_card(name, layers, dev, c, y, *(() if logp0 is None else (logp0,)))
+    y = y.contiguous()
+    n_rows = y.shape[0] * y.shape[1]
+    out_y = torch.empty_like(y)
+    out_lp = None if logp0 is None else torch.empty_like(logp0)
+    ch = IDIM if logp0 is None else IDIM + 1
+    weights, proj_w, proj_b = _packed(layers)
+    proj = torch.addmm(proj_b, c.reshape(-1, c.shape[-1]), proj_w)
+    state = torch.empty((max(4 * ch * n_rows, 1),), dtype=torch.float32,
+                        device=dev)
+    partials = torch.empty((_MAX_GRID,), dtype=torch.float64, device=dev)
+    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    ctrl = torch.zeros((17,), dtype=torch.int32, device=dev)
+    local = torch.zeros((2,), dtype=torch.float64, device=dev)
+    exchange, world = local, 1
+    t01 = _t01(t0, t1, dev)
+    counter = cnf_solve if logp0 is None else cnf_solve_logp
+    lib = _build.library()
+    solve_args = (_ptr(y), _ptr(logp0), _ptr(proj), _ptr(weights), _ptr(t01),
+                  n_rows, r, float(rtol), float(atol), int(max_steps),
+                  _ptr(state), _ptr(partials), _MAX_GRID, _ptr(out_y),
+                  _ptr(out_lp), _ptr(stats))
+    with torch.cuda.device(dev):
+        stream = _build.stream_ptr(dev)
+        for attempt in range(max_steps + 1):
+            code = lib.puflow_cnf_solve_attempt(
+                *solve_args, attempt, exchange.data_ptr(), world,
+                ctrl.data_ptr(), local.data_ptr(), stream)
+            _build.check(code, "puflow_cnf_solve_attempt")
+            counter.attempt_launches += 1
+            if int(ctrl[8 * (attempt & 1) + 5]):
+                break
+            if group is not None:
+                exchange = gather_batch(local.view(1, 2), group)
+                world = group.world_size
+        else:
+            raise RuntimeError(f"{name}: the per-attempt solve did not finish "
+                               f"within {max_steps} attempts")
+    return out_y, out_lp, stats
+
+
+def _per_attempt(y: torch.Tensor, group, per_attempt: bool) -> bool:
+    if per_attempt and y.device.type != "cuda":
+        raise ValueError("per_attempt: the per-attempt kernel takes CUDA "
+                         "tensors")
+    return y.device.type == "cuda" and (per_attempt or is_distributed(group))
+
+
 def cnf_solve_t(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
                 rtol: float = 1e-5, atol: float = 1e-5, max_steps: int = 128,
-                return_stats: bool = False):
+                return_stats: bool = False, group=None,
+                per_attempt: bool = False):
     """Integrate the block's plain field from t0 to t1 (floats or 0-dim
     tensors; ``t1 < t0`` runs backward) through the op
     ``puflow::cnf_solve``: the CUDA kernel for CUDA tensors,
@@ -230,6 +310,12 @@ def cnf_solve_t(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
       return_stats: also return the step counts: from the kernel an int32
         tensor ``[attempted, accepted]`` on the device, from the plain
         version its stats dict.
+      group: a `parallel.Group`; with more than one rank ``y`` is this
+        rank's shard and every step is the global batch's: the kernel's
+        per-attempt mode on CUDA tensors, `cnf_solve_plain` with the group
+        on CPU tensors (module docstring), not through the op.
+      per_attempt: run the per-attempt mode (CUDA tensors) at any world
+        size, exchanging through ``group`` if one is given.
 
     Returns:
       ``y(t1)`` ``[B, N, 3]``; the last state reached if ``max_steps``
@@ -237,11 +323,19 @@ def cnf_solve_t(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
     """
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cnf_solve: no kernel for {y.device}")
-    _check("cnf_solve", layers, c, y)
-    leaves, tree = _build.flatten(list(layers))
-    out, stats = torch.ops.puflow.cnf_solve(
-        c, y, _time(t0, y.device), _time(t1, y.device), leaves, tree,
-        float(rtol), float(atol), int(max_steps))
+    r = _check("cnf_solve", layers, c, y)
+    if _per_attempt(y, group, per_attempt):
+        out, _, stats = _attempt_solve("cnf_solve", layers, c, y, None, t0,
+                                       t1, r, rtol, atol, max_steps, group)
+        cnf_solve.launches += 1
+    elif is_distributed(group):
+        return cnf_solve_plain(layers, c, y, t0, t1, rtol, atol, max_steps,
+                               return_stats, group)
+    else:
+        leaves, tree = _build.flatten(list(layers))
+        out, stats = torch.ops.puflow.cnf_solve(
+            c, y, _time(t0, y.device), _time(t1, y.device), leaves, tree,
+            float(rtol), float(atol), int(max_steps))
     if y.device.type == "cuda" and cnf_solve.stats_log is not None:
         cnf_solve.stats_log.append(stats)
     if not return_stats:
@@ -254,18 +348,22 @@ def cnf_solve_t(layers, c: torch.Tensor, y: torch.Tensor, t0, t1,
 
 def cnf_solve(layers, c: torch.Tensor, y: torch.Tensor, T,
               reverse: bool = False, rtol: float = 1e-5, atol: float = 1e-5,
-              max_steps: int = 128, return_stats: bool = False):
+              max_steps: int = 128, return_stats: bool = False, group=None,
+              per_attempt: bool = False):
     """`cnf_solve_t` from 0 to the end time ``T`` (a float or a 0-dim
     tensor), or from ``T`` to 0 with ``reverse``."""
     t0, t1 = (T, 0.0) if reverse else (0.0, T)
     return cnf_solve_t(layers, c, y, t0, t1, rtol, atol, max_steps,
-                       return_stats)
+                       return_stats, group, per_attempt)
 
 
-# Both entry points launch the one kernel and share its count. A caller
-# that wants every launch's step counts sets `stats_log` to a list, which
-# then receives each launch's stats tensor (on the device, not read here).
+# Both entry points launch the one kernel and share its count: one a
+# solve, in either mode; `attempt_launches` counts the per-attempt mode's
+# launches (one an attempt and one to finish). A caller that wants every
+# solve's step counts sets `stats_log` to a list, which then receives each
+# solve's stats tensor (on the device, not read here).
 cnf_solve.launches = 0
+cnf_solve.attempt_launches = 0
 cnf_solve.stats_log = None
 
 
@@ -282,13 +380,15 @@ def _repeat(c: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def cnf_solve_logp_plain(layers, c: torch.Tensor, y: torch.Tensor,
                          logp0: torch.Tensor, t0, t1, rtol: float = 1e-5,
                          atol: float = 1e-5, max_steps: int = 128,
-                         return_stats: bool = False):
+                         return_stats: bool = False, group=None):
     """The log-density solve as tensor ops on any device: `odeint_dopri5`
     on `field_with_exact_div`, state ``(y, logp)``, one error norm over
-    both. With ``return_stats`` also ``{"steps", "accepted", "nfe"}``."""
+    both. With ``return_stats`` also ``{"steps", "accepted", "nfe"}``;
+    ``group`` as `cnf_solve_plain`'s."""
     return odeint_dopri5(field_with_exact_div(layers, _repeat(c, y)),
                          (y, logp0), t0, t1, rtol, atol, max_steps,
-                         differentiable=False, return_stats=return_stats)
+                         differentiable=False, return_stats=return_stats,
+                         group=group)
 
 
 def _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol, atol, max_steps):
@@ -325,7 +425,8 @@ def _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol, atol, max_steps):
 def cnf_solve_logp(layers, c: torch.Tensor, y: torch.Tensor,
                    logp0: torch.Tensor, t0, t1, rtol: float = 1e-5,
                    atol: float = 1e-5, max_steps: int = 128,
-                   return_stats: bool = False):
+                   return_stats: bool = False, group=None,
+                   per_attempt: bool = False):
     """Integrate the block's field with its exact-trace log-density
     channel, ``d(y, logp)/dt = (f, -div f)``, from t0 to t1: the CUDA
     kernel for CUDA tensors, `cnf_solve_logp_plain` for CPU tensors.
@@ -335,6 +436,7 @@ def cnf_solve_logp(layers, c: torch.Tensor, y: torch.Tensor,
       c: conditions ``[B, N / r, cdim]``, r >= 1.
       y, logp0: state ``[B, N, 3]`` and ``[B, N, 1]``.
       return_stats: also return the step counts, as `cnf_solve_t` does.
+      group, per_attempt: as `cnf_solve_t`'s.
 
     Returns:
       ``(y(t1), logp(t1))``.
@@ -345,15 +447,25 @@ def cnf_solve_logp(layers, c: torch.Tensor, y: torch.Tensor,
     if logp0.shape != y.shape[:-1] + (1,):
         raise ValueError(f"cnf_solve_logp: logp0 {tuple(logp0.shape)} is not "
                          f"[B, N, 1] of y {tuple(y.shape)}")
-    if y.device.type == "cpu":
+    if _per_attempt(y, group, per_attempt):
+        out_y, out_lp, stats = _attempt_solve(
+            "cnf_solve_logp", layers, c, y, logp0.contiguous(), t0, t1, r,
+            rtol, atol, max_steps, group)
+        cnf_solve_logp.launches += 1
+        if cnf_solve_logp.stats_log is not None:
+            cnf_solve_logp.stats_log.append(stats)
+    elif y.device.type == "cpu":
         return cnf_solve_logp_plain(layers, c, y, logp0, t0, t1, rtol, atol,
-                                    max_steps, return_stats)
-    out_y, out_lp, stats = _logp_kernel(layers, c, y, logp0, t0, t1, r, rtol,
-                                        atol, max_steps)
+                                    max_steps, return_stats, group)
+    else:
+        out_y, out_lp, stats = _logp_kernel(layers, c, y, logp0, t0, t1, r,
+                                            rtol, atol, max_steps)
     return ((out_y, out_lp), stats) if return_stats else (out_y, out_lp)
 
 
+# One a solve in either mode; `attempt_launches` as `cnf_solve`'s.
 cnf_solve_logp.launches = 0
+cnf_solve_logp.attempt_launches = 0
 cnf_solve_logp.stats_log = None
 
 

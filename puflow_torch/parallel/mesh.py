@@ -173,3 +173,16 @@ def gather_batch(x: torch.Tensor, group: Group) -> torch.Tensor:
     full[group.rank * b:(group.rank + 1) * b] = x
     dist.all_reduce(full)
     return full
+
+
+def rank_order_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum over the ranks of ``x``, added in rank order: the same bits
+    on every rank. `gather_batch` hands every rank every rank's ``x``
+    exactly, and each rank then adds them alike; a plain ``all_reduce``
+    does not promise one order of its additions on every rank, and a
+    dopri5 decision taken from such a sum could differ between ranks."""
+    parts = gather_batch(x.reshape(1, *x.shape), group)
+    total = parts[0]
+    for w in range(1, group.world_size):
+        total = total + parts[w]
+    return total

@@ -34,8 +34,9 @@ clip and Adam then run on identical inputs on every rank, so the
 parameters stay bit-equal; rank 0's parameters, BN state and Adam state
 are broadcast at construction and after a restore, and only rank 0
 writes files and logs. The continuous family is refused over more than
-one rank: its dopri5 step size is taken over the whole batch (ROADMAP.md,
-Queue 1 item 9c).
+one rank: the adjoint kernel does not yet take its error norm across
+ranks (ROADMAP.md, Queue 1 item 9c-ii; CNF serving and the validation NLL
+take a group since item 9c-i).
 """
 
 from __future__ import annotations
@@ -282,9 +283,10 @@ class Trainer:
         if is_distributed(group) and forward_fn is not discrete.forward:
             raise NotImplementedError(
                 "data-parallel training takes the discrete family only: "
-                "the continuous family's dopri5 step size is taken over "
-                "the whole batch, which a rank's shard does not see "
-                "(ROADMAP.md, Queue 1 item 9c: CNF data parallelism)")
+                "the CNF family's training half of data parallelism (the "
+                "adjoint kernel's error norm across ranks, the trainer and "
+                "train_cnf under torchrun) is ROADMAP.md Queue 1 item 9c-ii; "
+                "its serving and validation NLL take a group")
         if group is not None:
             if device is not None and resolve_device(device) != group.device:
                 raise ValueError(f"device {device} is not the group's "

@@ -4,7 +4,7 @@
 
 Each variant is a copy of `puflow_torch/` and `chip_smoke.py` under
 `runs/cnf_solve_variants/` (gitignored) with one change to
-`csrc/cnf_solve.cu` or `csrc/cnf_field.cuh`; all are built side by side,
+`csrc/cnf_solve.cuh` or `csrc/cnf_field.cuh`; all are built side by side,
 then each runs in its own process on `chip_smoke.py:training_solve_inputs`'
 perturbed block 3 (condition width 128): the plain solve f, R = 8,192, 0 ->
 T; the plain solve g, R = 32,768, each condition row serving 4 rows, T ->
@@ -15,11 +15,12 @@ whether they equal the plain version's, whether two runs are bit-equal,
 the largest difference from the plain version (the plain version runs
 once, first, in a process of this checkout), and the ms of a call (CUDA
 events, three windows of 5 calls after a warm-up) with the ms an
-attempted step; and whether the adjoint kernel's outputs at
-`scripts/adjoint_variants.py`'s two training shapes are bit-equal to the
-first copy's (with `--parent`, the parent's). `diag_` variants drop work
-and fail the gates on purpose. `--parent DIR` runs the `puflow_torch/` of
-another checkout first (for example `git archive` of the parent commit).
+attempted step; and whether the three solves' outputs and the adjoint
+kernel's outputs at `scripts/adjoint_variants.py`'s two training shapes
+are bit-equal to the first copy's (with `--parent`, the parent's).
+`diag_` variants drop work and fail the gates on purpose. `--parent DIR`
+runs the `puflow_torch/` of another checkout first and last, the variants
+twice between (for example `git archive` of the parent commit).
 Names pick variants; none runs them all. Needs a CUDA card and nvcc.
 """
 
@@ -37,12 +38,13 @@ from flow_f_variants import (prepare, ptxas, registers,  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "runs" / "cnf_solve_variants"
-SOLVE = "puflow_torch/csrc/cnf_solve.cu"
+SOLVE = "puflow_torch/csrc/cnf_solve.cuh"     # the kernel and its launch
+ONE_LAUNCH = "puflow_torch/csrc/cnf_solve.cu"  # its one-launch instantiations
 FIELD = "puflow_torch/csrc/cnf_field.cuh"
 
 WARPS = "constexpr int kWarps = 8;"
 # the gate table where condition rows serve several rows (r > 1)
-GATES = "  if (args.rep > 1)\n    return launch_gates<kTrace, true>"
+GATES = "  if (args.rep > 1)\n    return launch_gates<kTrace, true, kSplit>"
 TABLE_LOOP = """#pragma unroll
   for (int i = 0; i < kConds * 2 * kH / 32; ++i) {
     const int e = lane + 32 * i;
@@ -211,7 +213,7 @@ def measure(label: str) -> None:
     from puflow_torch.ops import cnf
 
     ref = torch.load(OUT / "reference.pt")
-    parts = []
+    parts, solves = [], []
     for name, kernel, _ in cases():
         outs, ref_steps = ref[name]
         got, stats = kernel(cnf, return_stats=True)
@@ -219,6 +221,7 @@ def measure(label: str) -> None:
         torch.cuda.synchronize()
         steps = stats.tolist()
         got, again = flat(got), flat(again)
+        solves.append([t.cpu() for t in got])
         same = all(torch.equal(u, v) for u, v in zip(got, again))
         err = max(float((u.cpu() - r).abs().max()) for u, r in zip(got, outs))
         ms = [cs.time_ms(lambda: kernel(cnf), 5) for _ in range(3)]
@@ -232,17 +235,30 @@ def measure(label: str) -> None:
         adj.append([t.cpu() for _, t in cs.adjoint_leaves(
             cnf.cnf_adjoint_bwd(*args, **kw))])
     torch.save(adj, "adjoint_out.pt")
+    torch.save(solves, "solve_out.pt")
     print(f"{label}: " + "; ".join(parts), flush=True)
 
 
-def same_adjoint(d: Path, first: Path) -> str:
+def same_outputs(d: Path, first: Path) -> str:
     import torch
 
-    a = torch.load(d / "adjoint_out.pt")
-    b = torch.load(first / "adjoint_out.pt")
-    equal = all(torch.equal(u, v) for x, y in zip(a, b)
-                for u, v in zip(x, y))
-    return f"adjoint bit-equal to {first.name}: {equal}"
+    def equal(name):
+        a, b = torch.load(d / name), torch.load(first / name)
+        return all(torch.equal(u, v) for x, y in zip(a, b)
+                   for u, v in zip(x, y))
+
+    return (f"solves bit-equal to {first.name}: {equal('solve_out.pt')}, "
+            f"adjoint: {equal('adjoint_out.pt')}")
+
+
+def one_launch_registers(out: str, trace: int) -> str:
+    """`registers` of the one-launch `solve_kernel` with 16-row tiles and
+    no gate table (not the per-attempt instantiation, whose mangled name
+    adds a last template argument true)."""
+    base = f"solve_kernelILb{trace}ELi2ELb0E"
+    lines = [ln for ln in out.splitlines()
+             if "Compiling entry function" not in ln or base + "Lb1E" not in ln]
+    return registers("\n".join(lines), base)
 
 
 def main() -> int:
@@ -272,7 +288,7 @@ def main() -> int:
     builds = {name: run_in(d, ["-c", "from puflow_torch.ops import _build; "
                                      "_build.build()"])
               for name, d in dirs.items()}
-    regs = {name: ptxas(d, SOLVE) for name, d in dirs.items()}
+    regs = {name: ptxas(d, ONE_LAUNCH) for name, d in dirs.items()}
     ref = run_in(ROOT, [str(Path(__file__).resolve()), "--reference"])
     for name, proc in builds.items():
         out, _ = proc.communicate()
@@ -281,8 +297,8 @@ def main() -> int:
     reports = {}
     for name, proc in regs.items():
         out = proc.communicate()[0]
-        reports[name] = (f"f32 field {registers(out, 'solve_kernelILb0')}, "
-                         f"trace {registers(out, 'solve_kernelILb1')}")
+        reports[name] = (f"f32 field {one_launch_registers(out, 0)}, "
+                         f"trace {one_launch_registers(out, 1)}")
     out, _ = ref.communicate()
     if ref.returncode:
         raise SystemExit(f"reference failed\n{out[-3000:]}")
@@ -291,13 +307,18 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     first = next(iter(dirs.values()))
-    for name, d in dirs.items():
+    # with a parent, in turns: parent, the variants, the variants, parent
+    order = list(dirs)
+    if args.parent:
+        order = order + order[1:] + order[:1]
+    for name in order:
+        d = dirs[name]
         proc = run_in(d, [str(Path(__file__).resolve()), "--measure", name])
         out, _ = proc.communicate()
         lines = [ln for ln in out.splitlines() if ln.startswith(name + ":")]
         if lines and not proc.returncode:
             print(f"{lines[-1]} | {reports[name]} | "
-                  f"{same_adjoint(d, first)}", flush=True)
+                  f"{same_outputs(d, first)}", flush=True)
             clocks = {}
             for ln in out.splitlines():
                 if ln.startswith("clock "):

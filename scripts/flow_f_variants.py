@@ -113,12 +113,14 @@ VARIANTS = {
 
 
 def prepare(name: str, src: Path, edits, out: Path = OUT) -> Path:
-    """A copy of ``src``'s package and chip_smoke.py with ``edits``, in
-    ``out``."""
+    """A copy of ``src``'s package, chip_smoke.py and the test helpers it
+    imports (``tests/``) with ``edits``, in ``out``."""
     d = out / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(src / "puflow_torch", d / "puflow_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copytree(src / "tests", d / "tests",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(src / "chip_smoke.py", d)
     for rel, edit in edits:
         path = d / rel

@@ -1269,6 +1269,123 @@ def test_nccl_world_size_one_trainer_is_the_plain_trainer(card, tmp_path):
     assert all(p and s for p, s, _ in rows), rows
 
 
+def _attempt_cases(card):
+    """Cases of both entries for the per-attempt mode, (name, numpy
+    layers, c, y[, logp0], t0, t1): seeded nets (every step clipped) and
+    time rows of scale 20 (steps from the error estimate, some rejected),
+    both directions, a partial last tile, r = 4 at 9,216 rows (16-row
+    tiles) and 8,192 rows of the log-density solve."""
+    def case(name, b, n, r, cdim, seed, scale, reverse):
+        layers = tree_map(lambda t: t.cpu().numpy(),
+                          _cnf_layers(card, cdim, seed, scale))
+        rng = np.random.RandomState(seed)
+        c = (rng.randn(b, n // r, cdim) * 0.3).astype(np.float32)
+        y = (rng.randn(b, n, 3) * 0.5).astype(np.float32)
+        ends = (0.36, 0.0) if reverse else (0.0, 0.36)
+        if name == "cnf_solve":
+            return (name, layers, c, y) + ends
+        logp0 = (rng.randn(b, n, 1) * 0.1).astype(np.float32)
+        return (name, layers, c, y, logp0) + ends
+
+    return [case("cnf_solve", 2, 100, 1, 32, 1, 20.0, False),
+            case("cnf_solve", 3, 333, 1, 64, 2, 0.0, True),
+            case("cnf_solve", 9, 1024, 4, 128, 3, 20.0, True),
+            case("cnf_solve_logp", 5, 231, 3, 128, 4, 20.0, False),
+            case("cnf_solve_logp", 32, 256, 1, 128, 5, 20.0, True),
+            case("cnf_solve_logp", 2, 100, 1, 32, 6, 0.0, False)]
+
+
+def test_cnf_attempt_mode_is_the_one_launch_kernel(card, tmp_path):
+    """One NCCL rank (a ``file://`` rendezvous): both entries' per-attempt
+    mode (``per_attempt=True``, the exchange through NCCL) gives the
+    one-launch kernel's outputs and [attempted, accepted] bit for bit, two
+    runs alike, in one launch an attempt plus the one that finishes."""
+    from torch_parallel_cases import run_ranks
+    from torch_parallel_cnf_cases import attempt_solves_rank
+
+    cases = _attempt_cases(card)
+    (results,) = run_ranks(attempt_solves_rank, 1, cases, backend="nccl",
+                           devices=["cuda:0"], tmp=tmp_path)
+    for case, res in zip(cases, results):
+        assert res["steps"] == res["one_steps"], case[0]
+        assert res["attempt_launches"] == res["steps"][0] + 1
+        np.testing.assert_array_equal(res["attempt"], res["one"])
+        np.testing.assert_array_equal(res["again"], res["one"])
+    assert max(res["steps"][0] for res in results) > 3
+
+
+def test_cnf_attempt_mode_without_a_group(card):
+    """``per_attempt=True`` with no group (no exchange) in this process:
+    bit-equal to the one-launch kernel, the wrapper's counts (one solve,
+    attempts + 1 per-attempt launches), a zero span (no attempt, y0 back)
+    and a step budget of 2."""
+    for name, layers, *arrays in _attempt_cases(card)[::2]:
+        layers = tree_map(lambda a: torch.from_numpy(a).to(card), layers)
+        args = [torch.from_numpy(a).to(card) if isinstance(a, np.ndarray)
+                else a for a in arrays]
+        fn = cnf.cnf_solve_logp if name == "cnf_solve_logp" else \
+            cnf.cnf_solve_t
+        wrapper = getattr(cnf, name)
+        for kw in ({}, {"max_steps": 2}):
+            solves, launches = wrapper.launches, wrapper.attempt_launches
+            got, stats = fn(layers, *args, return_stats=True,
+                            per_attempt=True, **kw)
+            assert wrapper.launches == solves + 1
+            assert wrapper.attempt_launches - launches == int(stats[0]) + 1
+            one, one_stats = fn(layers, *args, return_stats=True, **kw)
+            assert stats.tolist() == one_stats.tolist()
+            for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                              for o in (got, one))):
+                assert torch.equal(a, b)
+        zero = args[:-2] + [args[-2], args[-2]]
+        got, stats = fn(layers, *zero, return_stats=True, per_attempt=True)
+        assert stats.tolist() == [0, 0]
+        got = got[0] if isinstance(got, tuple) else got
+        assert torch.equal(got, args[1])
+
+
+def test_cnf_attempt_mode_raises_and_never_falls_back(card, monkeypatch):
+    """A CUDA tensor in the per-attempt mode launches the kernel or
+    raises: a launch the kernel refuses (no block partials, ``_MAX_GRID``
+    0) and a failing build both raise, and no solve is counted."""
+    name, layers, c, y, t0, t1 = _attempt_cases(card)[0]
+    layers = tree_map(lambda a: torch.from_numpy(a).to(card), layers)
+    c, y = torch.from_numpy(c).to(card), torch.from_numpy(y).to(card)
+    before = cnf.cnf_solve.launches
+    with monkeypatch.context() as m:
+        m.setattr(cnf, "_MAX_GRID", 0)
+        with pytest.raises(RuntimeError, match="puflow_cnf_solve_attempt"):
+            cnf.cnf_solve_t(layers, c, y, t0, t1, per_attempt=True)
+
+    def failing_build():
+        raise RuntimeError("nvcc failed")
+
+    with monkeypatch.context() as m:
+        m.setattr(cnf._build, "library", failing_build)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            cnf.cnf_solve_t(layers, c, y, t0, t1, per_attempt=True)
+    assert cnf.cnf_solve.launches == before
+
+
+def test_cnf_attempt_mode_with_a_rank_of_no_rows(card, tmp_path):
+    """Two `gloo` ranks on the one card, rank 0 holding every row and rank
+    1 none: rank 1 launches one block an attempt that adds 0, and both
+    ranks take the one-launch kernel's steps; rank 0's outputs are the
+    one-launch kernel's bit for bit (the sum 0 + p0 and count c0 + 0 are
+    its own)."""
+    from torch_parallel_cases import run_ranks
+    from torch_parallel_cnf_cases import uneven_attempt_rank
+
+    cases = _attempt_cases(card)[2:4]
+    ranks = run_ranks(uneven_attempt_rank, 2, cases, devices=["cuda:0"] * 2,
+                      tmp=tmp_path)
+    for i in range(len(cases)):
+        first, other = ranks[0][i], ranks[1][i]
+        assert first["steps"] == first["one_steps"] == other["steps"]
+        np.testing.assert_array_equal(first["out"], first["one"])
+        assert other["out"].shape[0] == 0
+
+
 def test_gloo_sharded_upsample_on_the_card(card, tmp_path):
     """Two `gloo` ranks on the one card: `upsample_cloud_sharded` of the
     folded model launches the folded path's six kernels on each rank (FPS

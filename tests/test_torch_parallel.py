@@ -16,9 +16,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from puflow_torch import checkpoint as t_checkpoint
 from puflow_torch import parallel
-from puflow_torch.inference.patch import (upsample_cloud as t_upsample_cloud,
-                                          upsample_cloud_sharded as
-                                          t_upsample_cloud_sharded)
+from puflow_torch.inference.patch import upsample_cloud as t_upsample_cloud
 from puflow_torch.models import continuous as t_continuous
 from puflow_torch.models import discrete as t_discrete
 from puflow_torch.models.nn import bn_apply
@@ -203,17 +201,19 @@ def test_upsample_cloud_sharded_matches_jax_and_one_process(tmp_path):
 
 
 def test_the_continuous_family_is_refused():
-    """Neither the data-parallel trainer nor the sharded upsampler takes
-    the CNF family: its dopri5 step size is the whole batch's."""
+    """Neither the data-parallel trainer nor `continuous.forward(train=True,
+    group=)` takes the CNF family over more than one rank: training's half
+    of CNF data parallelism (the adjoint kernel's error norm across ranks)
+    is item 9c-ii. Its serving and validation NLL take a group
+    (tests/test_torch_parallel_cnf.py)."""
     params, state = t_continuous.init(torch.Generator().manual_seed(0),
                                       device="cpu")
     with pytest.raises(NotImplementedError, match="9c"):
         Trainer(TrainConfig(), params, state,
                 forward_fn=t_continuous.forward, group=CPU_GROUP)
-    model = t_continuous.ContinuousModel(params, state)
-    with pytest.raises(NotImplementedError, match="9c"):
-        t_upsample_cloud_sharded(model, torch.zeros((2, 64, 3)), 256,
-                                 group=CPU_GROUP)
+    with pytest.raises(NotImplementedError, match="9c-ii"):
+        t_continuous.forward(params, state, torch.zeros((2, 16, 3)), 4,
+                             train=True, group=CPU_GROUP)
 
 
 def test_shard_batch_lays_rows_out_as_a_batch_sharding():
