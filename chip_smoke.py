@@ -39,7 +39,12 @@ clouds sharded over them (each rank launches the folded path's kernels),
 then serves the CNF family so, with its validation NLL: every block-solve
 runs the whole-solve kernels' per-attempt mode, one launch an attempt,
 with the ranks' error sums exchanged between launches so that both ranks
-take the one-process run's steps. Last it runs the library surface that has no kernel of its own: the spline
+take the one-process run's steps; and trains the CNF model data parallel
+the same way: every forward solve and every backward solve of the
+continuous adjoint in its kernel's per-attempt mode, the adjoint's ranks
+exchanging every entry of the layers' gradient sums each attempt, two
+ranks' gradients bit-equal and each solve's steps the one-process run's,
+and `train_cnf` under torchrun. Last it runs the library surface that has no kernel of its own: the spline
 couplings, the folding net and its point-order helper, `profile_trace`
 around the folded path, `hausdorff_distance`.
 Phases:
@@ -191,7 +196,25 @@ Phases:
      solve with and without the exchange beside the one-launch kernel,
      with each mode's device time; with more cards the two-rank checks
      under NCCL across up to 4;
- 25. runs the library surface (`phase_library`, no kernel of its own): the
+ 25. trains the CNF family data parallel (`phase_cnf_train_data_parallel`):
+     one NCCL rank at world size 1 (in this process) holds the adjoint's
+     per-attempt mode bit-equal to the one-launch kernel (y0, a0, dc, G,
+     the boundary fields, the stats; two runs) at the f (R = 8,192,
+     trace) and g (R = 32,768, r = 4) shapes, seeded and perturbed, with
+     one launch an attempt plus one, the one-launch kernel within 2e-3 of
+     the plain version there (or no farther than it from the plain
+     version in float64), and times a solve with and without the exchange
+     beside the one-launch kernel, with each mode's device time; two
+     `gloo` ranks on the card take the CNF loss's gradient at the seeded
+     model and batch 32 (ranks bit-equal, each of the 24 solves' steps the
+     one-process run's, the summed gradient within `phase_cnf_grad`'s
+     gates of one process's at one auction assignment) and 3 trainer
+     steps (parameters bit-equal across ranks, 6 + 6 + 12 solves and one
+     EMD a step a rank, each rank's split with its exchanges' ms); then
+     `torchrun --nproc_per_node 2 -m puflow_torch.cli.train_cnf` for one
+     epoch of 2 synthetic steps, rank 0 writing the checkpoint; with more
+     cards the two-rank checks under NCCL across up to 4;
+ 26. runs the library surface (`phase_library`, no kernel of its own): the
      three spline couplings at the discrete flow's widths (3 channels split
      1 and 2, hidden 64, conditions of 128, 64 bins, tail bound 5) on 32
      patches of 256 points and the inverse on 1,024 (x4), forward then
@@ -202,7 +225,7 @@ Phases:
      `profile_trace` around one folded `upsample_cloud` of 8 clouds (the
      trace holds the port's kernels); `hausdorff_distance` on the card
      against the CPU (2e-6);
- 26. prints its total seconds, one JSON line of kernel results and, last,
+ 27. prints its total seconds, one JSON line of kernel results and, last,
      the device line.
 
 Any failed check raises, and the script exits non-zero. It needs CUDA and
@@ -229,7 +252,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from puflow_torch import checkpoint, serving
+from puflow_torch import checkpoint, parallel, serving
 from puflow_torch.cli import evaluate
 from puflow_torch.convert import torch_ckpt
 from puflow_torch.data import tfrecord
@@ -268,10 +291,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_ckpt_cases import save_reference_checkpoint  # noqa: E402
 from torch_op_cases import DIRECT as OP_DIRECT  # noqa: E402
 from torch_parallel_cases import (card_train_rank, gradients,  # noqa: E402
-                                  nccl_one_rank, run_ranks,
+                                  nccl_one_rank, recording_emd, run_ranks,
                                   seeded_first_step, upsample_one_process)
-from torch_parallel_cnf_cases import (attempt_solves_rank,  # noqa: E402
-                                      card_cnf_rank, cnf_eval_one_process,
+from torch_parallel_cnf_cases import (adjoint_outputs,  # noqa: E402
+                                      attempt_adjoint_rank,
+                                      attempt_solves_rank, card_cnf_rank,
+                                      card_cnf_train_rank, cnf_eval_one_process,
+                                      cnf_grad, cnf_trainer,
                                       cnf_upsample_one_process)
 from torch_spline_cases import (KINDS as SPLINE_KINDS,  # noqa: E402
                                 check_direction, coupling_case, lanes)
@@ -344,6 +370,12 @@ KERNELS = {
     "cnf_solve_logp_attempt": {
         "route": "cuda", "source": "puflow_torch/csrc/cnf_solve_attempt.cu",
         "replaces": PALLAS + "cnf_pallas.py:281"},
+    # the adjoint's per-attempt mode (`puflow_cnf_adjoint_attempt`, the
+    # kernel in `csrc/cnf_adjoint.cuh`; data-parallel training): a launch
+    # an attempt, the ranks' sums of every G entry exchanged between
+    "cnf_adjoint_bwd_attempt": {
+        "route": "cuda", "source": "puflow_torch/csrc/cnf_adjoint_attempt.cu",
+        "replaces": PALLAS + "cnf_adjoint_pallas.py:378"},
 }
 WRAPPERS = {"fps": farthest_point_sample, "knn_self": knn_self,
             "knn_self_stream": knn_self_stream,
@@ -2247,6 +2279,63 @@ def adjoint_leaves(out) -> list:
         for k, v in p.items() for kk, t in v.items()]
 
 
+def adjoint_case(inputs, rng, blocks, block, path):
+    """(args, keywords) of one backward solve of the f path (with the
+    trace, R = 8,192) or the g path (R = 32,768, r = 4) of block
+    ``block`` of ``blocks`` on `training_solve_inputs`' ``inputs`` (x, cs,
+    latents), the cotangents drawn from ``rng``."""
+    x, cs, latents = inputs
+
+    def rand(shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32)).cuda()
+
+    bp = blocks[block]
+    T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
+    zero = torch.zeros_like(T)
+    y1 = x if path == "f" else latents
+    a1 = rand(y1.shape, 0.3)
+    if path == "f":          # forward 0 -> T, so backward T -> 0
+        ap = rand(y1.shape[:2] + (1,), 0.3)
+        kw = dict(with_trace=True, logp1=rand(y1.shape[:2] + (1,), 0.1))
+        t0, t1 = zero, T
+    else:                    # forward T -> 0, backward 0 -> T
+        ap = torch.zeros(y1.shape[:2] + (1,), device=y1.device)
+        kw = dict(with_trace=False)
+        t0, t1 = T, zero
+    return (bp["layers"], cs[block], y1, a1, ap, t0, t1), kw
+
+
+def adjoint_bound(entry, args, kw, out, attempted: int) -> None:
+    """The bound of one backward solve (``out`` its outputs) that
+    attempted ``attempted`` steps: the inputs and outputs once; 1 + 6
+    augmented-field evaluations a step attempted on every row (the field,
+    with the trace its tangent chains, and the vjp), the two products of
+    the projections' cotangents once a step (Wc Q per row of y, c^T Q per
+    condition row, Q summed over its repeats; for Q5 and QE), one more
+    field evaluation at t0, and the projections. The 64 x 64 layer's
+    products and the condition products count at 3xTF32 on the tensor
+    cores, the rest at the FP32 peak (`set_bound_3xtf32`)."""
+    trace = kw["with_trace"]
+    y1, cdim = args[2], args[1].shape[-1]
+    rows = y1.shape[0] * y1.shape[1]
+    cond_rows = args[1].shape[0] * args[1].shape[1]
+    per_eval = FIELD_MACS + VJP_MACS + (
+        TANGENT_MACS + VJP_TRACE_MACS if trace else 0)
+    tc_eval = ADJ_TC_MACS + (ADJ_TC_TRACE_MACS if trace else 0)
+    tc_t0 = 64 * 64 * (4 if trace else 1)
+    tc_macs = (rows * ((1 + 6 * attempted) * tc_eval + tc_t0)
+               + attempted * 2 * 262 * cdim * (rows + cond_rows))
+    macs = (rows * ((1 + 6 * attempted) * per_eval
+                    + FIELD_MACS + (TANGENT_MACS if trace else 0))
+            + attempted * 2 * 262 * cdim * (rows + cond_rows)
+            + cond_rows * cdim * 262)
+    n_bytes = (2 * nbytes(y1, args[3]) + nbytes(args[1], out[2])
+               + 2 * tree_bytes(args[0]) + rows * 8 * 4
+               + (2 * nbytes(args[4]) if trace else 0))
+    set_bound_3xtf32(entry, n_bytes, 2 * tc_macs, 2 * (macs - tc_macs))
+
+
 def compare_cnf_adjoint(model, results):
     """The adjoint kernel against `cnf_adjoint_bwd_plain` at the training
     path's shapes: with the trace for f (R = 8,192), without for g
@@ -2258,26 +2347,8 @@ def compare_cnf_adjoint(model, results):
     x, cs, latents, weights = training_solve_inputs(model)
     rng = np.random.RandomState(SEED + 8)
 
-    def rand(shape, scale):
-        return torch.from_numpy((rng.randn(*shape) * scale)
-                                .astype(np.float32)).cuda()
-
     def case(blocks, block, path):
-        """(args, keywords) of one backward solve of the path."""
-        bp = blocks[block]
-        T = bp["sqrt_end_time"] * bp["sqrt_end_time"]
-        zero = torch.zeros_like(T)
-        y1 = x if path == "f" else latents
-        a1 = rand(y1.shape, 0.3)
-        if path == "f":          # forward 0 -> T, so backward T -> 0
-            ap = rand(y1.shape[:2] + (1,), 0.3)
-            kw = dict(with_trace=True, logp1=rand(y1.shape[:2] + (1,), 0.1))
-            t0, t1 = zero, T
-        else:                    # forward T -> 0, backward 0 -> T
-            ap = torch.zeros(y1.shape[:2] + (1,), device=y1.device)
-            kw = dict(with_trace=False)
-            t0, t1 = T, zero
-        return (bp["layers"], cs[block], y1, a1, ap, t0, t1), kw
+        return adjoint_case((x, cs, latents), rng, blocks, block, path)
 
     for label, blocks in weights:
         for path in ("f", "g"):
@@ -2326,38 +2397,15 @@ def compare_cnf_adjoint(model, results):
                                          "fields differ from the plain "
                                          "version's")
 
-    # times and the bound at cdim 128, perturbed: the inputs and outputs
-    # once; 1 + 6 augmented-field evaluations a step attempted on every row
-    # (the field, with the trace its tangent chains, and the vjp), the two
-    # products of the projections' cotangents once a step (Wc Q per row of
-    # y, c^T Q per condition row, Q summed over its repeats; for Q5 and
-    # QE), one more field evaluation at t0, and the projections. The
-    # 64 x 64 layer's products and the condition products count at 3xTF32
-    # on the tensor cores, the rest at the FP32 peak (`set_bound_3xtf32`).
-    # The kernel line keeps the f path, with the trace.
+    # times and the bound (`adjoint_bound`) at cdim 128, perturbed; the
+    # kernel line keeps the f path, with the trace
     for path in ("g", "f"):
         args, kw = case(weights[1][1], 3, path)
         trace = kw["with_trace"]
         out = cnf_ops.cnf_adjoint_bwd(*args, **kw, return_stats=True)
         attempted = out[-1].tolist()[0]
-        y1, cdim = args[2], args[1].shape[-1]
-        rows = y1.shape[0] * y1.shape[1]
-        cond_rows = args[1].shape[0] * args[1].shape[1]
-        per_eval = FIELD_MACS + VJP_MACS + (
-            TANGENT_MACS + VJP_TRACE_MACS if trace else 0)
-        tc_eval = ADJ_TC_MACS + (ADJ_TC_TRACE_MACS if trace else 0)
-        tc_t0 = 64 * 64 * (4 if trace else 1)
-        tc_macs = (rows * ((1 + 6 * attempted) * tc_eval + tc_t0)
-                   + attempted * 2 * 262 * cdim * (rows + cond_rows))
-        macs = (rows * ((1 + 6 * attempted) * per_eval
-                        + FIELD_MACS + (TANGENT_MACS if trace else 0))
-                + attempted * 2 * 262 * cdim * (rows + cond_rows)
-                + cond_rows * cdim * 262)
-        n_bytes = (2 * nbytes(y1, args[3]) + nbytes(args[1], out[2])
-                   + 2 * tree_bytes(args[0]) + rows * 8 * 4
-                   + (2 * nbytes(args[4]) if trace else 0))
-        set_bound_3xtf32(results["cnf_adjoint_bwd"], n_bytes, 2 * tc_macs,
-                         2 * (macs - tc_macs))
+        rows, cdim = args[2].shape[0] * args[2].shape[1], args[1].shape[-1]
+        adjoint_bound(results["cnf_adjoint_bwd"], args, kw, out, attempted)
         log(f"cnf_adjoint_bwd {path} path (trace {trace}), R = {rows}, cdim "
             f"{cdim}: {attempted} steps attempted, {1 + 6 * attempted} "
             f"augmented evaluations a row")
@@ -3754,9 +3802,8 @@ def phase_cnf_data_parallel(results, model, card):
         results[f"{name}_attempt"]["launches"] = counts["perturbed"][name]
     t0 = time.perf_counter()
     cases = attempt_cases(model)
-    (rows,) = run_ranks(attempt_solves_rank, 1, [c[3] for c in cases], 5,
-                        backend="nccl", devices=["cuda:0"], timeout_s=300)
-    log(f"cnf_data_parallel nccl, world size 1: run in "
+    rows = nccl_in_process(attempt_solves_rank, [c[3] for c in cases], 5)
+    log(f"cnf_data_parallel nccl, world size 1 (this process): run in "
         f"{time.perf_counter() - t0:.1f} s")
     check_attempt_mode(results, cases, rows, card)
     count = torch.cuda.device_count()
@@ -3768,6 +3815,308 @@ def phase_cnf_data_parallel(results, model, card):
         log("cnf_data_parallel nccl across cards: one card here, not run")
     log(f"phase cnf_data_parallel: {time.perf_counter() - t_phase:.1f} s "
         f"({card})")
+
+
+DPT_STEPS = 3            # data-parallel CNF train steps at bench_cnf_train's
+DPT_REPS = 3             # timed per-attempt adjoint solves a mode
+
+
+def nccl_in_process(fn, *args):
+    """``fn(group, *args)`` on an NCCL group of world size 1 started in
+    this process (a ``file://`` rendezvous) and ended after: a spawned
+    rank would cost its start-up (20-25 s a phase). Only for rank bodies
+    that change no process-wide setting."""
+    with tempfile.TemporaryDirectory() as tmp:
+        group = parallel.init_group("nccl", 0, 1, "cuda:0",
+                                    init_method=f"file://{tmp}/store")
+        try:
+            return fn(group, *args)
+        finally:
+            parallel.destroy_group()
+
+
+def adjoint_attempt_cases(model):
+    """The NCCL world-size-1 cases of `attempt_adjoint_rank` at the
+    training backward solves' inputs (block 3, condition width 128): the f
+    path with the trace (R = 8,192, T -> 0) and the g path (R = 32,768, r
+    = 4, 0 -> T), seeded and perturbed weights. -> [(label, path, args on
+    the card, keywords, numpy case)]."""
+    x, cs, latents, weights = training_solve_inputs(model)
+    rng = np.random.RandomState(SEED + 10)
+    out = []
+    for label, blocks in weights:
+        for path in ("f", "g"):
+            args, kw = adjoint_case((x, cs, latents), rng, blocks, 3, path)
+            logp1 = kw.get("logp1")
+            case = {"layers": tree_map(lambda t: t.cpu().numpy(), args[0]),
+                    "args": [a.cpu().numpy() for a in args[1:5]]
+                    + [float(args[5]), float(args[6])],
+                    "with_trace": kw["with_trace"],
+                    "logp1": None if logp1 is None else logp1.cpu().numpy()}
+            out.append((label, path, args, kw, case))
+    return out
+
+
+def adjoint_f64(args, kw):
+    """`cnf_adjoint_bwd_plain` in float64 on the same inputs: the witness
+    a float32 solve's leaves are measured against."""
+    def f64(t):
+        return t.double() if torch.is_tensor(t) else t
+
+    layers = tree_map(f64, args[0])
+    kw64 = dict(kw, logp1=f64(kw.get("logp1")))
+    return cnf_ops.cnf_adjoint_bwd_plain(layers, *map(f64, args[1:]),
+                                         **kw64)
+
+
+def check_adjoint_attempt_mode(results, cases, rows, card) -> None:
+    """`attempt_adjoint_rank`'s results (one NCCL rank): the per-attempt
+    adjoint bit-equal to the one-launch kernel (y0, a0, dc, G, the
+    boundary fields, the stats; two runs alike), one launch an attempt
+    plus one; the one-launch kernel on the same inputs here against the
+    plain version: each leaf within `compare_cnf_adjoint`'s 2e-3
+    max-relative, or else (where step sizes follow the error estimate and
+    a small leaf moves with them) no farther from the plain version in
+    float64 than 1.25 times the float32 plain version's distance plus
+    1e-6, as `tests/test_torch_cuda.py::
+    test_cnf_adjoint_kernel_matches_plain` holds it; the perturbed f
+    solve gives the kernel line's row (ms a solve in each mode, the plain
+    version's, the bound)."""
+    row = results["cnf_adjoint_bwd_attempt"]
+    for (label, path, args, kw, _), res in zip(cases, rows):
+        name = f"cnf_adjoint_bwd_attempt {label} {path}"
+        if not (np.array_equal(res["attempt"], res["one"])
+                and np.array_equal(res["again"], res["one"])
+                and res["steps"] == res["one_steps"]
+                and res["attempt_launches"] == res["steps"][0] + 1):
+            raise AssertionError(f"{name}: not the one-launch kernel's bits, "
+                                 f"steps {res['steps']} vs "
+                                 f"{res['one_steps']}, launches "
+                                 f"{res['attempt_launches']}")
+        out = cnf_ops.cnf_adjoint_bwd(*args, **kw, return_stats=True)
+        if not np.array_equal(adjoint_outputs(out), res["one"]):
+            raise AssertionError(f"{name}: the one-launch kernel differs "
+                                 "between the rank and this process")
+        ref = cnf_ops.cnf_adjoint_bwd_plain(*args, **kw, return_stats=True)
+        if res["steps"] != [ref[-1]["steps"], ref[-1]["accepted"]]:
+            raise AssertionError(f"{name}: steps {res['steps']}, plain "
+                                 f"{ref[-1]}")
+        worst, truth = 0.0, None
+        for i, ((leaf, g), (_, r)) in enumerate(zip(adjoint_leaves(out),
+                                                    adjoint_leaves(ref))):
+            rel = maxrel(g, r)
+            if not rel < 2e-3:
+                if truth is None:
+                    truth = [t for _, t in adjoint_leaves(adjoint_f64(args,
+                                                                      kw))]
+                w = truth[i]
+                err, floor = maxrel(g.double(), w), maxrel(r.double(), w)
+                log(f"{name} {leaf}: {rel:.3e} max-relative against the "
+                    f"plain version; against it in float64 the kernel "
+                    f"{err:.3e}, the float32 plain version {floor:.3e}")
+                if not err <= 1.25 * floor + 1e-6:
+                    raise AssertionError(f"{name} {leaf}: max-relative {rel}"
+                                         " against the plain version, and "
+                                         f"{err} > 1.25 x {floor} + 1e-6 "
+                                         "against it in float64")
+            worst = max(worst, rel)
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0),
+                                     float((g - r).abs().max()))
+        log(f"{name} (cdim 128, R = {args[2].shape[0] * args[2].shape[1]}) "
+            f"at world size 1 over NCCL: bit-equal to the one-launch kernel "
+            f"(two runs), steps {res['steps']}, {res['attempt_launches']} "
+            f"launches; against the plain version worst max-relative "
+            f"{worst:.3e} (gate 2e-3, or the float64 witness)")
+        log(f"{name}: per-attempt {res['ms']:.4f} ms a solve (CUDA events; "
+            f"{res['local_ms']:.4f} with no exchange), one-launch "
+            f"{res['one_ms']:.4f} (x{res['ms'] / res['one_ms']:.2f}); the "
+            f"kernels' device ms a solve (profiler) {res['device_ms']:.4f} "
+            f"in {res['attempt_launches']} launches, one-launch "
+            f"{res['one_device_ms']:.4f} ({card})")
+        if label == "perturbed" and path == "f":
+            adjoint_bound(row, args, kw, out, res["steps"][0])
+            plain_ms = time_ms(
+                lambda: cnf_ops.cnf_adjoint_bwd_plain(*args, **kw), 1)
+            row.update(ms=res["ms"], plain_ms=plain_ms, library_ms=None)
+            log(f"cnf_adjoint_bwd_attempt row (perturbed, f): {res['ms']:.4f}"
+                f" ms, plain {plain_ms:.4f}, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}; {card})")
+
+
+def check_cnf_train_ranks(label, ranks, layout, one) -> dict:
+    """The checks of `card_cnf_train_rank`'s results against the
+    one-process run ``one`` (`cnf_grad` on the card at the global batch,
+    its auction's assignment ``one["assign"]``):
+
+      * the ranks' gradients bit-equal (with their own auction and at the
+        one-process assignment);
+      * on every rank each of the 24 solves' [attempted, accepted] the
+        one-process run's (6 f and 6 g forward, 12 backward);
+      * at the one-process assignment, the ranks' summed gradient against
+        the one-process gradient at `phase_cnf_grad`'s gates: the same
+        leaves zero to rounding, none a CNF block's, every other within
+        2e-2 max-relative; the assignments each rank's own auction moves
+        counted (the auction is not continuous in its input);
+      * every train step: parameters, BN state and Adam moments bit-equal
+        across ranks, finite loss, 6 + 6 + 12 solves and one EMD launch a
+        rank, each per-attempt solve in at least 4 launches; each rank's
+        split with its exchanges' ms.
+    -> the adjoint's per-attempt launches of the first step, summed over
+    the ranks."""
+    for r, res in enumerate(ranks):
+        for key in ("grads", "fixed"):
+            if not np.array_equal(res[key], ranks[0][key]):
+                raise AssertionError(f"{label}: rank {r}'s {key} gradient "
+                                     "is not rank 0's")
+        if res["steps"] != one["steps"]:
+            raise AssertionError(f"{label} rank {r}: steps {res['steps']}, "
+                                 f"one process {one['steps']}")
+    moved = int((np.concatenate([r["assign"] for r in ranks])
+                 != one["assign"]).sum())
+    got_tree = tree_paths(layout.numpy_tree(torch.from_numpy(
+        ranks[0]["fixed"])))
+    want_tree = tree_paths(layout.numpy_tree(torch.from_numpy(one["grads"])))
+    names = [p for p, _ in want_tree]
+    got = [torch.from_numpy(np.asarray(g)) for _, g in got_tree]
+    want = [torch.from_numpy(np.asarray(w)) for _, w in want_tree]
+    zero_got, zero_want = rounding_zero(names, got), rounding_zero(names, want)
+    if set(zero_got) != set(zero_want):
+        raise AssertionError(f"{label}: the leaves zero to rounding differ: "
+                             f"{sorted(set(zero_got) ^ set(zero_want))}")
+    if [p for p in zero_want if p.startswith("/flow_blocks/")]:
+        raise AssertionError(f"{label}: CNF-block leaves zero to rounding")
+    worst = ("", 0.0)
+    for path, g, w in zip(names, got, want):
+        if path in zero_want:
+            continue
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} {path}: non-finite gradient")
+        rel = maxrel(g, w)
+        if not rel < 2e-2:
+            raise AssertionError(f"{label} {path}: summed gradient vs one "
+                                 f"process max-relative {rel} >= 2e-2")
+        worst = max(worst, (path, rel), key=lambda x: x[1])
+    log(f"{label}: gradients bit-equal across the ranks; the 24 solves' "
+        f"steps the one-process run's {one['steps']}; at the one-process "
+        f"assignment the summed gradient within 2e-2 of one process's in "
+        f"{len(names) - len(zero_want)} leaves (worst {worst[1]:.3e}, "
+        f"{worst[0]}); the ranks' own auction moved {moved} of "
+        f"{one['assign'].size} assignments")
+    launches = 0
+    for r, res in enumerate(ranks):
+        for i, st in enumerate(res["steps_run"]):
+            counts = st["launches"]
+            solves = {k: v[0] for k, v in counts.items() if k != "emd"}
+            if not (st["bit_equal"] and np.isfinite(st["loss"])
+                    and not st["nan_step"] and counts["emd"] == 1
+                    and solves == {k: n for k, n in GRAD_LAUNCHES.items()
+                                   if k != "emd"}
+                    and all(v[1] >= 4 * v[0] for k, v in counts.items()
+                            if k != "emd")):
+                raise AssertionError(f"{label} rank {r} step {i}: {st}")
+            split = ", ".join(f"{k} {v:.1f}" for k, v in st["split"].items())
+            log(f"{label} rank {r} step {i}: loss {st['loss']:.6f}, wall "
+                f"{st['wall_ms']:.1f} ms, split ms {split}; "
+                f"{st['exchanges']} per-attempt exchanges "
+                f"{st['exchange_ms']:.1f} ms (host clock); [solves, "
+                f"per-attempt launches] {counts}")
+        launches += res["steps_run"][0]["launches"]["cnf_adjoint_bwd"][1]
+    return launches
+
+
+def phase_cnf_train_data_parallel(results, model, card):
+    """CNF training data parallel (`Trainer(..., forward_fn=
+    continuous.forward, group=)`: every solve of a step, the 12 forward
+    and the 12 adjoint backward solves, in its kernel's per-attempt mode,
+    the ranks' sums exchanged each attempt, so that each step is judged on
+    the global batch's error norm with G, the layers' cotangent, counted
+    once):
+
+      (a) one NCCL rank at world size 1: the per-attempt adjoint bit-equal
+          to the one-launch kernel at the f (R = 8,192, trace) and g
+          (R = 32,768, r = 4) shapes, seeded and perturbed, two runs
+          alike, with the launch count, ms with and without the exchange
+          beside the one-launch kernel's and the device ms
+          (`check_adjoint_attempt_mode`);
+      (b) two `gloo` ranks on the one card at the seeded full-width model
+          and `bench.py:bench_cnf_train`'s global batch (32 clouds, 256 ->
+          1024 points): the gradient's checks against one process on the
+          card (`check_cnf_train_ranks`) and `DPT_STEPS` trainer steps;
+      (c) `torchrun --standalone --nproc_per_node 2 -m
+          puflow_torch.cli.train_cnf --synthetic 2` (gloo, both ranks on
+          the card) for one epoch: rank 0 writes the checkpoint;
+      (d) with more than one card, (b) under NCCL across ``min(count, 4)``
+          cards.
+    ``model``: the perturbed unfolded CNF model. Sets the kernel line's
+    per-attempt adjoint row."""
+    t_phase = time.perf_counter()
+    cases = adjoint_attempt_cases(model)
+    t0 = time.perf_counter()
+    rows = nccl_in_process(attempt_adjoint_rank, [c[4] for c in cases],
+                           DPT_REPS)
+    log(f"cnf_train_data_parallel nccl, world size 1 (this process): run in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_adjoint_attempt_mode(results, cases, rows, card)
+
+    params, state = checkpoint.to_numpy_tree(seeded_cnf_model())
+    layout = TreeLayout(params)
+    rng = np.random.RandomState(SEED + 11)
+    grad_batch = synthetic_pairs(rng, TRAIN_B, TRAIN_N, UPRATIO)
+    batch = synthetic_pairs(rng, TRAIN_B, TRAIN_N, UPRATIO)
+    seen = []
+    one = cnf_grad(cnf_trainer(params, state, device="cuda"), *grad_batch,
+                   emd=recording_emd(seen))
+    one["assign"] = seen[0].cpu().numpy()
+
+    def ranks_run(label, n, backend, devices):
+        b = TRAIN_B - TRAIN_B % n
+        t0 = time.perf_counter()
+        ranks = run_ranks(card_cnf_train_rank, n, params, state,
+                          (grad_batch[0][:b], grad_batch[1][:b]),
+                          one["assign"][:b], (batch[0][:b], batch[1][:b]),
+                          DPT_STEPS, backend=backend, devices=devices,
+                          timeout_s=600)
+        log(f"{label}: {n} ranks spawned and run in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        return check_cnf_train_ranks(label, ranks, layout, one)
+
+    row = results["cnf_adjoint_bwd_attempt"]
+    row["launches"] = ranks_run("cnf_train_data_parallel gloo, 2 ranks on "
+                                "one card", 2, "gloo", ["cuda:0"] * 2)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "cnf.npz")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "-m", "puflow_torch.cli.train_cnf",
+               "--synthetic", "2", "--max_epochs", "1", "--device",
+               "cuda:0", "--dist_backend", "gloo", "--checkpoint", ckpt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=subprocess_env(),
+                              capture_output=True, text=True, timeout=600)
+        log(f"torchrun train_cnf, 2 gloo ranks on the card (exit "
+            f"{proc.returncode}, {time.perf_counter() - t0:.1f} s): "
+            f"{proc.stdout.strip()[-2000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun train_cnf failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        final = ckpt.replace(".npz", "-epoch1.npz")
+        saved = checkpoint.load_numpy_checkpoint(final, "cnf")
+        leaves = [v for _, v in tree_paths(saved[0])]
+        if not all(np.isfinite(np.asarray(v)).all() for v in leaves):
+            raise AssertionError("torchrun train_cnf: non-finite weights")
+        log(f"torchrun train_cnf: rank 0 wrote {os.path.basename(final)} "
+            f"({len(leaves)} finite leaves)")
+
+    count = torch.cuda.device_count()
+    if count > 1:
+        n = min(count, 4)
+        ranks_run(f"cnf_train_data_parallel nccl, {n} cards", n, "nccl",
+                  [f"cuda:{i}" for i in range(n)])
+    else:
+        log("cnf_train_data_parallel nccl across cards: one card here, not "
+            "run")
+    log(f"phase cnf_train_data_parallel: {time.perf_counter() - t_phase:.1f}"
+        f" s ({card})")
 
 
 # the port's own kernels, by the names their sources give them
@@ -4014,6 +4363,7 @@ def main():
     timed(phase_export, model, folded, cnf_folded, card)
     timed(phase_data_parallel, model, card)
     timed(phase_cnf_data_parallel, results, cnf_model, card)
+    timed(phase_cnf_train_data_parallel, results, cnf_model, card)
     timed(phase_library, folded, card)
 
     log(f"chip_smoke total {time.perf_counter() - start:.1f} s")

@@ -6,15 +6,18 @@ synthetic steps per epoch and needs no data file; ``--begin_checkpoint``
 takes a checkpoint of the family trained, a native ``.npz`` or a
 reference ``.pt``, as the JAX CLIs do.
 
-Under torchrun (``WORLD_SIZE`` over 1) the discrete family trains data
+Under torchrun (``WORLD_SIZE`` over 1) either family trains data
 parallel, as the JAX CLIs do over all devices: each rank starts the
 process group (`parallel.init_group`, backend ``--dist_backend``: by
 default ``nccl`` on CUDA, ``gloo`` on the CPU; device ``cuda:LOCAL_RANK``
 with ``--device cuda``), reads the same global batches from the same
-seed and trains on its shard; the ActNorm warm-up runs on the global
-first batch, and only rank 0 prints and saves:
+seed and trains on its shard; the discrete family's ActNorm warm-up runs
+on the global first batch, the CNF family's dopri5 solves take the global
+batch's steps (the solve and adjoint kernels' per-attempt mode on the
+card), and only rank 0 prints and saves:
 
     torchrun --nproc_per_node 4 -m puflow_torch.cli.train_pu1k --data ...
+    torchrun --nproc_per_node 2 -m puflow_torch.cli.train_cnf --synthetic 4
 """
 
 from __future__ import annotations

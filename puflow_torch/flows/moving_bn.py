@@ -12,11 +12,19 @@ Semantics:
   reverse: always uses the running statistics;
   logdet per element = ``-0.5 log(var + eps) + weight``, subtracted from
     logpx on forward and added on reverse.
+
+Data parallel (``group=`` a `parallel.Group` of more than one rank): the
+batch statistics are the global batch's, as the JAX function computes
+them under a sharded jit (its ``axis_name=None`` branch): the mean from an
+all-reduced sum, then the unbiased variance from an all-reduced sum of
+``(x - mean)^2``, both through the differentiable all-reduce.
 """
 
 from __future__ import annotations
 
 import torch
+
+from puflow_torch.parallel.mesh import all_reduce_sum, is_distributed
 
 EPS = 1e-4
 DECAY = 0.1
@@ -32,16 +40,23 @@ def moving_bn_init(num_features: int, device=None):
 
 
 def moving_bn_forward(params, state, x: torch.Tensor, logpx=None,
-                      train: bool = False, bn_lag: float = 0.0):
-    """x: ``[..., C]`` -> (y, logpx', new_state)."""
+                      train: bool = False, bn_lag: float = 0.0, group=None):
+    """x: ``[..., C]`` -> (y, logpx', new_state); with a ``group``, ``x``
+    is this rank's shard (module docstring)."""
     used_mean, used_var = state["mean"], state["var"]
     new_state = state
     if train:
         axes = tuple(range(x.ndim - 1))
         n = x.numel() // x.shape[-1]
-        batch_mean = torch.mean(x, dim=axes)
-        batch_var = (torch.var(x, dim=axes, unbiased=False)
-                     * n / max(n - 1, 1))                    # unbiased
+        if is_distributed(group):
+            n *= group.world_size
+            batch_mean = all_reduce_sum(torch.sum(x, dim=axes)) / n
+            batch_var = all_reduce_sum(torch.sum(
+                torch.square(x - batch_mean), dim=axes)) / max(n - 1, 1)
+        else:
+            batch_mean = torch.mean(x, dim=axes)
+            batch_var = (torch.var(x, dim=axes, unbiased=False)
+                         * n / max(n - 1, 1))                # unbiased
         used_mean, used_var = batch_mean, batch_var
         if bn_lag > 0:
             step = state["step"][0]

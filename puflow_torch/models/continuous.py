@@ -26,12 +26,13 @@ exact-trace log-density solve), those of g `ops.cnf.cnf_solve_t`, and
 every backward solve `ops.cnf.cnf_adjoint_bwd`: kernels on the card, 24
 launches a loss's gradient, their plain versions on the CPU.
 
-Data parallel serving and validation (``group=`` a `parallel.Group`):
-`sample` and `forward(train=False)` on this rank's shard of the batch take
-every solve's steps from the global batch's error norm (`ops.cnf`'s
-per-attempt kernel on the card, `models.ode`'s early-exit loop with the
-group elsewhere), and the NLL is the global batch's mean. Training with a
-group (`forward(train=True)`) is ROADMAP.md Queue 1 item 9c-ii.
+Data parallel (``group=`` a `parallel.Group`): `sample` and `forward` on
+this rank's shard of the batch take every solve's steps from the global
+batch's error norm (`ops.cnf`'s per-attempt kernels on the card,
+`models.ode`'s drivers with the group elsewhere), and the NLL is the
+global batch's mean. In training every backward solve judges the layers'
+cotangent as one replicated leaf of the global batch and returns this
+rank's part of it, which the trainer's gradient all-reduce adds.
 
 Parameters are the JAX package's (params, state) trees, keys unchanged
 (``flow_blocks[i].sqrt_end_time``, ``.layers[j].layer / hyper_gate /
@@ -48,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_map
 
 from puflow_torch.flows.moving_bn import (moving_bn_forward, moving_bn_init,
                                           moving_bn_reverse)
@@ -350,7 +352,9 @@ def plain_field(layer_type: str = "concatsquash",
 # (log-density solve, plain solve, adjoint backward) triple, the net is the
 # shipped one (`ops.cnf.kernel_takes`) and its solves go through those
 # functions; without, both solves are `models.ode`'s, for every layer type
-# and nonlinearity.
+# and nonlinearity. The builders are cached; a data-parallel call gives its
+# group to the solve (``group=``), which passes it to the hooks and from
+# them to the solves.
 # --------------------------------------------------------------------------
 _TRAINING_SOLVES = contextvars.ContextVar("training_solves", default=None)
 
@@ -379,17 +383,17 @@ def _adjoint_for(layer_type: str, nonlinearity: str, solves=None):
     if solves is not None:
         solve_logp, _, adjoint_bwd = solves
 
-        def fwd_solver(p, y0, t0, t1):
+        def fwd_solver(p, y0, t0, t1, **kw):
             y, logp0 = y0
             return solve_logp(p["layers"], p["c"], y, logp0, t0, t1, RTOL,
-                              ATOL, MAX_STEPS_EVAL)
+                              ATOL, MAX_STEPS_EVAL, **kw)
 
-        def bwd_solver(p, y1, y1_bar, t0, t1):
+        def bwd_solver(p, y1, y1_bar, t0, t1, **kw):
             y, logp1 = y1
             a_y, a_p = y1_bar
             y0, a0, dc, dlayers, bnd = adjoint_bwd(
                 p["layers"], p["c"], y, a_y, a_p, t0, t1, RTOL, ATOL,
-                MAX_STEPS_EVAL, with_trace=True, logp1=logp1)
+                MAX_STEPS_EVAL, with_trace=True, logp1=logp1, **kw)
             # the field at both ends is (f, -div), so dL/dt1 = <a1, f1> -
             # <ap, div1> and dL/dt0 = -(<a0, f0> - <ap, div0>)
             f1, div1, f0, div0 = bnd
@@ -414,16 +418,16 @@ def _adjoint_plain_for(layer_type: str, nonlinearity: str, solves=None):
     if solves is not None:
         _, solve, adjoint_bwd = solves
 
-        def fwd_solver(p, y0, t0, t1):
+        def fwd_solver(p, y0, t0, t1, **kw):
             return solve(p["layers"], p["c"], y0, t0, t1, RTOL, ATOL,
-                         MAX_STEPS_EVAL)
+                         MAX_STEPS_EVAL, **kw)
 
-        def bwd_solver(p, y1, y1_bar, t0, t1):
+        def bwd_solver(p, y1, y1_bar, t0, t1, **kw):
             ap = torch.zeros(y1.shape[:-1] + (1,), dtype=y1.dtype,
                              device=y1.device)
             y0, a0, dc, dlayers, bnd = adjoint_bwd(
                 p["layers"], p["c"], y1, y1_bar, ap, t0, t1, RTOL, ATOL,
-                MAX_STEPS_EVAL, with_trace=False)
+                MAX_STEPS_EVAL, with_trace=False, **kw)
             f1, _, f0, _ = bnd
             t1_bar = torch.sum(y1_bar * f1)
             t0_bar = -torch.sum(a0 * f0)
@@ -461,8 +465,10 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
     ``differentiable`` solves take gradients by the continuous adjoint.
     Every solve of the shipped field goes through `ops.cnf`'s wrappers, or
     through the functions `training_solves` gives. With a ``group`` ``y``
-    is this rank's shard and the solve's steps the global batch's (not
-    ``differentiable``).
+    is this rank's shard and the solve's steps the global batch's; a
+    ``differentiable`` solve then gives this rank's part of the layers'
+    gradient (`models.ode.adjoint_backward`, the layers replicated and the
+    conditions sharded).
     """
     # ops.cnf builds its plain version from this module's field
     from puflow_torch.ops import cnf as cnf_ops
@@ -480,8 +486,6 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
         solves = _TRAINING_SOLVES.get() or (
             cnf_ops.cnf_solve_logp, cnf_ops.cnf_solve_t,
             cnf_ops.cnf_adjoint_bwd)
-    if is_distributed(group) and differentiable:
-        raise NotImplementedError(_TRAIN_GROUP)
     # the group goes only where there is one, so that `training_solves`
     # functions without a group argument still serve one process
     kw = {} if group is None else {"group": group}
@@ -489,14 +493,18 @@ def _integrate(block, y: torch.Tensor, c: torch.Tensor, reverse: bool,
         if solves is None and c.shape[1] != y.shape[1]:
             c = torch.repeat_interleave(c, y.shape[1] // c.shape[1], dim=1)
         p = {"layers": block["layers"], "c": c}
+        if group is not None:
+            kw["replicated"] = {"layers": tree_map(lambda _: True,
+                                                   block["layers"]),
+                                "c": False}
         if not with_logp:
             # the log-density is discarded (the inverse pass): the adjoint
             # of the plain field, first order only
             yf = _adjoint_plain_for(layer_type, nonlinearity, solves)(
-                p, y, t0, t1)
+                p, y, t0, t1, **kw)
             return yf, logp0
         return _adjoint_for(layer_type, nonlinearity, solves)(
-            p, (y, logp0), t0, t1)
+            p, (y, logp0), t0, t1, **kw)
     if solves is not None:
         solve_logp, solve, _ = solves
         if with_logp:
@@ -632,12 +640,15 @@ def build_model(generator, input_dim: int, hidden_dims, context_dim: int,
 def sequential_flow_apply(chain, chain_state, x: torch.Tensor, c=None,
                           logpx=None, reverse: bool = False,
                           train: bool = False,
-                          cfg: CNFChainConfig = CNFChainConfig()):
+                          cfg: CNFChainConfig = CNFChainConfig(),
+                          group=None):
     """Run a `build_model` chain: forward applies the layers in order,
     reverse applies them backwards with each layer inverted; logpx
     accumulates additively through CNFs and moving-BNs alike. Returns
     ``(x, logpx', new_state)``; ``train=True`` solves each CNF block with
-    the continuous adjoint."""
+    the continuous adjoint. With a ``group`` (a `parallel.Group`) ``x`` is
+    this rank's shard: every CNF solve takes the global batch's steps and
+    the moving-BNs the global batch's statistics."""
     inds = range(len(chain) - 1, -1, -1) if reverse else range(len(chain))
     new_state = list(chain_state)
     lp = (torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
@@ -651,13 +662,14 @@ def sequential_flow_apply(chain, chain_state, x: torch.Tensor, c=None,
             x, dlp = _integrate(p, x, cc, reverse=reverse,
                                 differentiable=train,
                                 layer_type=cfg.layer_type,
-                                nonlinearity=cfg.nonlinearity)
+                                nonlinearity=cfg.nonlinearity, group=group)
             lp = lp + dlp
         elif reverse:
             x, lp = moving_bn_reverse(p, chain_state[i], x, lp)
         else:
             x, lp, new_state[i] = moving_bn_forward(
-                p, chain_state[i], x, lp, train=train, bn_lag=cfg.bn_lag)
+                p, chain_state[i], x, lp, train=train, bn_lag=cfg.bn_lag,
+                group=group)
     return x, lp, new_state
 
 
@@ -730,12 +742,6 @@ def _bn_state(state, key: str):
     return None if state is None else state[key]
 
 
-_TRAIN_GROUP = (
-    "data-parallel CNF training is not ported yet: the adjoint kernel's "
-    "error norm across ranks, forward(train=True, group=), the trainer and "
-    "train_cnf under torchrun are ROADMAP.md Queue 1 item 9c-ii")
-
-
 def forward(params, state, xyz: torch.Tensor, upratio: int,
             train: bool = False, group=None):
     """``[B, N, 3] -> ([B, N * r, 3], scalar NLL, new state)``; the NLL is
@@ -748,15 +754,16 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
     and differentiable solves by the continuous adjoint, six f solves with
     the log-density and six g solves without.
 
-    ``group`` (a `parallel.Group`, ``train=False`` only): ``xyz`` is this
-    rank's shard, every solve's steps are the global batch's and the NLL
-    is the global batch's mean (the sum through `all_reduce_sum`, over B x
-    W clouds), the same on every rank.
+    ``group`` (a `parallel.Group`): ``xyz`` is this rank's shard, every
+    solve's steps are the global batch's and the NLL is the global batch's
+    mean (the sum through `all_reduce_sum`, over B x W clouds), the same
+    on every rank; in training the BN layers take the global batch's
+    statistics and the gradients this rank's part of the global loss's
+    (the trainer's all-reduce adds the parts).
     """
-    if train and is_distributed(group):
-        raise NotImplementedError(_TRAIN_GROUP)
     knn_idx = knn_indices(xyz, xyz, _discrete.NUM_NEIGHBORS)
-    cs, feat_s = _discrete.feat_extract(params, state, xyz, knn_idx, train)
+    cs, feat_s = _discrete.feat_extract(params, state, xyz, knn_idx, train,
+                                        group)
     z, log_det = f_transform(params, xyz, cs, differentiable=train,
                              group=group)
     logp_z = standard_gaussian_logp(z)
@@ -768,7 +775,7 @@ def forward(params, state, xyz: torch.Tensor, upratio: int,
     # K=16 sorted -> its first 8 columns ARE the K=8 graph
     fz, interp_s = interpolation_apply(
         params["interp"], _bn_state(state, "interp"), z.contiguous(), xyz,
-        upratio, train, knn_idx=knn_idx)
+        upratio, train, knn_idx=knn_idx, group=group)
     x = g_transform(params, fz, cs, upratio, differentiable=train,
                     group=group)
     new_state = None if state is None else {"interp": interp_s,

@@ -21,15 +21,20 @@ solver's; the early-exit loop reads one flag pair from the device per
 step, which is what makes it the plain version: `ops.cnf` runs the same
 solves for the shipped field as kernels with no host read.
 
-Data parallel (the early-exit loop, ``group=`` a `parallel.Group` of more
-than one rank): each rank holds its shard of the batch, and every step
-is decided on the error norm of the global batch, as a sharded jit of
-the JAX solver decides it. Each rank sums its own entries' squared error
-ratios, the ranks' sums are added in rank order (`rank_order_sum`, the
-same bits on every rank) and divided by the global count of entries, so
-every rank takes the same steps, accepts the same ones and stops after
-the same attempt. A rank with no rows adds 0 and still joins every
-exchange. The masked loop and the adjoint take no group.
+Data parallel (``group=`` a `parallel.Group` of more than one rank): each
+rank holds its shard of the batch, and every step is decided on the
+error norm of the global batch, as a sharded jit of the JAX solver
+decides it. Each rank sums its own entries' squared error ratios, the
+ranks' sums are added in rank order (`rank_order_sum`, the same bits on
+every rank) and divided by the global count of entries, so every rank
+takes the same steps, accepts the same ones and stops after the same
+attempt. A rank with no rows adds 0 and still joins every exchange.
+A leaf marked ``replicated`` (the parameter cotangent of the adjoint,
+which every rank accumulates over its own rows) is one global leaf, the
+sum of the ranks' parts: its start value, candidate and error are added
+in rank order, the per-entry ratio is formed from those sums alike on
+every rank, and its entries are counted once. Both drivers take a group;
+the masked loop's exchange is differentiable.
 """
 
 from __future__ import annotations
@@ -73,26 +78,48 @@ def _weighted_sum(ks, w):
     return out
 
 
-def _error_ratio(err, y0, y1, rtol: float, atol: float,
-                 group=None) -> torch.Tensor:
+def _squared_ratios(e, a, b, rtol: float, atol: float) -> torch.Tensor:
+    r = e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
+    return torch.sum(r * r)
+
+
+def _error_ratio(err, y0, y1, rtol: float, atol: float, group=None,
+                 replicated=None, differentiable: bool = False
+                 ) -> torch.Tensor:
     """The RMS of ``err / (atol + rtol max(|y0|, |y1|))`` over every entry;
     with a group of more than one rank, over every rank's entries: this
-    rank's sum and count, exchanged as float64 (exactly) and added in rank
-    order, the sum then rounded to float32 and divided as one process
-    divides it."""
-    sums, count = 0.0, 0
-    for e, a, b in zip(err, y0, y1):
-        tol = atol + rtol * torch.maximum(a.abs(), b.abs())
-        r = e / tol
-        sums = sums + torch.sum(r * r)
-        count += e.numel()
-    if is_distributed(group):
-        local = torch.stack([torch.as_tensor(sums, dtype=torch.float64,
-                                             device=err[0].device),
-                             torch.tensor(float(count), dtype=torch.float64,
-                                          device=err[0].device)])
-        total = rank_order_sum(local, group).to(torch.float32)
-        sums, count = total[0], total[1]
+    rank's sum and count, and the leaves ``replicated`` marks (a list of
+    bools, one a leaf) whole, exchanged as float64 (exactly) in one gather
+    and added in rank order; the row sum is then rounded to float32, each
+    replicated leaf's sums too, whose ratios are formed from them and
+    counted once; the total is divided as one process divides it.
+    ``differentiable``: the exchange passes gradients (the masked loop)."""
+    if not is_distributed(group):
+        sums, count = 0.0, 0
+        for e, a, b in zip(err, y0, y1):
+            sums = sums + _squared_ratios(e, a, b, rtol, atol)
+            count += e.numel()
+        return torch.sqrt(sums / count + 1e-24)
+    replicated = replicated or [False] * len(err)
+    f64 = dict(dtype=torch.float64, device=err[0].device)
+    sums, count, whole = 0.0, 0, []
+    for e, a, b, rep in zip(err, y0, y1, replicated):
+        if rep:
+            whole += [a, b, e]
+        else:
+            sums = sums + _squared_ratios(e, a, b, rtol, atol)
+            count += e.numel()
+    local = torch.cat([torch.as_tensor(sums, **f64).reshape(1),
+                       torch.tensor([float(count)], **f64),
+                       *(t.reshape(-1).to(**f64) for t in whole)])
+    total = rank_order_sum(local, group, differentiable).to(torch.float32)
+    sums, count, at = total[0], total[1], 2
+    for a in whole[::3]:
+        n = a.numel()
+        g0, g1, e = (total[at + i * n:at + (i + 1) * n] for i in range(3))
+        sums = sums + _squared_ratios(e, g0, g1, rtol, atol)
+        count = count + n
+        at += 3 * n
     return torch.sqrt(sums / count + 1e-24)
 
 
@@ -111,17 +138,20 @@ def _dp_step(func, t, y, h, k1):
     return y5, err, ks[6]
 
 
-def _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol, max_steps):
+def _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol, max_steps,
+                 group, replicated):
     """The masked fixed-trip driver: ``max_steps`` steps, each computed and
     then kept only while the solve is not done, so that the graph is the
-    same whatever the data and autograd differentiates it."""
+    same whatever the data and autograd differentiates it (with a group,
+    through the exchange of the error norm too)."""
     t, n = t0, torch.zeros((), dtype=torch.int32, device=t0.device)
     done = span <= 1e-12
     for _ in range(max_steps):
         remaining = t1 - t
         h_c = torch.where(h.abs() > remaining.abs(), remaining, h)
         y5, err, k7 = _dp_step(field, t, y, h_c, k1)
-        ratio = _error_ratio(err, y, y5, rtol, atol)
+        ratio = _error_ratio(err, y, y5, rtol, atol, group, replicated,
+                             differentiable=True)
         accept = ratio <= 1.0
         # the floor keeps err == 0 (a step of size 0 once done) from
         # giving 0^(-1/5) = inf and NaN gradients
@@ -145,7 +175,7 @@ def _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol, max_steps):
 
 def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
                   max_steps: int = 128, differentiable: bool = True,
-                  return_stats: bool = False, group=None):
+                  return_stats: bool = False, group=None, replicated=None):
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1.
 
     Args:
@@ -161,17 +191,18 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
         loop.
       group: a `parallel.Group`; with more than one rank, ``y0`` is this
         rank's shard and every step is decided on the global batch's error
-        norm (module docstring). The early-exit loop only.
+        norm (module docstring), in either loop.
+      replicated: with a group, a pytree of bools in ``y0``'s structure
+        marking the leaves every rank holds a part of that sum to one
+        global leaf (module docstring); None: every leaf is sharded.
 
     Returns:
       ``y(t1)`` in the structure of ``y0`` (the last state reached if
       ``max_steps`` attempts did not get there).
     """
-    if differentiable and is_distributed(group):
-        raise NotImplementedError(
-            "the masked dopri5 loop takes no group: differentiable "
-            "data-parallel CNF solves are ROADMAP.md Queue 1 item 9c-ii")
     y, spec = tree_flatten(y0)
+    if replicated is not None:
+        replicated = tree_flatten(replicated)[0]
     dev = y[0].device
 
     def field(t, leaves):
@@ -185,7 +216,7 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
     k1 = field(t0, y)
     if differentiable:
         y, n = _masked_loop(field, y, k1, t0, t1, span, h, rtol, atol,
-                            max_steps)
+                            max_steps, group, replicated)
         out = tree_unflatten(y, spec)
         if return_stats:
             n = int(n)
@@ -198,7 +229,7 @@ def odeint_dopri5(func, y0, t0, t1, rtol: float = 1e-5, atol: float = 1e-5,
         # never step past t1
         h_c = torch.where(h.abs() > remaining.abs(), remaining, h)
         y5, err, k7 = _dp_step(field, t, y, h_c, k1)
-        ratio = _error_ratio(err, y, y5, rtol, atol, group)
+        ratio = _error_ratio(err, y, y5, rtol, atol, group, replicated)
         accept = ratio <= 1.0
         factor = torch.clamp(
             _SAFETY * torch.clamp_min(ratio, 1e-10) ** (-1.0 / _ORDER),
@@ -229,14 +260,24 @@ def _vdot(a, b) -> torch.Tensor:
 
 def adjoint_backward(func, params, y1, y1_bar, t1, t0, rtol: float = 1e-5,
                      atol: float = 1e-5, max_steps: int = 128,
-                     return_stats: bool = False):
+                     return_stats: bool = False, group=None,
+                     replicated=None):
     """Solve ``d/dt [y, a, g] = [f, -a^T df/dy, -a^T df/dparams]`` from t1
     back to t0 with the early-exit driver, one `torch.func.vjp` of
     ``func(params, t, y)`` per field evaluation.
 
+    With a ``group`` of more than one rank, ``y1`` and ``y1_bar`` are this
+    rank's shard and every step is the global batch's: the cotangent of
+    each parameter ``replicated`` marks (a pytree of bools in ``params``'
+    structure; None: all of them) enters the error norm as one global
+    leaf, the sum of the ranks' parts (module docstring); a parameter not
+    marked (a per-row condition) is sharded like the rows.
+
     Returns ``(y0, a0, g)``: the reconstructed start state, the cotangent
-    of ``y0`` and that of ``params`` (both in their structures), and with
-    ``return_stats`` the driver's stats.
+    of ``y0`` and that of ``params`` (both in their structures; with a
+    group, this rank's part of the parameters' cotangent: the trainer's
+    gradient all-reduce adds the parts), and with ``return_stats`` the
+    driver's stats.
     """
     params = tree_map(torch.Tensor.detach, params)
 
@@ -248,9 +289,13 @@ def adjoint_backward(func, params, y1, y1_bar, t1, t0, rtol: float = 1e-5,
         return dy, tree_map(torch.neg, y_bar), tree_map(torch.neg, p_bar)
 
     g0 = tree_map(torch.zeros_like, params)
+    if replicated is None:
+        replicated = tree_map(lambda _: True, params)
+    rows = tree_map(lambda _: False, (y1, y1_bar))
     return odeint_dopri5(aug_field, (y1, y1_bar, g0), t1, t0, rtol, atol,
                          max_steps, differentiable=False,
-                         return_stats=return_stats)
+                         return_stats=return_stats, group=group,
+                         replicated=(*rows, replicated))
 
 
 class _AdjointSolve(torch.autograd.Function):
@@ -283,11 +328,15 @@ class _AdjointSolver:
     """What one call of a `make_adjoint_odeint` solve needs to know."""
 
     def __init__(self, func, rtol, atol, max_steps, fwd_solver, bwd_solver,
-                 p_spec, y_spec, n_params):
+                 p_spec, y_spec, n_params, group, replicated):
         self.func, self.rtol, self.atol = func, rtol, atol
         self.max_steps = max_steps
         self.fwd_solver, self.bwd_solver = fwd_solver, bwd_solver
         self.p_spec, self.y_spec, self.n_params = p_spec, y_spec, n_params
+        self.group, self.replicated = group, replicated
+        # the hooks get the group only where there is one, so that hooks
+        # without a group argument still serve one process
+        self.kw = {} if group is None else {"group": group}
 
     def split(self, leaves):
         return (tree_unflatten(list(leaves[:self.n_params]), self.p_spec),
@@ -295,19 +344,20 @@ class _AdjointSolver:
 
     def forward_solve(self, params, y0, t0, t1):
         if self.fwd_solver is not None:
-            return self.fwd_solver(params, y0, t0, t1)
+            return self.fwd_solver(params, y0, t0, t1, **self.kw)
         return odeint_dopri5(lambda t, y: self.func(params, t, y), y0, t0,
                              t1, self.rtol, self.atol, self.max_steps,
-                             differentiable=False)
+                             differentiable=False, group=self.group)
 
     def backward_solve(self, params, y1, y1_bar, t0, t1):
         """-> (params cotangent, y0 cotangent, t0 cotangent, t1 cotangent)."""
         if self.bwd_solver is None:
             y0, a0, g = adjoint_backward(self.func, params, y1, y1_bar, t1,
                                          t0, self.rtol, self.atol,
-                                         self.max_steps)
+                                         self.max_steps, group=self.group,
+                                         replicated=self.replicated)
         else:
-            solved = self.bwd_solver(params, y1, y1_bar, t0, t1)
+            solved = self.bwd_solver(params, y1, y1_bar, t0, t1, **self.kw)
             if len(solved) == 5:
                 # the solver gave the boundary cotangents too
                 _, a0, g, t0_bar, t1_bar = solved
@@ -338,15 +388,22 @@ def make_adjoint_odeint(func, rtol: float = 1e-5, atol: float = 1e-5,
     integration and return ``(y0, a0, g)`` or, with the boundary
     cotangents it can form from its own field evaluations, ``(y0, a0, g,
     t0_bar, t1_bar)``.
+
+    ``solve(..., group=, replicated=)`` (data parallel, a `parallel.Group`
+    of more than one rank): ``y0`` is this rank's shard, both solves take
+    the global batch's steps and the parameters' cotangents are this
+    rank's parts (`adjoint_backward`; ``replicated`` marks the replicated
+    parameters, default all). The hooks then get ``group=`` too.
     """
-    def solve(params, y0, t0, t1):
+    def solve(params, y0, t0, t1, group=None, replicated=None):
         p_leaves, p_spec = tree_flatten(params)
         y_leaves, y_spec = tree_flatten(y0)
         dev = y_leaves[0].device
         t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
         t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
         solver = _AdjointSolver(func, rtol, atol, max_steps, fwd_solver,
-                                bwd_solver, p_spec, y_spec, len(p_leaves))
+                                bwd_solver, p_spec, y_spec, len(p_leaves),
+                                group, replicated)
         out = _AdjointSolve.apply(solver, t0, t1, *p_leaves, *y_leaves)
         return tree_unflatten(list(out), y_spec)
 

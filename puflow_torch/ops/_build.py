@@ -65,6 +65,10 @@ _SIGNATURES = {
     "puflow_cnf_adjoint": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _F, _I, _P, _L, _P, _L, _P, _L, _I, _P, _P,
                            _P, _P, _P, _P, _P],
+    "puflow_cnf_adjoint_attempt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _F, _F, _I, _P, _L, _P, _L, _P,
+                                   _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                                   _P, _P, _P, _P],
 }
 
 

@@ -42,12 +42,18 @@ steps. ``per_attempt=True`` runs that mode at any world size (with a
 group of one rank, or no group and no exchange): at world size 1 it is
 the one-launch kernel bit for bit. The exchange is a collective per
 attempt: it does not go through the ``puflow::cnf_solve`` op.
+`cnf_adjoint_bwd` takes a group the same way (its per-attempt mode,
+`csrc/cnf_adjoint_attempt.cu`), where the parameters' cotangent G is
+replicated: the ranks exchange every G entry's two quadrature sums each
+attempt, so that each entry's tolerance is the global G's, and each rank
+returns its own part of G.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_map
 
 from puflow_torch.models.continuous import (exact_div_field, field_plain_csl,
                                             field_with_exact_div, plain_field)
@@ -491,13 +497,16 @@ def cnf_adjoint_bwd_plain(layers, c: torch.Tensor, y1: torch.Tensor,
                           rtol: float = 1e-5, atol: float = 1e-5,
                           max_steps: int = 128, with_trace: bool = True,
                           logp1: torch.Tensor | None = None,
-                          return_stats: bool = False):
+                          return_stats: bool = False, group=None):
     """The backward solve as tensor ops on any device: `adjoint_backward`
     of the exact-trace field (state ``((y, logp), (a, ap), {"layers",
     "c"})``) or, without the trace, of the plain field (state ``(y, a,
     {"layers", "c"})``), from t1 to t0, the conditions repeated where they
     serve r rows, as `make_adjoint_odeint`'s backward solves them. ``logp1``
-    (zeros if None) enters only the error norm.
+    (zeros if None) enters only the error norm. With a ``group`` of more
+    than one rank the rows are this rank's shard, every step is the global
+    batch's, the layers' cotangent enters the error norm as one replicated
+    leaf (`adjoint_backward`) and comes back as this rank's part of it.
 
     Returns ``(y0, a0, dc, dlayers, (f1, div1, f0, div0))``: the start
     state, its cotangent, the cotangent of ``c`` (summed over repeats),
@@ -514,8 +523,10 @@ def cnf_adjoint_bwd_plain(layers, c: torch.Tensor, y1: torch.Tensor,
         bar1 = (a1, ap)
     else:
         func, state1, bar1 = plain_field(), y1, a1
+    replicated = {"layers": tree_map(lambda _: True, layers), "c": False}
     out = adjoint_backward(func, p, state1, bar1, t1, t0, rtol, atol,
-                           max_steps, return_stats=True)
+                           max_steps, return_stats=True, group=group,
+                           replicated=replicated)
     (state0, bar0, g), stats = out
     with torch.no_grad():
         f1, f0 = func(p, t1, state1), func(p, t0, state0)
@@ -587,10 +598,16 @@ def _unpack_grads(layers, g: torch.Tensor, cdim: int):
     return _like(layers, grads)
 
 
+# floats after the two G vectors of an exchange of the per-attempt
+# adjoint: the row terms' sum and count (doubles), the grid, padding
+_EXCHANGE_TAIL = 6
+
+
 def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
-                    max_steps, with_trace):
-    """Launch `csrc/cnf_adjoint.cu` -> (y0, a0, dc, dlayers, bnd, stats
-    int32 [2] on the device)."""
+                    max_steps, with_trace, group=None, per_attempt=False):
+    """Launch `csrc/cnf_adjoint.cu` (``per_attempt``: its per-attempt mode,
+    `_adjoint_attempts`) -> (y0, a0, dc, dlayers, bnd, stats int32 [2] on
+    the device)."""
     dev = y1.device
     if logp1 is None:
         logp1 = torch.zeros_like(ap)
@@ -618,19 +635,23 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
     g = torch.empty((ng,), **f32)
     bnd = torch.empty((B, N, 8), **f32)
     stats = torch.zeros((2,), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.puflow_cnf_adjoint(
-            y1.data_ptr(), logp1.data_ptr(), a1.data_ptr(), ap.data_ptr(),
+    # every tensor a launch reads stays referenced until the last launch
+    t01 = _t01(t0, t1, dev)
+    args = (y1.data_ptr(), logp1.data_ptr(), a1.data_ptr(), ap.data_ptr(),
             c2.data_ptr(), proj.data_ptr(), weights.data_ptr(),
-            wct.data_ptr(), _t01(t0, t1, dev).data_ptr(), n_rows, r,
+            wct.data_ptr(), t01.data_ptr(), n_rows, r,
             cdim + pad, cdim, int(with_trace), float(rtol), float(atol),
-            int(max_steps),
-            rows.data_ptr(), rows.numel(), per_grid.data_ptr(),
-            per_grid.numel(), partials.data_ptr(), partials.numel(), grid,
-            y0.data_ptr(), a0.data_ptr(), dc.data_ptr(), g.data_ptr(),
-            bnd.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev))
-    _build.check(code, "puflow_cnf_adjoint")
+            int(max_steps), rows.data_ptr(), rows.numel(),
+            per_grid.data_ptr(), per_grid.numel(), partials.data_ptr(),
+            partials.numel(), grid, y0.data_ptr(), a0.data_ptr(),
+            dc.data_ptr(), g.data_ptr(), bnd.data_ptr(), stats.data_ptr())
+    with torch.cuda.device(dev):
+        if per_attempt:
+            _adjoint_attempts(args, ng, max_steps, group, dev)
+        else:
+            code = _build.library().puflow_cnf_adjoint(
+                *args, _build.stream_ptr(dev))
+            _build.check(code, "puflow_cnf_adjoint")
     cnf_adjoint_bwd.launches += 1
     if cnf_adjoint_bwd.stats_log is not None:
         cnf_adjoint_bwd.stats_log.append(stats)
@@ -639,12 +660,55 @@ def _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r, rtol, atol,
             _unpack_grads(layers, g, cdim), bnd, stats)
 
 
+def _adjoint_attempts(args, ng: int, max_steps: int, group, dev) -> None:
+    """The backward solve in the per-attempt mode
+    (`csrc/cnf_adjoint_attempt.cu:puflow_cnf_adjoint_attempt`) on
+    `_adjoint_kernel`'s arguments: one launch an attempt; after each the
+    host reads the finished flag and, with a group (of any size), the
+    ranks exchange their sums (every G entry's two quadratures, the row
+    terms and their count) by one all-reduce of a zero-filled int32 view
+    of them, which carries the bits exactly; the next launch adds them in
+    rank order. Every rank's grid must be the same (the same rows on the
+    same card model), as every rank's G terms must be summed alike: checked
+    at the first exchange. Counts the launches in `attempt_launches`."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    local = torch.zeros((2 * ng + _EXCHANGE_TAIL,), **f32)
+    ctrl = torch.zeros((16,), dtype=torch.int32, device=dev)
+    distributed = is_distributed(group)
+    gloc = torch.empty((2 * ng,), **f32) if distributed else None
+    exchange, world = local, 1
+    lib = _build.library()
+    stream = _build.stream_ptr(dev)
+    for attempt in range(max_steps + 1):
+        code = lib.puflow_cnf_adjoint_attempt(
+            *args, attempt, exchange.data_ptr(), world, ctrl.data_ptr(),
+            local.data_ptr(), _ptr(gloc), stream)
+        _build.check(code, "puflow_cnf_adjoint_attempt")
+        cnf_adjoint_bwd.attempt_launches += 1
+        if int(ctrl[8 * (attempt & 1) + 5]):
+            return
+        if group is not None:
+            exchange = gather_batch(local.view(torch.int32).view(1, -1),
+                                    group).view(torch.float32).reshape(-1)
+            world = group.world_size
+            if attempt == 0:
+                grids = exchange.view(world, -1)[:, 2 * ng + 4].tolist()
+                if len(set(grids)) != 1:
+                    raise RuntimeError(
+                        f"cnf_adjoint_bwd: the ranks' grids {grids} differ: "
+                        "every rank must hold as many rows on the same card "
+                        "model")
+    raise RuntimeError(f"cnf_adjoint_bwd: the per-attempt solve did not "
+                       f"finish within {max_steps} attempts")
+
+
 def cnf_adjoint_bwd(layers, c: torch.Tensor, y1: torch.Tensor,
                     a1: torch.Tensor, ap: torch.Tensor, t0, t1,
                     rtol: float = 1e-5, atol: float = 1e-5,
                     max_steps: int = 128, with_trace: bool = True,
                     logp1: torch.Tensor | None = None,
-                    return_stats: bool = False):
+                    return_stats: bool = False, group=None,
+                    per_attempt: bool = False):
     """The backward solve of one block's continuous adjoint from t1 to t0:
     the CUDA kernel for CUDA tensors, `cnf_adjoint_bwd_plain` for CPU
     tensors.
@@ -660,6 +724,13 @@ def cnf_adjoint_bwd(layers, c: torch.Tensor, y1: torch.Tensor,
       logp1: the log-density at t1 (``with_trace`` only; zeros if None),
         which enters only the error norm.
       return_stats: also return the step counts, as `cnf_solve_t` does.
+      group: a `parallel.Group`; with more than one rank the rows are this
+        rank's shard, every step is the global batch's (the layers'
+        cotangent judged as one replicated leaf) and ``dlayers`` is this
+        rank's part of it: the kernel's per-attempt mode on CUDA tensors,
+        `cnf_adjoint_bwd_plain` with the group on CPU tensors.
+      per_attempt: run the per-attempt mode (CUDA tensors) at any world
+        size, exchanging through ``group`` if one is given.
 
     Returns:
       ``(y0, a0, dc, dlayers, (f1, div1, f0, div0))`` as
@@ -672,14 +743,18 @@ def cnf_adjoint_bwd(layers, c: torch.Tensor, y1: torch.Tensor,
         raise ValueError(f"cnf_adjoint_bwd: cotangents {tuple(a1.shape)}, "
                          f"{tuple(ap.shape)} do not match y1 "
                          f"{tuple(y1.shape)}")
+    split = _per_attempt(y1, group, per_attempt)
     if y1.device.type == "cpu":
         return cnf_adjoint_bwd_plain(layers, c, y1, a1, ap, t0, t1, rtol,
                                      atol, max_steps, with_trace, logp1,
-                                     return_stats)
+                                     return_stats, group)
     *out, stats = _adjoint_kernel(layers, c, y1, a1, ap, logp1, t0, t1, r,
-                                  rtol, atol, max_steps, with_trace)
+                                  rtol, atol, max_steps, with_trace, group,
+                                  split)
     return (*out, stats) if return_stats else tuple(out)
 
 
+# One a solve in either mode; `attempt_launches` as `cnf_solve`'s.
 cnf_adjoint_bwd.launches = 0
+cnf_adjoint_bwd.attempt_launches = 0
 cnf_adjoint_bwd.stats_log = None

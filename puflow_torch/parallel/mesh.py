@@ -175,13 +175,23 @@ def gather_batch(x: torch.Tensor, group: Group) -> torch.Tensor:
     return full
 
 
-def rank_order_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
+def rank_order_sum(x: torch.Tensor, group: Group,
+                   differentiable: bool = False) -> torch.Tensor:
     """The sum over the ranks of ``x``, added in rank order: the same bits
     on every rank. `gather_batch` hands every rank every rank's ``x``
     exactly, and each rank then adds them alike; a plain ``all_reduce``
     does not promise one order of its additions on every rank, and a
-    dopri5 decision taken from such a sum could differ between ranks."""
-    parts = gather_batch(x.reshape(1, *x.shape), group)
+    dopri5 decision taken from such a sum could differ between ranks.
+    ``differentiable``: the zero-filled global tensor is built by
+    concatenation and summed through `all_reduce_sum`, so that gradients
+    reach every rank's ``x`` (the masked dopri5 loop's error norm)."""
+    if differentiable:
+        r, w = group.rank, group.world_size
+        parts = all_reduce_sum(torch.cat([
+            x.new_zeros((r, *x.shape)), x.reshape(1, *x.shape),
+            x.new_zeros((w - r - 1, *x.shape))]))
+    else:
+        parts = gather_batch(x.reshape(1, *x.shape), group)
     total = parts[0]
     for w in range(1, group.world_size):
         total = total + parts[w]

@@ -33,10 +33,14 @@ the EMD) a step gives the global loss's gradient. The NaN guard, the
 clip and Adam then run on identical inputs on every rank, so the
 parameters stay bit-equal; rank 0's parameters, BN state and Adam state
 are broadcast at construction and after a restore, and only rank 0
-writes files and logs. The continuous family is refused over more than
-one rank: the adjoint kernel does not yet take its error norm across
-ranks (ROADMAP.md, Queue 1 item 9c-ii; CNF serving and the validation NLL
-take a group since item 9c-i).
+writes files and logs. Either family trains so: in the continuous one
+every dopri5 solve of the step (forward and adjoint) takes the global
+batch's steps and each backward solve gives this rank's part of the
+layers' gradient, which the one all-reduce adds; its validation passes
+the group to `continuous.forward(train=False)` too, whose solves then take
+the global batch's steps and whose NLL is the global mean. The discrete
+family's validation runs each rank's shard alone (it has no adaptive
+solve).
 """
 
 from __future__ import annotations
@@ -241,11 +245,14 @@ def make_train_step(optimizer: ClipAdam, cfg: TrainConfig,
 
 @torch.no_grad()
 def eval_step(params, bn_state, sparse, dense, upratio: int,
-              forward_fn: Callable = discrete.forward) -> dict:
+              forward_fn: Callable = discrete.forward, group=None) -> dict:
     """Validation on trees: the NLL (``vloss``) and the summed kaolin
-    chamfer (``CD``), as tensors."""
+    chamfer (``CD``), as tensors. ``group`` goes to ``forward_fn`` where it
+    is given (the continuous family's, whose validation solves then take
+    the global batch's steps)."""
+    kw = {} if group is None else {"group": group}
     pred, logpx, _ = forward_fn(params, bn_state, sparse, upratio,
-                                train=False)
+                                train=False, **kw)
     return {"vloss": logpx, "CD": torch.sum(chamfer_distance_kaolin(pred,
                                                                      dense))}
 
@@ -280,13 +287,6 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, params, bn_state,
                  forward_fn: Callable = discrete.forward, device=None,
                  group=None):
-        if is_distributed(group) and forward_fn is not discrete.forward:
-            raise NotImplementedError(
-                "data-parallel training takes the discrete family only: "
-                "the CNF family's training half of data parallelism (the "
-                "adjoint kernel's error norm across ranks, the trainer and "
-                "train_cnf under torchrun) is ROADMAP.md Queue 1 item 9c-ii; "
-                "its serving and validation NLL take a group")
         if group is not None:
             if device is not None and resolve_device(device) != group.device:
                 raise ValueError(f"device {device} is not the group's "
@@ -295,6 +295,9 @@ class Trainer:
         self.cfg = cfg
         self.forward_fn = forward_fn
         self.group = group
+        # the group reaches validation's forward in the continuous family
+        self._eval_group = (group if is_distributed(group)
+                            and forward_fn is not discrete.forward else None)
         self.device = resolve_device("cuda" if device is None else device)
         self.param_layout = TreeLayout(params)
         self.state_layout = TreeLayout(bn_state)
@@ -396,11 +399,13 @@ class Trainer:
         params, bn_state = self.trees()
         step_metrics = [
             eval_step(params, bn_state, self._shard(sparse),
-                      self._shard(dense), self.cfg.upratio, self.forward_fn)
+                      self._shard(dense), self.cfg.upratio, self.forward_fn,
+                      self._eval_group)
             for sparse, dense in batches]
         if not step_metrics:
             return {"CD": 0.0, "vloss": 0.0}
-        # with a group: CD summed over the ranks, the NLL their mean
+        # with a group: CD summed over the ranks, the NLL their mean (in
+        # the continuous family every rank's is the global batch's already)
         stacked = _stack(step_metrics, self.device, self.group)
         if self.group is not None:
             stacked["vloss"] = stacked["vloss"] / self.group.world_size

@@ -5,8 +5,9 @@
 
 Each variant is a copy of `puflow_torch/` and `chip_smoke.py` under
 `runs/adjoint_variants/` (gitignored) with one change to
-`csrc/cnf_adjoint.cu` (the `parent_` variants change a copy of the
-`--parent` checkout instead); all are built side by side, then each runs
+`csrc/cnf_adjoint.cuh`, where the kernel is (the `parent_` variants change
+`csrc/cnf_adjoint.cu` of a copy of the `--parent` checkout instead, a tree
+of before PR 15, whose kernel was in that source); all are built side by side, then each runs
 in its own process at the training path's two shapes, as
 `chip_smoke.py:compare_cnf_adjoint` makes them (perturbed blocks, condition
 width 128): f, with the trace, R = 8,192; g, without it, R = 32,768, each
@@ -48,10 +49,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "runs" / "adjoint_variants"
-ADJ = "puflow_torch/csrc/cnf_adjoint.cu"
+ADJ = "puflow_torch/csrc/cnf_adjoint.cuh"
+# the one-launch kernel's source, which ptxas compiles; the parent_ variants'
+# kernel
+ADJ_SRC = "puflow_torch/csrc/cnf_adjoint.cu"
 MMA = "puflow_torch/csrc/mma_tf32.cuh"
 PATHS = ("f", "g")
-# the phases of `cnf_adjoint.cu`'s clock (enum Phase), in order
+# the phases of `cnf_adjoint.cuh`'s clock (enum Phase), in order
 PHASES = ("setup", "input", "L1", "L2", "L3", "R2", "R1", "R1b", "F",
           "tile end", "grad out", "dc", "c^T Q", "sync 1", "reduce",
           "control")
@@ -92,19 +96,19 @@ CLOCK = "constexpr bool kClock = false;"
 
 VARIANTS = {
     "parent_diag_no_grad_sums": [
-        (ADJ, swap(P_GRAD_SUMS, P_GRAD_SUMS.replace("e < kGOwn", "e < 0")))],
+        (ADJ_SRC, swap(P_GRAD_SUMS, P_GRAD_SUMS.replace("e < kGOwn", "e < 0")))],
     "parent_diag_no_cond": [
-        (ADJ, swap(P_CTQ, P_CTQ.replace("blk < (cdim / 4) * njb", "blk < 0"))),
-        (ADJ, swap(P_WCQ, P_WCQ.replace("blk < kSuper * (cdim / 4)",
+        (ADJ_SRC, swap(P_CTQ, P_CTQ.replace("blk < (cdim / 4) * njb", "blk < 0"))),
+        (ADJ_SRC, swap(P_WCQ, P_WCQ.replace("blk < kSuper * (cdim / 4)",
                                         "blk < 0")))],
     "parent_diag_no_g_reduction": [
-        (ADJ, swap(P_GRED, "for (int bb = 0; bb < 0; ++bb) {"))],
+        (ADJ_SRC, swap(P_GRED, "for (int bb = 0; bb < 0; ++bb) {"))],
     "parent_diag_forward_only": [
-        (ADJ, swap(P_FWD, P_FWD.replace("\n  // layer", "\n  return;\n  //"))),
-        (ADJ, swap(P_CTQ, P_CTQ.replace("blk < (cdim / 4) * njb", "blk < 0"))),
-        (ADJ, swap(P_WCQ, P_WCQ.replace("blk < kSuper * (cdim / 4)",
+        (ADJ_SRC, swap(P_FWD, P_FWD.replace("\n  // layer", "\n  return;\n  //"))),
+        (ADJ_SRC, swap(P_CTQ, P_CTQ.replace("blk < (cdim / 4) * njb", "blk < 0"))),
+        (ADJ_SRC, swap(P_WCQ, P_WCQ.replace("blk < kSuper * (cdim / 4)",
                                         "blk < 0"))),
-        (ADJ, swap(P_GRED, "for (int bb = 0; bb < 0; ++bb) {"))],
+        (ADJ_SRC, swap(P_GRED, "for (int bb = 0; bb < 0; ++bb) {"))],
     "kept": [],
     # registers: the 64-wide products two k chunks at a time, the trace's
     # gradient products one at a time
@@ -154,7 +158,7 @@ def ptxas(d: Path) -> subprocess.Popen:
 
     return subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-         str(d / ADJ), "-o", os.devnull], stdout=subprocess.PIPE,
+         str(d / ADJ_SRC), "-o", os.devnull], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
 
 

@@ -1386,6 +1386,88 @@ def test_cnf_attempt_mode_with_a_rank_of_no_rows(card, tmp_path):
         assert other["out"].shape[0] == 0
 
 
+def _adjoint_attempt_case(card, b, n, r, cdim, time_scale, with_trace):
+    """An adjoint case as `torch_parallel_cnf_cases._adjoint_case` takes
+    it (numpy), from the shapes of `test_cnf_adjoint_kernel_matches_plain`."""
+    layers = tree_map(lambda t: t.cpu().numpy(),
+                      _cnf_layers(card, cdim, b + n, time_scale))
+    rng = np.random.RandomState(n + cdim + 2)
+
+    def rand(*shape, scale):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    ap = (rand(b, n, 1, scale=0.3) if with_trace
+          else np.zeros((b, n, 1), np.float32))
+    return {"layers": layers,
+            "args": [rand(b, n // r, cdim, scale=0.3),
+                     rand(b, n, 3, scale=0.5), rand(b, n, 3, scale=0.3), ap,
+                     0.0, 0.36],
+            "with_trace": with_trace,
+            "logp1": rand(b, n, 1, scale=0.1) if with_trace else None}
+
+
+@pytest.mark.parametrize("with_trace", [False, True])
+@pytest.mark.parametrize("b,n,r,cdim,time_scale", [
+    (2, 333, 1, 128, 20.0), (4, 231, 3, 64, 20.0), (2, 40, 1, 6, 0.0),
+    (1, 1, 1, 32, 0.0)])
+def test_cnf_adjoint_attempt_mode_is_the_one_launch_kernel(
+        card, with_trace, b, n, r, cdim, time_scale):
+    """``cnf_adjoint_bwd(per_attempt=True)`` with no group, in this
+    process: y0, a0, dc, every parameter gradient, the boundary fields and
+    the stats bit-equal to the one-launch kernel's, two runs alike; the
+    wrapper's counts (one solve, attempts + 1 per-attempt launches); and a
+    step budget of 2 (the launch that finishes after the budget)."""
+    from torch_parallel_cnf_cases import _adjoint_case, adjoint_outputs
+
+    args, kw = _adjoint_case(_adjoint_attempt_case(
+        card, b, n, r, cdim, time_scale, with_trace), card)
+    wrapper = cnf.cnf_adjoint_bwd
+    for budget in ({}, {"max_steps": 2}):
+        solves, launches = wrapper.launches, wrapper.attempt_launches
+        got = wrapper(*args, **kw, **budget, return_stats=True,
+                      per_attempt=True)
+        assert wrapper.launches == solves + 1
+        assert wrapper.attempt_launches - launches == int(got[-1][0]) + 1
+        again = wrapper(*args, **kw, **budget, per_attempt=True,
+                        return_stats=True)
+        one = wrapper(*args, **kw, **budget, return_stats=True)
+        assert got[-1].tolist() == one[-1].tolist()
+        np.testing.assert_array_equal(adjoint_outputs(got),
+                                      adjoint_outputs(one))
+        np.testing.assert_array_equal(adjoint_outputs(again),
+                                      adjoint_outputs(one))
+
+
+@pytest.mark.parametrize("with_trace", [False, True])
+def test_cnf_adjoint_attempt_mode_over_two_ranks(card, tmp_path, with_trace):
+    """Two `gloo` ranks on the one card, two clouds each (r = 3 without
+    the trace), time rows of scale 20: both ranks take the one-launch
+    kernel's steps on the whole batch, their rows' y0, a0 and dc lie
+    within 5e-5 of its (max-relative) and their parts of the layers'
+    gradient add up to its within 2e-4 (max-relative): the ranks' sums add
+    in another order than one grid's."""
+    from torch_parallel_cases import run_ranks
+    from torch_parallel_cnf_cases import (_adjoint_case, sharded_adjoint_rank,
+                                          split_adjoint)
+
+    r = 1 if with_trace else 3
+    case = _adjoint_attempt_case(card, 4, 231, r, 64, 20.0, with_trace)
+    args, kw = _adjoint_case(case, card)
+    one = split_adjoint(cnf.cnf_adjoint_bwd(*args, **kw, return_stats=True))
+    ranks = run_ranks(sharded_adjoint_rank, 2, case, devices=["cuda:0"] * 2,
+                      tmp=tmp_path)
+    assert ranks[0]["steps"] == ranks[1]["steps"] == one["steps"]
+    # y0, a0 and dc of each rank's rows, in the one-process layout
+    n = 231 * 4
+    parts = [np.split(rk["rows"], [3 * n // 2, 3 * n]) for rk in ranks]
+    whole = np.split(one["rows"], [3 * n, 6 * n])
+    for i, w in enumerate(whole):
+        got = np.concatenate([p[i] for p in parts])
+        assert np.abs(got - w).max() <= 5e-5 * np.abs(w).max(), i
+    g = ranks[0]["g"] + ranks[1]["g"]
+    assert np.abs(g - one["g"]).max() <= 2e-4 * np.abs(one["g"]).max()
+
+
 def test_gloo_sharded_upsample_on_the_card(card, tmp_path):
     """Two `gloo` ranks on the one card: `upsample_cloud_sharded` of the
     folded model launches the folded path's six kernels on each rank (FPS

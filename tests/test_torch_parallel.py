@@ -27,6 +27,8 @@ from puflow_tpu.inference.patch import (upsample_cloud_sharded as
 from puflow_tpu.models import discrete as j_discrete
 from puflow_tpu.ops.emd import emd_auction as j_emd_auction
 from puflow_tpu.parallel.mesh import make_mesh
+from torch_parallel_cnf_cases import (cnf_forward_train,
+                                      cnf_forward_train_rank)
 from torch_parallel_cases import (EMD_ITERS, bn_rank, grad_rank, run_ranks,
                                   seeded_first_step, trainer_rank,
                                   upsample_rank)
@@ -200,20 +202,35 @@ def test_upsample_cloud_sharded_matches_jax_and_one_process(tmp_path):
     assert moved.mean() <= 0.01, moved.sum(1)
 
 
-def test_the_continuous_family_is_refused():
-    """Neither the data-parallel trainer nor `continuous.forward(train=True,
-    group=)` takes the CNF family over more than one rank: training's half
-    of CNF data parallelism (the adjoint kernel's error norm across ranks)
-    is item 9c-ii. Its serving and validation NLL take a group
-    (tests/test_torch_parallel_cnf.py)."""
-    params, state = t_continuous.init(torch.Generator().manual_seed(0),
-                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="9c"):
-        Trainer(TrainConfig(), params, state,
-                forward_fn=t_continuous.forward, group=CPU_GROUP)
-    with pytest.raises(NotImplementedError, match="9c-ii"):
-        t_continuous.forward(params, state, torch.zeros((2, 16, 3)), 4,
-                             train=True, group=CPU_GROUP)
+def test_the_continuous_family_is_refused(tmp_path):
+    """Nothing of the CNF family's training is refused over more than one
+    rank any more: the data-parallel trainer takes `continuous.forward`
+    (tests/test_torch_parallel_cnf_train.py trains with it), and
+    `continuous.forward(train=True, group=)` over 2 ranks at 16 points a
+    cloud gives both ranks one process's NLL within 1e-5 relative (the
+    global batch's mean) and new BN state within 1e-6 (global-batch
+    statistics), and the ranks' parts of the NLL's gradient (each rank's
+    of NLL / W, as the trainer weights the global NLL every rank holds)
+    add up to one process's within ``1e-4 * scale + 1e-6`` a leaf (tests/test_train.py's
+    form of gate, scale the leaf's largest entry and at least 1e-3: the
+    biases before train-mode BN have a zero gradient but for rounding)."""
+    params, state = jax.tree.map(
+        lambda t: t.numpy(),
+        t_continuous.init(torch.Generator().manual_seed(0), device="cpu"))
+    x = (np.random.RandomState(6).randn(W, 16, 3) * 0.3).astype(np.float32)
+    one = cnf_forward_train(params, state, x, 4)
+    ranks = run_ranks(cnf_forward_train_rank, W, params, state, x, 4,
+                      tmp=tmp_path)
+    assert ranks[0]["nll"] == ranks[1]["nll"]
+    np.testing.assert_allclose(ranks[0]["nll"], one["nll"], rtol=1e-5)
+    for r in ranks:
+        for got, want in zip(r["bn"], one["bn"], strict=True):
+            np.testing.assert_allclose(got, want, atol=1e-6)
+    for i, want in enumerate(one["grads"]):
+        scale = max(np.abs(want).max(), 1e-3)
+        np.testing.assert_allclose(ranks[0]["grads"][i] + ranks[1]["grads"][i],
+                                   want, atol=1e-4 * scale + 1e-6,
+                                   err_msg=str(i))
 
 
 def test_shard_batch_lays_rows_out_as_a_batch_sharding():

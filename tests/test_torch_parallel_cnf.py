@@ -17,10 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from puflow_torch import parallel
 from puflow_torch.models import continuous as t_cont
 from puflow_torch.models import discrete as t_discrete
-from puflow_torch.models.ode import odeint_dopri5
 from puflow_torch.ops import cnf as t_cnf
 from puflow_tpu.checkpoint import _cnf_sample_fn
 from puflow_tpu.inference.patch import (upsample_cloud_sharded as
@@ -32,11 +30,10 @@ from torch_parallel_cases import run_ranks
 from torch_parallel_cnf_cases import (cnf_eval_one_process, cnf_eval_rank,
                                       cnf_upsample_one_process,
                                       cnf_upsample_rank, decay_solve,
-                                      plain_solver_rank)
+                                      masked_decay_rank, plain_solver_rank)
 from torch_threads import one_torch_thread  # noqa: F401
 
 W = 2
-CPU_GROUP = parallel.Group(0, W, torch.device("cpu"), "gloo")
 
 
 def _perturbed_cnf_trees(seed: int):
@@ -168,16 +165,37 @@ def test_cnf_forward_eval_with_a_group_matches_jax(tmp_path):
     np.testing.assert_allclose(got, one["x"], atol=1e-4)
 
 
-def test_what_takes_no_group_refuses_one():
-    """Without spawning ranks: the masked loop refuses a group of more
-    than one rank, naming item 9c-ii (training's half of CNF data
-    parallelism); the per-attempt mode takes CUDA tensors only."""
+def test_what_takes_no_group_refuses_one(tmp_path):
+    """The per-attempt modes take CUDA tensors only: the solve's and the
+    adjoint's refuse CPU tensors. The masked loop, which refused a group
+    of more than one rank until CNF training went data parallel, takes
+    one: `odeint_dopri5(differentiable=True, group=)` of `decay_field`
+    over 2 ranks (rank 0 the four slow rows, rank 1 the four stiff ones,
+    32 masked steps) gives the one-process solution to 1e-6, and the
+    ranks' gradients of their rows' ``sum(y * w)`` with respect to the
+    rates (each rank's through its own rows and, by the differentiable
+    exchange, through the error norm of every row) add up to one
+    process's within 1e-5 relative."""
     params, _ = t_cont.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="9c-ii"):
-        odeint_dopri5(lambda t, y: -y, torch.ones(4, 3), 0.0, 1.0,
-                      differentiable=True, group=CPU_GROUP)
     layers = params["flow_blocks"][0]["layers"]
     c = torch.zeros((1, 8, layers[0]["hyper_gate"]["w"].shape[0] - 1))
+    y = torch.zeros((1, 8, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        t_cnf.cnf_solve(layers, c, torch.zeros((1, 8, 3)), 0.5,
-                        per_attempt=True)
+        t_cnf.cnf_solve(layers, c, y, 0.5, per_attempt=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_cnf.cnf_adjoint_bwd(layers, c, y, y, torch.zeros((1, 8, 1)), 0.5,
+                              0.0, per_attempt=True)
+
+    rng = np.random.RandomState(2)
+    k = np.array([0.3, 0.5, 0.7, 0.9, 30.0, 45.0, 60.0, 80.0], np.float32)
+    y0 = rng.uniform(0.5, 1.5, (8, 3)).astype(np.float32)
+    w = rng.randn(8, 3).astype(np.float32)
+    one = masked_decay_rank(None, k, y0, w, 0.2)
+    ranks = run_ranks(masked_decay_rank, W, k, y0, w, 0.2, tmp=tmp_path)
+    for r in ranks:
+        assert r["steps"] == one["steps"]
+    np.testing.assert_allclose(np.concatenate([r["y"] for r in ranks]),
+                               one["y"], atol=1e-6)
+    grad = ranks[0]["grad"] + ranks[1]["grad"]
+    err = np.abs(grad - one["grad"]).max() / np.abs(one["grad"]).max()
+    assert err < 1e-5, (grad, one["grad"])
